@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py
 
-1. builds the CUDA kernels (one nvcc call) and loads them with ctypes;
-2. holds each kernel against its plain PyTorch version on the card, at
-   every lane count the main path uses (those that num_lanes='auto' picks
-   for the three lambdas: N = 16, 64 and 128) on random symbols at
-   qarv_base 512x768 size (about 617k symbols, with tail rows and
-   escapes), and times both;
-3. runs the codec's main path, qarv_base with the committed weights on
-   images/photo1_512x768.png at lambda 16, 512 and 2048 through
-   compress_file / decompress_file, counting the kernels' launches, and
-   checks that decoding is bit-exact against the encode side's
-   reconstruction and that rate and quality match the JAX package's
-   recorded results.
+1. builds the CUDA kernels (one nvcc call per source of csrc/, started
+   together, and one link) and loads them with ctypes;
+2. holds both rANS kernels against their plain PyTorch versions on the
+   card, at every lane count the main path uses (those that
+   num_lanes='auto' picks for the three lambdas: N = 16, 64 and 128) on
+   random symbols at qarv_base 512x768 size (about 617k symbols, with tail
+   rows and escapes), and times both;
+3. runs qarv_base with the committed weights on images/photo1_512x768.png
+   through compress_file / decompress_file at lambda 16, 512 and 2048, on
+   the legacy trunk and on the portable trunk (the main path: files are
+   portable streams), plus images/hopper_576x512.png at 512 (portable);
+   counts every kernel's launches in each call, checks that decoding is
+   bit-exact against the encode side's reconstruction and that rate and
+   quality match the JAX package's recorded results;
+4. holds the seven portable-trunk kernels against their plain versions on
+   the inputs the main path gives them (captured from one photo1
+   encode and decode, every distinct shape), checks that a batch of two
+   gives the first image the bits it gets alone, and times each kernel, its
+   plain version and, for dense, torch.addmm (device times from CUDA-graph
+   replays, and the eager wrapper's time beside them);
+5. decodes photo1's portable file in a fresh python3 process with TF32 and
+   cudnn.benchmark on, and checks the pixels bitwise.
 
 Standard output: the card line of nvidia-smi, then one JSON object per line
-(build, card, kernels, codec), then the result line. Progress goes to
-standard error. Any failure raises and exits non-zero; without a CUDA card
-the script exits 1 before printing any result.
+(build, card, codec, trunk, fresh_process, kernels), then the result line.
+Progress goes to standard error. Any failure raises and exits non-zero;
+without a CUDA card the script exits 1 before printing any result.
 """
 import json
 import math
@@ -30,15 +40,40 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, 'checkpoints',
                           'qarv_base_mixed20k_ema_f16.msgpack')
 PHOTO = os.path.join(ROOT, 'images', 'photo1_512x768.png')
+HOPPER = os.path.join(ROOT, 'images', 'hopper_576x512.png')
 LAMBDAS = (16.0, 512.0, 2048.0)
-# the JAX package's photo1 results (runs/suite4-r5mix.json): (bpp, PSNR dB)
-REFERENCE = {512.0: (1.4931, 35.76), 2048.0: (1.811, 36.22)}
+# the JAX package's results (runs/suite4-r5mix.json): (bpp, PSNR dB); the
+# photo1 ones gate the run, hopper's is reported beside the port's
+REFERENCE = {(PHOTO, 512.0): (1.4931, 35.76), (PHOTO, 2048.0): (1.811, 36.22)}
+REPORTED = {(HOPPER, 512.0): (1.7628, 36.62)}
 BPP_REL_TOL, PSNR_TOL_DB = 0.02, 0.2
+# kernel launches per image, by trunk (lvae_tpu/models/qarv/zoo.py:55-89):
+# encode runs the trunk to the compression stop (emb, 24 ConvNeXt blocks =
+# 24 dw_ln_mod + 24 mlp_res, 3 upsample convs, 9 priors and fuses: 70
+# trunk launches) and the rANS encode; decode adds the tail (9 ConvNeXt
+# blocks, 2 upsample convs, the finish: 91) and decodes 9 latent blocks
+TRUNK_NAMES = ('emb_mlp', 'dw_ln_mod', 'mlp_res', 'dense', 'prior_head',
+               'fuse_zproj', 'finish_image')
+RANS_NAMES = ('rans_encode_all', 'rans_decode_block')
+_NONE = dict.fromkeys(RANS_NAMES + TRUNK_NAMES, 0)
+EXPECTED_LAUNCHES = {
+    False: (dict(_NONE, rans_encode_all=1), dict(_NONE, rans_decode_block=9)),
+    True: (dict(_NONE, rans_encode_all=1, emb_mlp=1, dw_ln_mod=24,
+                mlp_res=24, dense=3, prior_head=9, fuse_zproj=9),
+           dict(_NONE, rans_decode_block=9, emb_mlp=1, dw_ln_mod=33,
+                mlp_res=33, dense=5, prior_head=9, fuse_zproj=9,
+                finish_image=1))}
+# trunk kernel vs plain version on the card: |kernel - plain| <= ATOL +
+# RTOL * |plain|; the plain products sum in cuBLAS's order, the kernels in
+# k order, over K up to 2048 and on residual features of magnitude ~1e2
+TRUNK_ATOL, TRUNK_RTOL = 1e-4, 1e-4
 # qarv_base 512x768 latent block sizes (1/64 .. 1/8 resolution)
 QARV_BASE_BLOCKS = (3072, 12288, 12288, 147456, 147456, 147456,
                     49152, 49152, 49152)
@@ -48,6 +83,10 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 # references taking seconds, so theirs are medians of 3, the first of which
 # is the run whose output the kernel is compared with
 KERNEL_REPEATS, PLAIN_REPEATS = 5, 3
+# trunk kernels: medians of 5 timings of 10 launches, captured in a CUDA
+# graph (device time) and eager (host launch time included); plain
+# versions, in a CUDA graph: of 3 timings of 3 calls
+TRUNK_INNER, TRUNK_PLAIN_INNER = 10, 3
 
 
 def elapsed():
@@ -229,93 +268,388 @@ def check_kernels(torch, np, table, device, lane_counts):
     return results
 
 
-def run_codec(torch, np, device, tmpdir):
-    import lvae_tpu_torch
+def launch_counters():
+    """{kernel name: wrapper} for every kernel of the main path."""
     from lvae_tpu_torch.ops import rans_decode as rd, rans_encode as re_
+    from lvae_tpu_torch.ops import trunk
+    counted = {'rans_encode_all': re_.rans_encode_all,
+               'rans_decode_block': rd.rans_decode_block}
+    counted.update((k.__name__, k) for k in trunk.KERNELS)
+    return counted
+
+
+def counted_call(fn):
+    """(fn(), {kernel: launches in that call}): every count set to 0 just
+    before the call and read just after it."""
+    counters = launch_counters()
+    for k in counters.values():
+        k.launches = 0
+    out = fn()
+    return out, {n: k.launches for n, k in counters.items()}
+
+
+def psnr_bpp(rec, im, n_bytes):
+    mse = float(np.mean((rec - im) ** 2))
+    return -10 * math.log10(mse + 1e-12), n_bytes * 8 / (im.shape[1]
+                                                          * im.shape[2])
+
+
+def run_codec(torch, model, portable, cases, tmpdir):
+    """compress_file -> decompress_file of each (image, lambda), on one
+    trunk, each call's kernel launches counted; the round trip checked
+    bitwise against compress_check, rate and quality against the JAX
+    package's results, the launches against the expected per-image counts;
+    then enc_ms / dec_ms (one warm-up, median of 3)."""
     from lvae_tpu_torch.utils import coding
-
-    t = time.perf_counter()
-    model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
-    model.compress_mode(num_lanes='auto')
-    load_s = time.perf_counter() - t
-    img = coding.read_png(PHOTO)
-    H, W = img.shape[:2]
-    im = img.astype(np.float32)[None] / 255.0
-    progress(f'qarv_base loaded ({model.num_params()} params) in '
-             f'{load_s:.1f} s; photo {H}x{W}')
-
-    rows, totals = [], {'rans_encode_all': 0, 'rans_decode_block': 0}
-    # the main path: one compress_file + decompress_file per lambda, the
-    # launch counts set to 0 just before and read just after each call
-    for lmb in LAMBDAS:
-        path = os.path.join(tmpdir, f'photo1_lmb{lmb:g}.bits')
-        re_.rans_encode_all.launches = 0
-        rd.rans_decode_block.launches = 0
-        model.compress_file(PHOTO, path, lmb=lmb)
-        enc_launches = {'rans_encode_all': re_.rans_encode_all.launches,
-                        'rans_decode_block': rd.rans_decode_block.launches}
-        re_.rans_encode_all.launches = 0
-        rd.rans_decode_block.launches = 0
-        rec = model.decompress_file(path)
-        dec_launches = {'rans_encode_all': re_.rans_encode_all.launches,
-                        'rans_decode_block': rd.rans_decode_block.launches}
-        for k in totals:
-            totals[k] += enc_launches[k] + dec_launches[k]
+    kind = 'portable' if portable else 'legacy'
+    rows = []
+    for image, lmb in cases:
+        img = coding.read_png(image)
+        H, W = img.shape[:2]
+        im = img.astype(np.float32)[None] / 255.0
+        path = os.path.join(tmpdir, f'{os.path.basename(image)}.{kind}.'
+                                    f'lmb{lmb:g}.bits')
+        _, enc_launches = counted_call(lambda: model.compress_file(
+            image, path, lmb=lmb, portable=portable))
+        rec, dec_launches = counted_call(lambda: model.decompress_file(path))
         with open(path, 'rb') as f:
-            file_bytes = f.read()
-        body = file_bytes[4:]
-        n_lanes = struct.unpack('<H', body[18:20])[0]
-        mse = float(np.mean((rec - im) ** 2))
-        psnr = -10 * math.log10(mse + 1e-12)
-        bpp = len(body) * 8 / (H * W)
-
+            body = f.read()[4:]
+        lanes_field = struct.unpack('<H', body[18:20])[0]
+        psnr, bpp = psnr_bpp(rec, im, len(body))
         # the port's own round-trip check: the encode side's
         # reconstruction of the same latents equals the decode, bitwise
-        body_chk, rec_chk = model.compress_check(im, lmb=lmb)
+        body_chk, rec_chk = model.compress_check(im, lmb=lmb,
+                                                 portable=portable)
         bit_exact = bool(body_chk == body
                          and np.array_equal(rec_chk[:, :H, :W], rec))
-
-        # timing: one warm-up round trip, then the median of 3
-        model.decompress(model.compress(im, lmb=lmb))
-        enc_ms = cuda_ms(torch, lambda: model.compress(im, lmb=lmb), 3)
+        model.decompress(model.compress(im, lmb=lmb, portable=portable))
+        enc_ms = cuda_ms(torch, lambda: model.compress(
+            im, lmb=lmb, portable=portable), 3)
         dec_ms = cuda_ms(torch, lambda: model.decompress(body), 3)
-        row = dict(lmb=lmb, lanes=n_lanes, bytes=len(body),
-                   file_bytes=len(file_bytes), bpp=bpp, psnr=psnr,
+        row = dict(trunk=kind, image=os.path.relpath(image, ROOT), lmb=lmb,
+                   lanes=lanes_field & 0x7FFF,
+                   portable_marker=bool(lanes_field & 0x8000),
+                   bytes=len(body), bpp=bpp, psnr=psnr,
                    finite=bool(np.isfinite(rec).all()),
-                   shape=list(rec.shape), bit_exact=bit_exact,
+                   shape=list(rec.shape), shape_ok=rec.shape == (1, H, W, 3),
+                   bit_exact=bit_exact,
                    enc_ms=enc_ms, dec_ms=dec_ms,
                    encode_launches=enc_launches,
-                   decode_launches=dec_launches)
-        if lmb in REFERENCE:
-            ref_bpp, ref_psnr = REFERENCE[lmb]
-            row.update(ref_bpp=ref_bpp, ref_psnr=ref_psnr,
-                       bpp_rel_diff=bpp / ref_bpp - 1,
-                       psnr_diff_db=psnr - ref_psnr)
+                   decode_launches=dec_launches, path=path)
+        ref = REFERENCE.get((image, lmb)) or REPORTED.get((image, lmb))
+        if ref:
+            row.update(ref_bpp=ref[0], ref_psnr=ref[1],
+                       bpp_rel_diff=bpp / ref[0] - 1,
+                       psnr_diff_db=psnr - ref[1],
+                       gated=(image, lmb) in REFERENCE)
         rows.append(row)
-        progress(f'codec lambda={lmb:g}: N={n_lanes} {bpp:.4f} bpp '
-                 f'{psnr:.2f} dB bit_exact={bit_exact} enc {enc_ms:.1f} ms '
+        progress(f'{kind} {os.path.basename(image)} lambda={lmb:g}: '
+                 f'N={row["lanes"]} {bpp:.4f} bpp {psnr:.2f} dB '
+                 f'bit_exact={bit_exact} enc {enc_ms:.1f} ms '
                  f'dec {dec_ms:.1f} ms')
 
+    want_enc, want_dec = EXPECTED_LAUNCHES[portable]
     for row in rows:
-        lmb = row['lmb']
-        require(row['bit_exact'], f'lambda {lmb}: decode is not bit-exact')
-        require(row['finite'] and row['shape'] == [1, H, W, 3],
-                f'lambda {lmb}: bad reconstruction')
-        require(row['encode_launches'] == {'rans_encode_all': 1,
-                                           'rans_decode_block': 0}
-                and row['decode_launches'] == {'rans_encode_all': 0,
-                                               'rans_decode_block': 9},
-                f'lambda {lmb}: unexpected kernel launches '
+        what = f'{kind} {row["image"]} lambda {row["lmb"]:g}'
+        require(row['bit_exact'], f'{what}: decode is not bit-exact')
+        require(row['portable_marker'] == portable,
+                f'{what}: wrong trunk-kind marker')
+        require(row['finite'] and row['shape_ok'],
+                f'{what}: bad reconstruction')
+        require(row['encode_launches'] == want_enc
+                and row['decode_launches'] == want_dec,
+                f'{what}: unexpected kernel launches '
                 f'{row["encode_launches"]} / {row["decode_launches"]}')
-        if 'ref_bpp' in row:
+        if row.get('gated'):
             require(abs(row['bpp_rel_diff']) <= BPP_REL_TOL,
-                    f'lambda {lmb}: bpp {row["bpp"]:.4f} vs {row["ref_bpp"]}')
+                    f'{what}: bpp {row["bpp"]:.4f} vs {row["ref_bpp"]}')
             require(abs(row['psnr_diff_db']) <= PSNR_TOL_DB,
-                    f'lambda {lmb}: PSNR {row["psnr"]:.2f} vs '
-                    f'{row["ref_psnr"]}')
-    return dict(model='qarv_base', weights=os.path.relpath(CHECKPOINT, ROOT),
-                image=os.path.relpath(PHOTO, ROOT), load_s=load_s,
-                num_lanes='auto', results=rows), totals
+                    f'{what}: PSNR {row["psnr"]:.2f} vs {row["ref_psnr"]}')
+    return rows
+
+
+# ---- the portable-trunk kernels --------------------------------------------
+
+# per kernel: which arguments are per image (batched along dim 0), so that a
+# batch of two can be built from a main-path input and a second image
+PER_IMAGE_ARGS = {'emb_mlp': (0,), 'dw_ln_mod': (0, 5), 'mlp_res': (0, 6),
+                  'dense': (0,), 'prior_head': (0,), 'fuse_zproj': (0, 1, 2),
+                  'finish_image': (0,)}
+
+
+def _signature(args):
+    return tuple((tuple(a.shape), str(a.dtype)) if hasattr(a, 'shape')
+                 else a for a in args)
+
+
+def capture_trunk_inputs(model, im, lmb):
+    """Run one portable encode and decode with every trunk wrapper wrapped
+    by a recorder: -> ({name: {signature: cloned args}}, {name: {signature:
+    (encode calls, decode calls)}})."""
+    from lvae_tpu_torch.ops import trunk
+    inputs = {n: {} for n in TRUNK_NAMES}
+    calls = {n: {} for n in TRUNK_NAMES}
+    originals = {n: getattr(trunk, n) for n in TRUNK_NAMES}
+    phase = {'i': 0}
+
+    def recorder(name, fn):
+        def call(*args):
+            sig = _signature(args)
+            if sig not in inputs[name]:
+                inputs[name][sig] = tuple(
+                    a.detach().clone() if hasattr(a, 'clone') else a
+                    for a in args)
+            n = calls[name].setdefault(sig, [0, 0])
+            n[phase['i']] += 1
+            return fn(*args)
+        # the wrappers count their launches through their module-level
+        # name, which is the recorder while it is installed
+        call.launches = 0
+        return call
+
+    for n, fn in originals.items():
+        setattr(trunk, n, recorder(n, fn))
+    try:
+        body = model.compress(im, lmb=lmb, portable=True)
+        phase['i'] = 1
+        model.decompress(body)
+    finally:
+        for n, fn in originals.items():
+            setattr(trunk, n, fn)
+    return inputs, calls
+
+
+def second_image(torch, name, args):
+    """The batch-of-two arguments: each per-image input beside a different
+    one (the same values flipped along their last axes, or another
+    lambda)."""
+    out = list(args)
+    for i in PER_IMAGE_ARGS[name]:
+        a = args[i]
+        other = (a * 0 + 512.0 if name == 'emb_mlp'
+                 else torch.flip(a, dims=[a.ndim - 1, a.ndim - 2]))
+        out[i] = torch.cat([a, other]).contiguous()
+    return out
+
+
+def work(name, args):
+    """(bytes the function must move, operations it does) for one call:
+    each input read once, each output written once."""
+    def n(a):
+        return a.numel()
+
+    if name == 'emb_mlp':
+        lmb, freqs, w0, b0, w1, b1, _ = args
+        B, (E0, E) = n(lmb), w0.shape
+        return (4 * (B + n(freqs) + n(w0) + n(b0) + n(w1) + n(b1) + 2 * B * E),
+                2 * B * (E0 * E + E * E))
+    if name == 'dw_ln_mod':
+        x, dwk, dwb, ew, eb, gemb, K = args
+        B, H, W, C = x.shape
+        return (4 * (2 * n(x) + n(dwk) + n(dwb) + n(ew) + n(eb) + n(gemb)),
+                n(x) * (2 * K * K + 8) + 2 * n(gemb) * 2 * C)
+    if name == 'mlp_res':
+        t, w1, b1, w2, b2, g, s = args
+        M = t.shape[0] * t.shape[1]
+        return (4 * (n(t) + 2 * n(s) + n(w1) + n(b1) + n(w2) + n(b2) + n(g)),
+                2 * M * (n(w1) + n(w2)))
+    if name == 'dense':
+        x, w, b = args
+        M = x.shape[0] * x.shape[1]
+        return 4 * (n(x) + M * w.shape[1] + n(w) + n(b)), 2 * M * n(w)
+    if name == 'prior_head':
+        x, w, b, table = args[:4]
+        M, Z = x.shape[0] * x.shape[1], w.shape[1] // 2
+        return (4 * (n(x) + n(w) + n(b) + n(table) + 2 * M * Z),
+                2 * M * n(w) + M * Z * n(table))
+    if name == 'fuse_zproj':
+        f, syms, pm, w, b = args
+        M = f.shape[0] * f.shape[1]
+        return (4 * (2 * n(f) + n(syms) + n(pm) + n(w) + n(b)),
+                2 * M * n(w))
+    if name == 'finish_image':
+        x, = args
+        return 4 * 2 * n(x), 4 * n(x)
+    raise KeyError(name)
+
+
+def per_call_ms(torch, fn, inner, repeats=5):
+    """Median over `repeats` CUDA-event timings of `inner` back-to-back
+    eager calls, divided by `inner`: the device time where the card is
+    busy, the host's launch time (checks, allocation, call) where not."""
+    def run():
+        for _ in range(inner):
+            fn()
+    return cuda_ms(torch, run, repeats) / inner
+
+
+def graph_ms(torch, fn, inner, repeats=5):
+    """Device time of one call: `inner` calls captured in one CUDA graph,
+    the replay timed with CUDA events (median of `repeats`) / `inner`; no
+    host work between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return cuda_ms(torch, graph.replay, repeats) / inner
+
+
+def check_trunk_kernels(torch, model, im, lmb):
+    """Each trunk kernel against its plain version on the card at every
+    main-path shape (the inputs captured from one photo1 encode + decode),
+    the B=1 vs B=2 bitwise check, and the times."""
+    from lvae_tpu_torch.ops import trunk
+    inputs, calls = capture_trunk_inputs(model, im, lmb)
+    torch.backends.cuda.matmul.allow_tf32 = False   # exact plain products
+    results = {}
+    for name in TRUNK_NAMES:
+        fn = getattr(trunk, name)
+        plain = trunk.PLAIN[fn]
+        shapes = []
+        for sig, args in inputs[name].items():
+            n_enc, n_dec = calls[name][sig]
+            got = fn(*args)
+            want = plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err, worst, flips, flips_ok = 0.0, 0.0, 0, True
+            for g, w in zip(got, want):
+                require(g.shape == w.shape and g.dtype == w.dtype,
+                        f'{name} {sig}: output {g.shape} {g.dtype} vs '
+                        f'{w.shape} {w.dtype}')
+                if g.dtype == torch.int32:      # scale indexes
+                    flip = g != w
+                    flips = int(flip.sum())
+                    if flips:
+                        # a flip is allowed only where the plain scale lies
+                        # within the float tolerance of a table entry
+                        _, pv, _ = trunk.prior_scales_plain(*args)
+                        table = args[3]
+                        near = ((pv[flip][:, None] - table[None]).abs()
+                                <= TRUNK_ATOL + TRUNK_RTOL * table[None])
+                        flips_ok = bool(near.any(1).all())
+                    continue
+                d = (g.float() - w.float()).abs()
+                err = max(err, float(d.max()))
+                worst = max(worst, float(
+                    (d / (TRUNK_ATOL + TRUNK_RTOL * w.float().abs())).max()))
+            # batch independence: the first image of a batch of two gets
+            # the bits it gets alone
+            two = fn(*second_image(torch, name, args))
+            two = two if isinstance(two, tuple) else (two,)
+            batch_ok = all(torch.equal(t[:1], g) for t, g in zip(two, got))
+            # device times from CUDA-graph replays; the eager time (what
+            # the codec pays, host launch time included) beside the
+            # kernel's
+            ms = graph_ms(torch, lambda: fn(*args), TRUNK_INNER)
+            eager_ms = per_call_ms(torch, lambda: fn(*args), TRUNK_INNER)
+            plain_ms = graph_ms(torch, lambda: plain(*args),
+                                TRUNK_PLAIN_INNER, repeats=3)
+            library_ms = None
+            if name == 'dense':
+                x, w, b = args
+                x2 = x.reshape(-1, x.shape[-1])
+                library_ms = graph_ms(torch, lambda: torch.addmm(b, x2, w),
+                                      TRUNK_INNER)
+            nbytes, ops = work(name, args)
+            shapes.append(dict(
+                shapes=[list(s[0]) if isinstance(s, tuple) else s
+                        for s in sig],
+                encode_calls=n_enc, decode_calls=n_dec, max_abs_err=err,
+                err_over_tolerance=worst, index_flips=flips,
+                flips_at_table_entries=flips_ok, batch_independent=batch_ok,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bytes=nbytes, ops=ops,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / SCALAR_OPS_PER_S) * 1e3))
+            progress(f'{name} {shapes[-1]["shapes"][0]}: err {err:.2e} '
+                     f'({worst:.2f} of tol) flips {flips} batch_ok '
+                     f'{batch_ok} {ms * 1e3:.1f} us, eager '
+                     f'{eager_ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} '
+                     f'us)')
+        for r in shapes:
+            what = f'{name} at {r["shapes"]}'
+            require(r['err_over_tolerance'] <= 1.0,
+                    f'{what}: disagrees with its plain version (max abs err '
+                    f'{r["max_abs_err"]:.3g})')
+            require(r['flips_at_table_entries'],
+                    f'{what}: scale-index flip away from a table entry')
+            require(r['batch_independent'],
+                    f'{what}: batch of two changes the first image\'s bits')
+
+        def per_image(key, enc=1, dec=1):
+            """key summed over one image's launches (encode, decode)."""
+            return sum(r[key] * (enc * r['encode_calls']
+                                 + dec * r['decode_calls']) for r in shapes)
+
+        nbytes, ops = per_image('bytes'), per_image('ops')
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+        results[name] = dict(
+            ms=per_image('ms'), encode_ms=per_image('ms', dec=0),
+            decode_ms=per_image('ms', enc=0), plain_ms=per_image('plain_ms'),
+            eager_ms=per_image('eager_ms'),
+            library_ms=(per_image('library_ms') if name == 'dense'
+                        else None),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+            max_abs_err=max(r['max_abs_err'] for r in shapes),
+            index_flips=sum(r['index_flips'] for r in shapes),
+            by_shape=shapes)
+    return results
+
+
+_FRESH_DECODE = r'''
+import sys
+import numpy as np
+import torch
+# what a decoding process may have set: none of it may change a portable
+# stream's pixels
+torch.backends.cudnn.allow_tf32 = True
+torch.backends.cuda.matmul.allow_tf32 = True
+torch.backends.cudnn.benchmark = True
+import lvae_tpu_torch
+model = lvae_tpu_torch.get_model('qarv_base', pretrained=sys.argv[1])
+model.compress_mode(num_lanes='auto', portable=True)
+np.save(sys.argv[3], model.decompress_file(sys.argv[2]))
+assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
+assert torch.backends.cuda.matmul.allow_tf32
+print('decoded in a fresh process')
+'''
+
+
+def fresh_process_decode(model, row, tmpdir):
+    """Decode a portable file in a new python3 process with TF32 and
+    cudnn.benchmark on; its pixels must equal this process's encode-side
+    reconstruction bitwise."""
+    from lvae_tpu_torch.utils import coding
+    out = os.path.join(tmpdir, 'fresh.npy')
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-c', _FRESH_DECODE, CHECKPOINT, row['path'], out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    require(res.returncode == 0,
+            f'fresh-process decode failed:\n{res.stderr[-3000:]}')
+    img = coding.read_png(os.path.join(ROOT, row['image']))
+    H, W = img.shape[:2]
+    _, rec_chk = model.compress_check(img.astype(np.float32)[None] / 255.0,
+                                      lmb=row['lmb'], portable=True)
+    got = np.load(out)
+    same = bool(np.array_equal(got, rec_chk[:, :H, :W]))
+    progress(f'fresh-process decode of {row["image"]} lambda '
+             f'{row["lmb"]:g}: bitwise equal {same} ({seconds:.1f} s)')
+    require(same, 'a portable stream decoded in a fresh process (TF32 and '
+                  'cudnn.benchmark on) gives other pixels')
+    return dict(image=row['image'], lmb=row['lmb'], bitwise_equal=same,
+                flags='cudnn.allow_tf32, cuda.matmul.allow_tf32, '
+                      'cudnn.benchmark all True', seconds=seconds)
 
 
 def main():
@@ -324,9 +658,10 @@ def main():
         print('chip_smoke: no CUDA device; this script runs on the card',
               file=sys.stderr)
         return 1
-    import numpy as np
+    import lvae_tpu_torch
     from lvae_tpu_torch.models.qarv.model import QarvModel
     from lvae_tpu_torch.ops import build, cdf
+    from lvae_tpu_torch.utils import coding
 
     device = torch.device('cuda')
     info = build.build()
@@ -346,39 +681,75 @@ def main():
     table = cdf.build_cdf_table(cdf.default_gaussian_scale_table())
     # the lane counts the main path runs the kernels at
     lanes_of = {lmb: QarvModel._auto_lanes(lmb) for lmb in LAMBDAS}
-    kernels = check_kernels(torch, np, table, device,
-                            sorted(set(lanes_of.values())))
+    rans = check_kernels(torch, np, table, device,
+                         sorted(set(lanes_of.values())))
+
+    t = time.perf_counter()
+    model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
+    model.compress_mode(num_lanes='auto')
+    load_s = time.perf_counter() - t
+    progress(f'qarv_base loaded ({model.num_params()} params) in '
+             f'{load_s:.1f} s')
     with tempfile.TemporaryDirectory() as tmpdir:
-        codec, launches = run_codec(torch, np, device, tmpdir)
+        legacy = run_codec(torch, model, False,
+                           [(PHOTO, lmb) for lmb in LAMBDAS], tmpdir)
+        portable = run_codec(torch, model, True,
+                             [(PHOTO, lmb) for lmb in LAMBDAS]
+                             + [(HOPPER, 512.0)], tmpdir)
+        for row in portable:
+            require(row['image'] != os.path.relpath(PHOTO, ROOT)
+                    or row['lanes'] == lanes_of[row['lmb']],
+                    'the codec ran at a lane count the rANS check did not '
+                    'cover')
+        emit({'codec': dict(model='qarv_base',
+                            weights=os.path.relpath(CHECKPOINT, ROOT),
+                            load_s=load_s, num_lanes='auto',
+                            results=[{k: v for k, v in r.items()
+                                      if k != 'path'}
+                                     for r in legacy + portable])})
+        main_lmb = max(LAMBDAS)
+        photo = coding.read_png(PHOTO).astype(np.float32)[None] / 255.0
+        trunk = check_trunk_kernels(torch, model, photo, main_lmb)
+        emit({'trunk': trunk})
+        photo512 = next(r for r in portable if r['lmb'] == 512.0
+                        and r['image'] == os.path.relpath(PHOTO, ROOT))
+        emit({'fresh_process': fresh_process_decode(model, photo512,
+                                                    tmpdir)})
+
+    # one entry per kernel, for one photo1 image at the largest lambda on
+    # the main path (portable files): its launches in that image's
+    # compress_file + decompress_file and the time of those launches
+    main_row = next(r for r in portable if r['lmb'] == main_lmb)
+    launches = {n: main_row['encode_launches'][n]
+                + main_row['decode_launches'][n] for n in _NONE}
     require(all(v > 0 for v in launches.values()),
             f'a kernel was not launched on the main path: {launches}')
-    require(all(row['lanes'] == lanes_of[row['lmb']]
-                for row in codec['results']),
-            'the codec ran at a lane count the kernel check did not cover')
-
-    sources = {
+    rans_sources = {
         'rans_encode_all': 'lvae_tpu/ops/pallas/rans_encode.py:217',
         'rans_decode_block': 'lvae_tpu/ops/pallas/rans_decode.py:160'}
-    # one entry per kernel, for one image at the largest lambda: its times
-    # at that image's lane count and its launches in that image's
-    # compress_file + decompress_file
-    main_lmb = max(LAMBDAS)
-    main_row = next(r for r in codec['results'] if r['lmb'] == main_lmb)
+    trunk_sources = {
+        'emb_mlp': 'lvae_tpu/ops/pallas/trunk.py:122',
+        'dw_ln_mod': 'lvae_tpu/ops/pallas/trunk.py:166',
+        'mlp_res': 'lvae_tpu/ops/pallas/trunk.py:223',
+        'dense': 'lvae_tpu/ops/pallas/trunk.py:257',
+        'prior_head': 'lvae_tpu/ops/pallas/trunk.py:302',
+        'fuse_zproj': 'lvae_tpu/ops/pallas/trunk.py:343',
+        'finish_image': 'lvae_tpu/ops/pallas/trunk.py:382'}
+    unit = f'one photo1 image (lambda {main_lmb:g}), compress_file + ' \
+           f'decompress_file'
     entries = []
-    for name, by_n in kernels.items():
+    for name, by_n in rans.items():
         main_n = by_n[lanes_of[main_lmb]]
         entries.append(dict(
             name=name, route='cuda', source='lvae_tpu_torch/csrc/rans.cu',
-            replaces=sources[name], tpu=sources[name],
-            launches=(main_row['encode_launches'][name]
-                      + main_row['decode_launches'][name]),
-            launches_unit=f'one image (lambda {main_lmb:g})',
-            launches_main_path_total=launches[name],
+            replaces=rans_sources[name], launches=launches[name],
+            launches_encode=main_row['encode_launches'][name],
+            launches_decode=main_row['decode_launches'][name],
+            launches_unit=unit,
             match=all(r['match'] for r in by_n.values()),
             max_abs_err=max(r['max_abs_err'] for r in by_n.values()),
-            ms=main_n['ms'], kernel_ms=main_n['ms'],
-            plain_ms=main_n['plain_ms'], bound_ms=main_n['bound_ms'],
-            bound_by=main_n['bound_by'],
+            ms=main_n['ms'], plain_ms=main_n['plain_ms'],
+            bound_ms=main_n['bound_ms'], bound_by=main_n['bound_by'],
             bound_derivation=(
                 f'max(bytes / 3.35 TB/s, ops / 67 Tops/s) per qarv_base '
                 f'512x768 image at N={lanes_of[main_lmb]}; the real limit '
@@ -386,8 +757,28 @@ def main():
                 f'below)'),
             library_ms=None,
             by_lanes={str(n): r for n, r in by_n.items()}))
+    for name in TRUNK_NAMES:
+        r = trunk[name]
+        entries.append(dict(
+            name=name, route='cuda', source='lvae_tpu_torch/csrc/trunk.cu',
+            replaces=trunk_sources[name], launches=launches[name],
+            launches_encode=main_row['encode_launches'][name],
+            launches_decode=main_row['decode_launches'][name],
+            launches_unit=unit, max_abs_err=r['max_abs_err'],
+            index_flips=r['index_flips'] if name == 'prior_head' else None,
+            tolerance=f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}',
+            ms=r['ms'], encode_ms=r['encode_ms'], decode_ms=r['decode_ms'],
+            eager_ms=r['eager_ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+            bound_by=r['bound_by'],
+            bound_derivation=(
+                'max(sum of bytes / 3.35 TB/s, sum of f32 ops / 67 TFLOP/s) '
+                'over the launches of one image (each input read once, '
+                'each output written once)'),
+            library_ms=r['library_ms'],
+            library_call=('torch.addmm(b, x, w), TF32 off' if name == 'dense'
+                          else None)))
     emit({'kernels': entries})
-    emit({'codec': codec})
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,527 @@
+// Portable-trunk kernels for Hopper (sm_90a): every float between the rANS
+// stream's integer junctions (lambda embedding, ConvNeXt-AdaLN blocks, priors
+// and scale indexes, fuses, 1x1 convs, pixel finish).
+//
+// What they must guarantee: a stream decodes bit-exactly in any process, so
+// each kernel's output bits depend only on its inputs and the weights' shapes.
+// No split-K, no atomics, no library call: each output element's sum over K
+// runs in one fixed order that depends only on K (in the matrix products one
+// fused multiply-add chain k = 0..K-1; in the small matrix-vector products of
+// the embedding and the AdaLN modulation a lane-strided chain per lane, then
+// a fixed shuffle tree), and every row or pixel is computed on its own, so
+// neither the batch size nor the row count changes a result (they only move
+// the ragged-edge mask). Outside the sums the
+// arithmetic mirrors the plain PyTorch versions of lvae_tpu_torch/ops/trunk.py
+// op by op: the library is built with -fmad=false, so `a + b * c` rounds twice
+// as it does there, and without --use_fast_math, so expf, logf, cosf, sinf,
+// sqrtf and division are the accurate versions (the scale index is compared
+// against a table).
+//
+// Plain C interface (no PyTorch headers), loaded with ctypes by
+// lvae_tpu_torch/ops/build.py like csrc/rans.cu: raw device pointers, int
+// sizes, the device ordinal and a cudaStream_t; each entry point launches on
+// that stream without synchronising and returns cudaGetLastError(). Scratch
+// buffers are allocated by the Python wrappers.
+//
+// Simple by design in this slice: the matrix products are a SIMT
+// shared-memory tile (64x64 outputs, 16-deep K steps, 4x4 outputs a thread)
+// in exact float32, no tensor cores (TF32 would break the agreement with the
+// plain versions and the reference); wgmma/TMA tiles are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// shared math: lvae_tpu/ops/pallas/trunk.py:77-102, the same formulas
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float erf_as(float x) {
+    // Abramowitz-Stegun 7.1.26, Horner order as in the reference
+    const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+    const float ax = fabsf(x);
+    const float t = 1.0f / (1.0f + 0.3275911f * ax);
+    const float poly = t * (0.254829592f + t * (-0.284496736f + t * (
+        1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+    return s * (1.0f - poly * expf(-ax * ax));
+}
+
+__device__ __forceinline__ float gelu_as(float x) {
+    return 0.5f * x * (1.0f + erf_as(x * 0.7071067811865476f));
+}
+
+__device__ __forceinline__ float softplus_ref(float x) {
+    return fmaxf(x, 0.0f) + logf(1.0f + expf(-fabsf(x)));
+}
+
+// Sum over a warp by a fixed xor-shuffle tree: every lane ends with the same
+// bits (each step adds a pair in the same order on both of its lanes).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+// One output of a small matrix-vector product, by a whole warp: lane l sums
+// k = l, l + 32, ... in order (coalesced reads of the weight row), then the
+// shuffle tree; a fixed order that depends only on K.
+__device__ __forceinline__ float warp_dot(const float* __restrict__ x,
+                                          const float* __restrict__ wrow,
+                                          int K, int lane) {
+    float acc = 0.f;
+    for (int k = lane; k < K; k += 32) acc = fmaf(x[k], __ldg(wrow + k), acc);
+    return warp_sum(acc);
+}
+
+// ---------------------------------------------------------------------------
+// the f32 matrix-product core: out[m, n] = epilogue(sum_k A(m, k) * W[n, k])
+// A through a prologue functor, W in (N, K) layout (torch's (out, in)).
+//
+// Bound on this card: operations where K and N are both wide (mlp_res, the
+// 1x1 convs up to 1/8 scale), against 67 TFLOP/s of non-tensor f32; bytes
+// where K or N is a latent width Z or the 48 pixel channels (prior_head,
+// fuse_zproj, the last dense), against 3.35 TB/s. This SIMT tile reaches a
+// fraction of the first: it runs 2 shared-memory loads (float4) per 16
+// FMAs and stages both operands once per 16-deep K step. For the second it
+// reads each A row once per 64 output columns, so a narrow N reads A once.
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
+constexpr int GEMM_THREADS = (BM / TM) * (BN / TN);  // 256
+
+template <class Load, class Store>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(int M, int N, int K, Load load, const float* __restrict__ w,
+            Store store) {
+    __shared__ __align__(16) float As[BK][BM + 4];
+    __shared__ __align__(16) float Ws[BK][BN + 4];
+    const int tid = threadIdx.x;
+    const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += BK) {
+        // k is the fastest index: a row's 16 K values are one 64-byte read
+#pragma unroll
+        for (int i = 0; i < BM * BK / GEMM_THREADS; ++i) {
+            const int e = tid + i * GEMM_THREADS;
+            const int k = e % BK, m = e / BK;
+            const int gm = m0 + m, gk = k0 + k;
+            As[k][m] = (gm < M && gk < K) ? load(gm, gk) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < BN * BK / GEMM_THREADS; ++i) {
+            const int e = tid + i * GEMM_THREADS;
+            const int k = e % BK, n = e / BK;
+            const int gn = n0 + n, gk = k0 + k;
+            Ws[k][n] = (gn < N && gk < K) ? __ldg(w + (long long)gn * K + gk)
+                                          : 0.f;
+        }
+        __syncthreads();
+        // padded k adds fma(0, 0, acc) == acc: the chain is k = 0..K-1
+#pragma unroll
+        for (int kk = 0; kk < BK; ++kk) {
+            const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
+            const float4 b4 = *reinterpret_cast<const float4*>(&Ws[kk][tx * TN]);
+            const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
+            const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int gm = m0 + ty * TM + i;
+        if (gm >= M) continue;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            const int gn = n0 + tx * TN + j;
+            if (gn < N) store(gm, gn, acc[i][j]);
+        }
+    }
+}
+
+// prologues: the A operand
+struct LoadRows {            // x[m, k]
+    const float* x; int K;
+    __device__ float operator()(int m, int k) const {
+        return __ldg(x + (long long)m * K + k);
+    }
+};
+struct LoadGeluRows {        // gelu(x[m, k]): prior_head(act=True)
+    const float* x; int K;
+    __device__ float operator()(int m, int k) const {
+        return gelu_as(__ldg(x + (long long)m * K + k));
+    }
+};
+struct LoadSymsPlusPm {      // float(syms[m, k]) + pm[m, k]: fuse_zproj
+    const int* s; const float* pm; int K;
+    __device__ float operator()(int m, int k) const {
+        const long long e = (long long)m * K + k;
+        return (float)__ldg(s + e) + __ldg(pm + e);
+    }
+};
+
+// epilogues: acc -> outputs
+struct StoreBias {           // dense: acc + b
+    float* out; const float* b; int N;
+    __device__ void operator()(int m, int n, float acc) const {
+        out[(long long)m * N + n] = acc + b[n];
+    }
+};
+struct StoreBiasGelu {       // mlp fc1: gelu(acc + b)
+    float* out; const float* b; int N;
+    __device__ void operator()(int m, int n, float acc) const {
+        out[(long long)m * N + n] = gelu_as(acc + b[n]);
+    }
+};
+struct StoreLayerScaleRes {  // mlp fc2: shortcut + (acc + b) * gamma
+    float* out; const float* b; const float* g; const float* s; int N;
+    __device__ void operator()(int m, int n, float acc) const {
+        const long long e = (long long)m * N + n;
+        out[e] = s[e] + (acc + b[n]) * g[n];
+    }
+};
+struct StoreResidual {       // fuse: feature + (acc + b)
+    float* out; const float* b; const float* f; int N;
+    __device__ void operator()(int m, int n, float acc) const {
+        const long long e = (long long)m * N + n;
+        out[e] = f[e] + (acc + b[n]);
+    }
+};
+struct StorePrior {          // columns [0, Z): pm; [Z, 2Z): scale index
+    float* pm; int* idx; const float* b; const float* table; int S; int Z;
+    __device__ void operator()(int m, int n, float acc) const {
+        const float v = acc + b[n];
+        if (n < Z) {
+            pm[(long long)m * Z + n] = v;
+            return;
+        }
+        float pv = expf(softplus_ref(v + 2.3f) - 2.3f);
+        pv = fmaxf(pv, __ldg(table));
+        int count = 0;                     // #(table < scale), capped
+        for (int i = 0; i < S; ++i) count += __ldg(table + i) < pv ? 1 : 0;
+        idx[(long long)m * Z + (n - Z)] = min(count, S - 1);
+    }
+};
+
+template <class Load, class Store>
+cudaError_t launch_gemm(int M, int N, int K, Load load, const float* w,
+                        Store store, cudaStream_t stream) {
+    if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    if (grid.y > 65535u) return cudaErrorInvalidValue;
+    gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(M, N, K, load, w, store);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// emb_mlp. Replaces lvae_tpu/ops/pallas/trunk.py:122 emb_mlp. One block per
+// batch row: log-lambda sinusoid -> Linear -> GELU -> Linear, then gelu(emb),
+// each output of the two products by one warp (warp_dot).
+// Bound: bytes (two 256x256 weight reads, 0.5 MB); the warps read the
+// weight rows coalesced, so the launch dominates a function that runs once
+// per image.
+// ---------------------------------------------------------------------------
+
+constexpr int EMB_THREADS = 512;
+
+__global__ void __launch_bounds__(EMB_THREADS)
+emb_mlp_kernel(const float* __restrict__ lmb, const float* __restrict__ freqs,
+               const float* __restrict__ w0t, const float* __restrict__ b0,
+               const float* __restrict__ w1t, const float* __restrict__ b1,
+               int E0, int E, float scale, float* __restrict__ emb,
+               float* __restrict__ gemb) {
+    extern __shared__ float sm[];
+    float* x = sm;           // E0
+    float* h = sm + E0;      // E
+    const int b = blockIdx.x;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int nwarps = blockDim.x / 32;
+    const int half = E0 / 2;
+    const float scaled = logf(lmb[b]) * scale;
+    for (int j = threadIdx.x; j < half; j += blockDim.x) {
+        const float arg = scaled * freqs[j];
+        x[j] = cosf(arg);
+        x[half + j] = sinf(arg);
+    }
+    __syncthreads();
+    for (int n = warp; n < E; n += nwarps) {
+        const float acc = warp_dot(x, w0t + (long long)n * E0, E0, lane);
+        if (lane == 0) h[n] = gelu_as(acc + b0[n]);
+    }
+    __syncthreads();
+    for (int n = warp; n < E; n += nwarps) {
+        const float acc = warp_dot(h, w1t + (long long)n * E, E, lane);
+        if (lane == 0) {
+            const float e = acc + b1[n];
+            emb[(long long)b * E + n] = e;
+            gemb[(long long)b * E + n] = gelu_as(e);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// dw_ln_mod. Replaces lvae_tpu/ops/pallas/trunk.py:166 dw_ln_mod.
+// Phase 1 (small kernel, once per launch): the AdaLN modulation
+// gemb @ ew + eb for each batch row, a warp per output (warp_dot), and the
+// depthwise weights turned tap-major (K*K, C) so that phase 2 reads them
+// coalesced.
+// Phase 2: one warp per pixel, lane l holding channels l, l+32, ...: the
+// K x K stencil read straight from the NHWC feature with the 'same' zero
+// padding done by skipping out-of-image taps (no padded copy, no window
+// stack), then LayerNorm over C with a fixed reduction order (each lane sums
+// its channels in order, then a xor-shuffle tree, which leaves every lane
+// with the same bits), then y * (1 + scale) + shift.
+// Bound: bytes at K <= 5 (one read of x, one write), operations at K = 7
+// (2*49 flops per element); the stencil re-reads each input K*K times from
+// L1/L2, which is the largest cost at (128, 192, 128, 7).
+// ---------------------------------------------------------------------------
+
+__global__ void dw_prep_kernel(const float* __restrict__ gemb,
+                               const float* __restrict__ ewt,
+                               const float* __restrict__ eb, int B, int C,
+                               int E, const float* __restrict__ dwk, int KK,
+                               float* __restrict__ mod,
+                               float* __restrict__ dwk_t) {
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t < (long long)KK * C) {               // t = tap * C + c
+        const int tap = (int)(t / C), c = (int)(t % C);
+        dwk_t[t] = dwk[(long long)c * KK + tap];
+    }
+    const long long o = t / 32;                // one warp per output (b, j)
+    if (o < (long long)B * 2 * C) {
+        const int b = (int)(o / (2 * C)), j = (int)(o % (2 * C));
+        const float acc = warp_dot(gemb + (long long)b * E,
+                                   ewt + (long long)j * E, E, threadIdx.x % 32);
+        if (threadIdx.x % 32 == 0) mod[o] = acc + eb[j];
+    }
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(256)
+dw_ln_mod_kernel(const float* __restrict__ x, int B, int H, int W, int C,
+                 int K, const float* __restrict__ dwk_t,
+                 const float* __restrict__ dwb,
+                 const float* __restrict__ mod, float* __restrict__ out) {
+    const long long pix = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+    const int lane = threadIdx.x % 32;
+    if (pix >= (long long)B * H * W) return;     // whole warps exit together
+    const int b = (int)(pix / ((long long)H * W));
+    const int hw = (int)(pix % ((long long)H * W));
+    const int h = hw / W, w = hw % W;
+    const int p = (K - 1) / 2;
+    float y[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+        const int c = lane + 32 * i;
+        y[i] = c < C ? __ldg(dwb + c) : 0.f;
+    }
+    for (int di = 0; di < K; ++di) {
+        const int hh = h + di - p;
+        if (hh < 0 || hh >= H) continue;
+        for (int dj = 0; dj < K; ++dj) {
+            const int ww = w + dj - p;
+            if (ww < 0 || ww >= W) continue;
+            const float* xr = x + (((long long)b * H + hh) * W + ww) * C;
+            const float* kr = dwk_t + (long long)(di * K + dj) * C;
+#pragma unroll
+            for (int i = 0; i < CPL; ++i) {
+                const int c = lane + 32 * i;
+                if (c < C) y[i] = y[i] + __ldg(xr + c) * __ldg(kr + c);
+            }
+        }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+        if (lane + 32 * i < C) s += y[i];
+    const float mu = warp_sum(s) / (float)C;
+    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+        if (lane + 32 * i < C) {
+            const float d = y[i] - mu;
+            v += d * d;
+        }
+    }
+    const float var = warp_sum(v) / (float)C;
+    const float rstd = 1.0f / sqrtf(var + 1e-6f);
+    const float* shift = mod + (long long)b * 2 * C;
+    const float* scale = shift + C;
+    float* o = out + pix * C;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+        const int c = lane + 32 * i;
+        if (c < C) o[c] = ((y[i] - mu) * rstd) * (1.0f + scale[c]) + shift[c];
+    }
+}
+
+template <int CPL>
+cudaError_t launch_dw(const float* x, int B, int H, int W, int C, int K,
+                      const float* dwk_t, const float* dwb, const float* mod,
+                      float* out, cudaStream_t stream) {
+    const long long threads = (long long)B * H * W * 32;
+    const long long blocks = (threads + 255) / 256;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    dw_ln_mod_kernel<CPL><<<(unsigned)blocks, 256, 0, stream>>>(
+        x, B, H, W, C, K, dwk_t, dwb, mod, out);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// finish_image. Replaces lvae_tpu/ops/pallas/trunk.py:382 finish_image:
+// clip(x, -1, 1) * 0.5 + 0.5, one elementwise pass. Bound: bytes (read and
+// write 4 bytes an element); a grid-stride loop of coalesced accesses.
+// ---------------------------------------------------------------------------
+
+__global__ void finish_kernel(const float* __restrict__ x, long long n,
+                              float* __restrict__ out) {
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (long long)gridDim.x * blockDim.x)
+        out[e] = fminf(fmaxf(x[e], -1.0f), 1.0f) * 0.5f + 0.5f;
+}
+
+cudaError_t set_device(int device) { return cudaSetDevice(device); }
+
+}  // namespace
+
+#define TRY(expr)                                    \
+    do {                                             \
+        const cudaError_t err_ = (expr);             \
+        if (err_ != cudaSuccess) return (int)err_;   \
+    } while (0)
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:122 emb_mlp. w0t (E, E0), w1t (E, E).
+extern "C" int trunk_emb_mlp(const void* lmb, int B, const void* freqs,
+                             const void* w0t, const void* b0, const void* w1t,
+                             const void* b1, int E0, int E, float scale,
+                             void* emb, void* gemb, int device, void* stream) {
+    if (B < 1 || E0 < 2 || E0 % 2 || E < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    emb_mlp_kernel<<<B, EMB_THREADS, (E0 + E) * sizeof(float),
+                     (cudaStream_t)stream>>>(
+        (const float*)lmb, (const float*)freqs, (const float*)w0t,
+        (const float*)b0, (const float*)w1t, (const float*)b1, E0, E, scale,
+        (float*)emb, (float*)gemb);
+    return (int)cudaGetLastError();
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:166 dw_ln_mod. x/out (B, H, W, C);
+// dwk (C, K, K); ewt (2C, E); scratch holds B*2C + K*K*C floats.
+extern "C" int trunk_dw_ln_mod(const void* x, int B, int H, int W, int C,
+                               int K, const void* dwk, const void* dwb,
+                               const void* ewt, const void* eb,
+                               const void* gemb, int E, void* scratch,
+                               void* out, int device, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || C < 1 || C > 32 * 16 || K < 1 || E < 1)
+        return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const cudaStream_t st = (cudaStream_t)stream;
+    float* mod = (float*)scratch;
+    float* dwk_t = mod + (long long)B * 2 * C;
+    const long long nmod = (long long)B * 2 * C * 32, ntap = (long long)K * K * C;
+    const long long prep = nmod > ntap ? nmod : ntap;
+    dw_prep_kernel<<<(unsigned)((prep + 255) / 256), 256, 0, st>>>(
+        (const float*)gemb, (const float*)ewt, (const float*)eb, B, C, E,
+        (const float*)dwk, K * K, mod, dwk_t);
+    TRY(cudaGetLastError());
+    const float* xf = (const float*)x;
+    const float* bf = (const float*)dwb;
+    float* of = (float*)out;
+    switch ((C + 31) / 32) {
+#define DW_CASE(n) \
+        case n: return (int)launch_dw<n>(xf, B, H, W, C, K, dwk_t, bf, mod, of, st);
+        DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6)
+        DW_CASE(7) DW_CASE(8) DW_CASE(9) DW_CASE(10) DW_CASE(11) DW_CASE(12)
+        DW_CASE(13) DW_CASE(14) DW_CASE(15) DW_CASE(16)
+#undef DW_CASE
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:223 mlp_res: two launches of the
+// product core through the (M, HID) scratch `hidden`. w1t (HID, C),
+// w2t (CO, HID). Bound: operations (4*M*C*HID flops); the scratch round trip
+// adds 8*M*HID bytes, small beside them at every main-path shape.
+extern "C" int trunk_mlp_res(const void* t, int M, int C, int HID, int CO,
+                             const void* w1t, const void* b1, const void* w2t,
+                             const void* b2, const void* gamma,
+                             const void* shortcut, void* hidden, void* out,
+                             int device, void* stream) {
+    TRY(set_device(device));
+    const cudaStream_t st = (cudaStream_t)stream;
+    TRY(launch_gemm(M, HID, C, LoadRows{(const float*)t, C}, (const float*)w1t,
+                    StoreBiasGelu{(float*)hidden, (const float*)b1, HID}, st));
+    return (int)launch_gemm(
+        M, CO, HID, LoadRows{(const float*)hidden, HID}, (const float*)w2t,
+        StoreLayerScaleRes{(float*)out, (const float*)b2, (const float*)gamma,
+                           (const float*)shortcut, CO}, st);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:257 dense. wt (CO, C). Bound:
+// operations, except bytes for the 48-channel pixel conv.
+extern "C" int trunk_dense(const void* x, int M, int C, int CO,
+                           const void* wt, const void* b, void* out,
+                           int device, void* stream) {
+    TRY(set_device(device));
+    return (int)launch_gemm(M, CO, C, LoadRows{(const float*)x, C},
+                            (const float*)wt,
+                            StoreBias{(float*)out, (const float*)b, CO},
+                            (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:302 prior_head. wt (2Z, C); table
+// (S,) ascending scales; act != 0 applies GELU to x first. Bound: bytes
+// (N = 2Z <= 192 outputs a row from C inputs); x is read once per 64
+// output columns (one to three times, the repeats from L2), and the 64-entry
+// compare-count reads the table through the read-only cache.
+extern "C" int trunk_prior_head(const void* x, int M, int C, int Z,
+                                const void* wt, const void* b,
+                                const void* table, int S, int act, void* pm,
+                                void* idx, int device, void* stream) {
+    if (S < 1 || Z < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const StorePrior store{(float*)pm, (int*)idx, (const float*)b,
+                           (const float*)table, S, Z};
+    if (act)
+        return (int)launch_gemm(M, 2 * Z, C, LoadGeluRows{(const float*)x, C},
+                                (const float*)wt, store, (cudaStream_t)stream);
+    return (int)launch_gemm(M, 2 * Z, C, LoadRows{(const float*)x, C},
+                            (const float*)wt, store, (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:343 fuse_zproj. syms int32 (M, Z);
+// wt (C, Z). Bound: bytes (K = Z; the feature is read and written once);
+// the int32 + pm prologue is folded into the A-tile load.
+extern "C" int trunk_fuse_zproj(const void* feature, const void* syms,
+                                const void* pm, int M, int Z, int C,
+                                const void* wt, const void* b, void* out,
+                                int device, void* stream) {
+    TRY(set_device(device));
+    return (int)launch_gemm(
+        M, C, Z, LoadSymsPlusPm{(const int*)syms, (const float*)pm, Z},
+        (const float*)wt,
+        StoreResidual{(float*)out, (const float*)b, (const float*)feature, C},
+        (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:382 finish_image (the float16 cast
+// stays outside, as there).
+extern "C" int trunk_finish_image(const void* x, long long n, void* out,
+                                  int device, void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const long long blocks = (n + 255) / 256;
+    finish_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                    (cudaStream_t)stream>>>((const float*)x, n, (float*)out);
+    return (int)cudaGetLastError();
+}

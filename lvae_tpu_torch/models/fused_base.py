@@ -41,8 +41,12 @@ class FusedCodecBase:
     encode and decode trunks."""
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None, device=None):
+                 word_cap=None, portable=False, device=None):
         self.net = net
+        # portable: the trunk runs in the kernels of ops/trunk.py and the
+        # streams carry the marker bit (decode in any process); legacy:
+        # library convolutions, streams decode in the writing process only
+        self.portable = bool(portable)
         self.device = (torch.device(device) if device is not None
                        else net.bias.device)
         self._check_table(cdf_table)
@@ -151,9 +155,11 @@ class FusedCodecBase:
         packed = np.ascontiguousarray(pulled[head_len:head_len + half])
         words16 = packed.view('<u2')[:n_words][::-1]  # push order -> stream
         esc_pairs = pulled[head_len + half:head_len + half + 2 * n_esc]
-        # the lane-count field's high bit marks a portable-trunk stream;
-        # this codec writes legacy streams only
-        out = struct.pack('<IIH', n_words, n_esc, N)
+        # the lane-count field's high bit marks a portable-trunk stream: its
+        # floats differ in low bits from the legacy trunk's, so the two kinds
+        # are never decoded by each other's codec
+        lanes_field = N | (0x8000 if self.portable else 0)
+        out = struct.pack('<IIH', n_words, n_esc, lanes_field)
         out += coding.pack_states(states_u32)
         esc_pairs = esc_pairs.astype(np.int64)
         out += coding.pack_escapes(esc_pairs[0::2], esc_pairs[1::2])
@@ -174,10 +180,11 @@ class FusedCodecBase:
         n_words, n_esc, lanes_field = struct.unpack('<IIH', body[:10])
         portable = bool(lanes_field & 0x8000)
         lanes = lanes_field & 0x7FFF
-        if portable:
+        if portable != self.portable:
             raise ValueError(
                 f'stream trunk kind ({"portable" if portable else "legacy"}) '
-                f'!= codec (legacy); use compress_mode(portable={portable})')
+                f'!= codec ({"portable" if self.portable else "legacy"}); '
+                f'use compress_mode(portable={portable})')
         if lanes != N:
             raise ValueError(f'stream lanes {lanes} != configured {N}')
         off = 10

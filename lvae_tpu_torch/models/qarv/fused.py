@@ -1,5 +1,5 @@
-"""The fused QARV codec on the legacy trunk: the single-image parts of
-``lvae_tpu/models/qarv/fused.py`` (the `portable=False` branches).
+"""The fused QARV codec: the single-image parts of
+``lvae_tpu/models/qarv/fused.py``, on either trunk.
 
 Encode: lambda embedding -> encoder backbone -> per latent block prior ->
 symbols = round(posterior mean - prior mean) -> fuse, with the plain blocks
@@ -9,85 +9,198 @@ decode kernel, then the synthesis tail and clip*0.5+0.5 -> float16.
 
 Bit-exactness: an arithmetic-coded stream desyncs when the decoder's
 recomputed prior floats differ from the encoder's by a single scale-index
-flip. Both directions therefore run ONE trunk function (`_trunk`) - the
-same op sequence on the same shapes and memory layouts - and differ only
-in where the integer symbols come from. With the precision policy set in
-`FusedQarvCodec.__init__`, cuDNN and cuBLAS then run the same algorithms in
-both directions, and a legacy stream decodes bit-exactly in the process
-(and on the card type) that wrote it. That is the legacy stream's contract;
-the portable trunk, whose streams decode anywhere, is not ported yet.
+flip. Both directions therefore run ONE trunk function (`_trunk`) and differ
+only in where the integer symbols come from. Two trunks fill it:
+
+* legacy (``portable=False``): the modules' cuDNN convolutions and cuBLAS
+  products, NCHW, under the precision policy set in ``__init__``; a legacy
+  stream decodes bit-exactly in the process (and on the card type) that
+  wrote it.
+* portable (``portable=True``): every float between the integer junctions
+  comes from the hand-written kernels of ``ops/trunk.py`` (lambda embedding,
+  ConvNeXt-AdaLN blocks, priors and scale indexes, fuses, 1x1 convs, pixel
+  finish), on NHWC features as the JAX kernels take them; outside them only
+  data movement (pad, reshape, pixel shuffle, concatenation). The kernels'
+  results depend on nothing but their inputs, so a portable stream decodes
+  in any process: it is the file format.
+
+On both trunks the encoder backbone and ``posterior_qm`` stay library
+convolutions (NCHW), because their outputs only choose which symbols are
+written (lvae_tpu/models/qarv/fused.py:36-41).
 """
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models.fused_base import FusedCodecBase
 from lvae_tpu_torch.models.qarv.model import patch_escapes
+from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.ops import rans_decode as rd
+from lvae_tpu_torch.ops import trunk
 
 
-def _nhwc_flat(z):
-    """(1, C, H, W) -> flat, in the JAX package's NHWC symbol order."""
-    return z.permute(0, 2, 3, 1).reshape(-1)
+@contextlib.contextmanager
+def _exact_f32():
+    """Exact float32, deterministic library convolutions and products for
+    the duration, whatever the process's flags; restores them after."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def pixel_shuffle_nhwc(x, rate):
+    """Depth-to-space on NHWC with torch.nn.PixelShuffle's channel order
+    (lvae_tpu/models/common.py pixel_shuffle)."""
+    B, H, W, CRR = x.shape
+    C = CRR // (rate * rate)
+    x = x.reshape(B, H, W, C, rate, rate).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H * rate, W * rate, C)
 
 
 class FusedQarvCodec(FusedCodecBase):
     """Fused codec for VariableRateLossyVAENet (lambda-conditioned)."""
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None):
+                 word_cap=None, portable=False):
         super().__init__(net, cdf_table, num_lanes=num_lanes,
-                         esc_cap=esc_cap, word_cap=word_cap)
-        # Precision policy (the JAX package's "encode and decode agree on
-        # every trunk float" invariant): the whole trunk in exact float32 -
-        # no TF32 in convolutions (cuDNN's default) or matmuls - with
-        # deterministic cuDNN algorithms chosen by shape alone (no
-        # benchmarking), so encode and decode pick the same kernels. GELU is
-        # the exact erf form and LayerNorm has eps 1e-6 and no affine
-        # (models/common.py).
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
+                         esc_cap=esc_cap, word_cap=word_cap,
+                         portable=portable)
+        if not self.portable:
+            # Legacy precision policy (the JAX package's "encode and decode
+            # agree on every trunk float" invariant, held within one
+            # process): the whole trunk in exact float32 - no TF32 in
+            # convolutions (cuDNN's default) or matmuls - with deterministic
+            # cuDNN algorithms chosen by shape alone (no benchmarking), so
+            # encode and decode pick the same kernels. GELU is the exact erf
+            # form and LayerNorm has eps 1e-6 and no affine
+            # (models/common.py).
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+        else:
+            self.table = torch.as_tensor(
+                cdf_ops.default_gaussian_scale_table().astype('float32'),
+                device=self.device)
+            self.freqs = torch.as_tensor(
+                trunk.emb_freqs(net.lmb_embed_dim[0], net.sin_period),
+                device=self.device)
         blocks = list(net.dec_blocks)
         self.stop = next(i for i, b in enumerate(blocks)
                          if isinstance(b, common.CompressionStopFlag))
+
+    # ---- layouts: legacy features are NCHW, portable ones NHWC ----------
+
+    def _nhwc(self, t):
+        return t if self.portable else t.permute(0, 2, 3, 1)
+
+    def _nchw(self, t):
+        return t.permute(0, 3, 1, 2) if self.portable else t
+
+    def _from_nhwc(self, t):
+        """NHWC tensor -> this trunk's layout, contiguous."""
+        return (t if self.portable else t.permute(0, 3, 1, 2)).contiguous()
+
+    # ---- the trunk's stages (lvae_tpu/models/qarv/fused.py:99-193) --------
+
+    def _emb_ctx(self, lmb):
+        """-> (emb for the backbone and posterior, gelu(emb) or None)."""
+        net = self.net
+        if not self.portable:
+            return net.get_lmb_embedding(lmb), None
+        e0, e1 = net.lmb_embed_0, net.lmb_embed_1
+        return trunk.emb_mlp(lmb, self.freqs, e0.weight.t(), e0.bias,
+                             e1.weight.t(), e1.bias, net.sin_period)
+
+    def _start(self, nH, nW):
+        bias = self.net.bias                                 # (1, C, 1, 1)
+        if not self.portable:
+            return bias.expand(1, -1, nH, nW)
+        return bias.reshape(1, 1, 1, -1).expand(1, nH, nW, -1).contiguous()
+
+    def _prior(self, blk, feature, emb, gemb):
+        """-> (f_mid, pm float32, scale indexes int32), in this layout."""
+        if not self.portable:
+            f_mid, pm, _, indexes = blk.prior_stage(feature, emb)
+            return f_mid, pm, indexes
+        f_mid = trunk.convnext_adaln(feature, blk.resnet_front, gemb)
+        B, H, W, C = f_mid.shape
+        Z = blk.zdim
+        pm, idx = trunk.prior_head(
+            f_mid.reshape(B, H * W, C), blk.prior.weight.reshape(2 * Z, C).t(),
+            blk.prior.bias, self.table)
+        return f_mid, pm.reshape(B, H, W, Z), idx.reshape(B, H, W, Z)
+
+    def _fuse(self, blk, f_mid, pm, syms, emb, gemb):
+        if not self.portable:
+            return blk.fuse_stage(f_mid, pm, syms, emb)
+        B, H, W, C = f_mid.shape
+        Z = blk.zdim
+        f2 = trunk.fuse_zproj(
+            f_mid.reshape(B, H * W, C), syms.reshape(B, H * W, Z),
+            pm.reshape(B, H * W, Z), blk.z_proj.weight.reshape(C, Z).t(),
+            blk.z_proj.bias).reshape(B, H, W, C)
+        return trunk.convnext_adaln(f2, blk.resnet_end, gemb)
+
+    def _plain(self, blk, feature, emb, gemb):
+        if not self.portable:
+            return (blk(feature, emb)
+                    if getattr(blk, 'requires_embedding', False)
+                    else blk(feature))
+        if isinstance(blk, common.ConvNeXtBlockAdaLN):
+            return trunk.convnext_adaln(feature, blk, gemb)
+        if isinstance(blk, common.patch_upsample):
+            y = trunk.conv1x1(feature, blk.conv)
+            return pixel_shuffle_nhwc(y, blk.rate).contiguous()
+        if isinstance(blk, common.upsample_nearest):         # data movement
+            r = blk.rate
+            return feature.repeat_interleave(r, 1).repeat_interleave(r, 2)
+        raise NotImplementedError(
+            f'portable trunk: unsupported block {type(blk).__name__}')
+
+    def _finish(self, feature):
+        """-> (1, H, W, 3) float16 in [0, 1], NHWC."""
+        if self.portable:
+            return trunk.finish_image(feature)
+        im = torch.clamp(feature.float(), -1.0, 1.0) * 0.5 + 0.5
+        return im.to(torch.float16).permute(0, 2, 3, 1)
 
     # ---- the shared trunk ---------------------------------------------
 
     def _trunk(self, lmb, nH, nW, symbols_for):
         """Lambda embedding, then per latent block prior -> symbols -> fuse,
         with the plain blocks in between, up to the compression stop.
-        symbols_for(block, f_mid, pm, indexes, emb) -> int32 symbols
-        (1, Z, H, W). Returns (feature, emb, symbols, indexes), the last two
-        as per-block flat int32 tensors in NHWC order."""
-        net = self.net
-        emb = net.get_lmb_embedding(lmb)
-        feature = net.bias.expand(1, -1, nH, nW)
+        symbols_for(block, f_mid, pm, indexes, emb) -> symbols in this
+        trunk's layout. Returns (feature, (emb, gemb), symbols, indexes),
+        the last two as per-block flat int32 tensors in NHWC order."""
+        emb, gemb = self._emb_ctx(lmb)
+        feature = self._start(nH, nW)
         syms_flat, idx_flat = [], []
-        for blk in list(net.dec_blocks)[:self.stop]:
+        for blk in list(self.net.dec_blocks)[:self.stop]:
             if getattr(blk, 'is_latent_block', False):
-                f_mid, pm, _, indexes = blk.prior_stage(feature, emb)
+                f_mid, pm, indexes = self._prior(blk, feature, emb, gemb)
                 # canonical layout: both directions feed the fuse the same
-                # contiguous NCHW int32 tensor, so its kernels match
+                # contiguous int32 tensor
                 syms = symbols_for(blk, f_mid, pm, indexes,
                                    emb).to(torch.int32).contiguous()
-                feature = blk.fuse_stage(f_mid, pm, syms, emb)
-                syms_flat.append(_nhwc_flat(syms))
-                idx_flat.append(_nhwc_flat(indexes))
-            elif getattr(blk, 'requires_embedding', False):
-                feature = blk(feature, emb)
+                feature = self._fuse(blk, f_mid, pm, syms, emb, gemb)
+                syms_flat.append(self._nhwc(syms).reshape(-1))
+                idx_flat.append(self._nhwc(indexes).reshape(-1))
             else:
-                feature = blk(feature)
-        return feature, emb, syms_flat, idx_flat
+                feature = self._plain(blk, feature, emb, gemb)
+        return feature, (emb, gemb), syms_flat, idx_flat
 
-    def _tail(self, feature, emb):
+    def _tail(self, feature, ctx):
         for blk in list(self.net.dec_blocks)[self.stop + 1:]:
-            feature = (blk(feature, emb)
-                       if getattr(blk, 'requires_embedding', False)
-                       else blk(feature))
-        im = torch.clamp(feature.float(), -1.0, 1.0) * 0.5 + 0.5
-        return im.to(torch.float16).permute(0, 2, 3, 1)          # NHWC
+            feature = self._plain(blk, feature, *ctx)
+        return self._finish(feature)
 
     # ---- the two directions -------------------------------------------
 
@@ -97,17 +210,22 @@ class FusedQarvCodec(FusedCodecBase):
         _, _, imH, imW = im.shape
         ms = self.net.max_stride
         enc_features = {}
+        library = _exact_f32 if self.portable else contextlib.nullcontext
 
         def posterior_symbols(blk, f_mid, pm, indexes, emb):
-            if not enc_features:       # the backbone, on the trunk's emb
-                enc_features.update(self.net.encode_features(im, emb))
-            qm = blk.posterior_qm(f_mid, enc_features[blk.enc_key], emb)
+            with library():
+                if not enc_features:   # the backbone, on the trunk's emb
+                    enc_features.update(self.net.encode_features(im, emb))
+                qm = blk.posterior_qm(self._nchw(f_mid),
+                                      enc_features[blk.enc_key], emb)
+            if self.portable:
+                qm = qm.permute(0, 2, 3, 1)
             return torch.round(qm.float() - pm.float())
 
-        feature, emb, syms_flat, idx_flat = self._trunk(
+        feature, ctx, syms_flat, idx_flat = self._trunk(
             lmb, imH // ms, imW // ms, posterior_symbols)
         payload = self.pack_payload(syms_flat, idx_flat)
-        return payload, (self._tail(feature, emb) if want_image else None)
+        return payload, (self._tail(feature, ctx) if want_image else None)
 
     def encode(self, im, lmb):
         payload, _ = self._encode(im, lmb, want_image=False)
@@ -126,7 +244,8 @@ class FusedQarvCodec(FusedCodecBase):
         carry = {'states': states, 'ptr': ptr, 'start': 0}
 
         def decoded_symbols(blk, f_mid, pm, indexes, emb):
-            flat_idx = _nhwc_flat(indexes)
+            _, H, W, Z = self._nhwc(pm).shape
+            flat_idx = self._nhwc(indexes).reshape(-1)
             nsym = flat_idx.numel()
             T = max((nsym + N - 1) // N, 1)
             idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(T, N)
@@ -136,8 +255,7 @@ class FusedQarvCodec(FusedCodecBase):
             z = patch_escapes(vals.reshape(-1)[:nsym], esc_pos, esc_val,
                               carry['start'])
             carry['start'] += nsym
-            _, Z, H, W = pm.shape
-            return z.reshape(1, H, W, Z).permute(0, 3, 1, 2)
+            return self._from_nhwc(z.reshape(1, H, W, Z))
 
-        feature, emb, _, _ = self._trunk(lmb, nH, nW, decoded_symbols)
-        return self._tail(feature, emb)
+        feature, ctx, _, _ = self._trunk(lmb, nH, nW, decoded_symbols)
+        return self._tail(feature, ctx)

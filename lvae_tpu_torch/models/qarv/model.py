@@ -152,33 +152,39 @@ class QarvModel(VAEModelBase):
 
     def compress_mode(self, mode=True, coder='fused', num_lanes=128,
                       esc_cap=8192, word_cap=None, portable=False):
-        """Prepare entropy coding. Only the fused codec on the legacy trunk
-        exists in the port so far: coder='fused', portable=False.
+        """Prepare entropy coding through the fused codec (coder='fused',
+        the only one the port has). portable=True codes on the portable
+        trunk (ops/trunk.py kernels): its streams decode in any process.
         num_lanes: 16/32/64/128, or 'auto' (by lambda, _auto_lanes).
         word_cap caps the coded stream length in 16-bit words; streams that
-        overflow it (or esc_cap escapes) raise OverflowError."""
+        overflow it (or esc_cap escapes) raise OverflowError. Codecs stay
+        cached across calls, keyed by their whole configuration."""
         if coder != 'fused':
             raise NotImplementedError(
                 f'coder={coder!r}: the port has only the fused codec')
-        if portable:
-            raise NotImplementedError(
-                'the portable trunk is not ported yet; use portable=False')
         if mode:
             self._coder.update()
-            self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap)
+            self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap,
+                                   portable=bool(portable))
             self._fused_codecs = getattr(self, '_fused_codecs', {})
             self.num_lanes = num_lanes
             self._fused = self._get_fused(
                 num_lanes if num_lanes != 'auto' else 128)
         self.compressing = mode
 
-    def _get_fused(self, n_lanes: int):
-        key = (n_lanes,) + tuple(sorted(self._fused_cfg.items()))
+    def _get_fused(self, n_lanes: int, portable=None):
+        """Codec for (lane count, current cfg); `portable` overrides the
+        cfg's trunk kind: decode routes by the stream's marker bit, and
+        compress_file writes portable streams by default."""
+        cfg = dict(self._fused_cfg)
+        if portable is not None:
+            cfg['portable'] = bool(portable)
+        key = (n_lanes,) + tuple(sorted(cfg.items()))
         codec = self._fused_codecs.get(key)
         if codec is None:
             from lvae_tpu_torch.models.qarv.fused import FusedQarvCodec
             codec = FusedQarvCodec(self.net, self._coder.cdf_table,
-                                   num_lanes=n_lanes, **self._fused_cfg)
+                                   num_lanes=n_lanes, **cfg)
             self._fused_codecs[key] = codec
         return codec
 
@@ -203,7 +209,7 @@ class QarvModel(VAEModelBase):
             raise ValueError(f'input H/W {tuple(im.shape[2:])} must be '
                              f'divisible by {s} (use compress_file)')
 
-    def _prepare(self, im, lmb):
+    def _prepare(self, im, lmb, portable):
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
         im = to_nchw_batch(im, self.device)
@@ -213,23 +219,27 @@ class QarvModel(VAEModelBase):
         lmb_f32 = struct.unpack('f', struct.pack('f', lmb))[0]
         n = (self._auto_lanes(lmb_f32) if self.num_lanes == 'auto'
              else self.num_lanes)
-        return im, lmb_f32, self._get_fused(n)
+        fused = self._get_fused(n, portable=portable)
+        if portable is None:
+            self._fused = fused
+        return im, lmb_f32, fused
 
     def _header(self, lmb_f32, im):
         nH, nW = im.shape[2] // self.max_stride, im.shape[3] // self.max_stride
         return struct.pack('f', lmb_f32) + struct.pack('3H', 1, nH, nW)
 
-    def compress(self, im, lmb=None):
-        """Compress one image (NHWC in [0,1]) -> bytes."""
-        im, lmb_f32, fused = self._prepare(im, lmb)
+    def compress(self, im, lmb=None, portable=None):
+        """Compress one image (NHWC in [0,1]) -> bytes. `portable`
+        overrides the compress_mode trunk kind for this stream."""
+        im, lmb_f32, fused = self._prepare(im, lmb, portable)
         body = fused.encode(im, self._lmb_tensor(lmb_f32))
         return self._header(lmb_f32, im) + body
 
-    def compress_check(self, im, lmb=None):
+    def compress_check(self, im, lmb=None, portable=None):
         """compress() that also returns the image reconstructed from the
         encode-side symbols (NHWC float32): decompress() must reproduce it
         bitwise."""
-        im, lmb_f32, fused = self._prepare(im, lmb)
+        im, lmb_f32, fused = self._prepare(im, lmb, portable)
         body, img = fused.encode_check(im, self._lmb_tensor(lmb_f32))
         return (self._header(lmb_f32, im) + body,
                 img.float().cpu().numpy())
@@ -246,21 +256,27 @@ class QarvModel(VAEModelBase):
         if nB != 1:
             raise ValueError(f'stream holds {nB} images; expected 1')
         body = string[10:]
-        # route by the stream's lane count; parse_payload refuses streams
-        # whose marker bit says they were coded by the portable trunk
+        # route by the stream's lane count and trunk kind (the lane field's
+        # high bit marks a portable stream), whatever compress_mode chose:
+        # a portable file decodes in any process
         lanes_field, = struct.unpack('<H', body[8:10])
-        fused = self._get_fused(lanes_field & 0x7FFF)
+        fused = self._get_fused(lanes_field & 0x7FFF,
+                                portable=bool(lanes_field & 0x8000))
         return fused.decode_to_device(body, nH, nW, self._lmb_tensor(lmb))
 
     def decompress(self, string):
         """Decode -> (1, H, W, 3) float32 numpy image in [0,1]."""
         return self.decompress_to_device(string).float().cpu().numpy()
 
-    def compress_file(self, img_path, output_path, lmb=None):
-        """Compress an 8-bit RGB(A) PNG into a file: [2H h w][compress()]."""
+    def compress_file(self, img_path, output_path, lmb=None, portable=None):
+        """Compress an 8-bit RGB(A) PNG into a file: [2H h w][compress()].
+        Files are portable streams by default, so that they decode in any
+        process (lvae_tpu/models/qarv/model.py:1157-1158); portable=False
+        writes a legacy stream, bound to the writing process."""
         img = coding.read_png(img_path)
         padded = coding.pad_divisible_by(img, div=self.net.max_stride)
-        body = self.compress(padded.astype(np.float32) / 255.0, lmb=lmb)
+        body = self.compress(padded.astype(np.float32) / 255.0, lmb=lmb,
+                             portable=True if portable is None else portable)
         with open(output_path, 'wb') as f:
             f.write(struct.pack('2H', img.shape[0], img.shape[1]) + body)
 

@@ -1,10 +1,17 @@
 """Builds the hand-written CUDA kernels and binds them with ctypes.
 
-One ``nvcc`` call compiles ``csrc/rans.cu`` into a plain C shared library
-(no PyTorch headers, so the build takes seconds) under ``_build/`` beside the
-package. The build runs at the first kernel launch, under a file lock, and
-again whenever the source is newer than the library. Nothing is built when
-the module is imported: machines without a CUDA toolkit import it freely.
+Each source of ``csrc/`` (``rans.cu``, ``trunk.cu``) is compiled by its own
+``nvcc -c`` call, all started together, and one more call links the objects
+into a plain C shared library (no PyTorch headers, so the build takes
+seconds) under ``_build/`` beside the package. The build runs at the first
+kernel launch, under a file lock, and again whenever a source is newer than
+the library. Nothing is built when the module is imported: machines without
+a CUDA toolkit import it freely.
+
+The flags carry the trunk's bit-exactness contract (csrc/trunk.cu): no
+``--use_fast_math`` (expf, logf, sqrtf and division stay the accurate
+versions) and ``-fmad=false`` (only the explicit fmaf of the matrix products
+fuse; every other multiply-add rounds twice, as in the plain versions).
 """
 import ctypes
 import fcntl
@@ -15,20 +22,32 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / 'csrc' / 'rans.cu'
+SOURCES = (_PKG / 'csrc' / 'rans.cu', _PKG / 'csrc' / 'trunk.cu')
 BUILD_DIR = _PKG / '_build'
-LIBRARY = BUILD_DIR / 'librans_cuda.so'
+LIBRARY = BUILD_DIR / 'liblvae_cuda.so'
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# C signatures of csrc/rans.cu's entry points (every pointer and the stream
-# as c_void_p, or ctypes would cut them to 32-bit ints)
+_F = ctypes.c_float
+# C signatures of the entry points of csrc/*.cu (every pointer and the
+# stream as c_void_p, or ctypes would cut them to 32-bit ints)
 _SIGNATURES = {
     'rans_decode_block': [_P, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I,
                           _P, _LL, _P, _I, _P],
     'rans_encode_all': [_P, _P, _P, _I, _I, _P, _I, _I, _P, _LL, _P, _P,
                         _I, _P],
+    'trunk_emb_mlp': [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I,
+                      _P],
+    'trunk_dw_ln_mod': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _I, _P],
+    'trunk_mlp_res': [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _P],
+    'trunk_dense': [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_prior_head': [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+                         _P],
+    'trunk_fuse_zproj': [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_finish_image': [_P, _LL, _P, _I, _P],
 }
 
 _loaded = {}
@@ -45,30 +64,56 @@ def nvcc_path():
                        'toolkit (PATH or /usr/local/cuda/bin)')
 
 
-def nvcc_command(output):
-    return [nvcc_path(), '-O3', '-arch=sm_90a', '-Xcompiler', '-fPIC',
-            '-shared', str(SOURCE), '-o', str(output)]
+_FLAGS = ['-O3', '-std=c++17', '-arch=sm_90a', '-fmad=false',
+          '-Xcompiler', '-fPIC']
+
+
+def nvcc_commands(tag):
+    """(one compile command per source, the link command); objects and the
+    library carry `tag` in their names until the library is moved in."""
+    objs = [BUILD_DIR / f'{src.stem}.{tag}.o' for src in SOURCES]
+    compiles = [[nvcc_path(), *_FLAGS, '-c', str(src), '-o', str(obj)]
+                for src, obj in zip(SOURCES, objs)]
+    link = [nvcc_path(), '-arch=sm_90a', '-shared', *map(str, objs), '-o',
+            str(BUILD_DIR / f'{LIBRARY.stem}.{tag}.so')]
+    return compiles, link
+
+
+def _run_all(cmds):
+    """Run the commands together; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({p.returncode}):\n'
+                               f'{" ".join(c)}\n{err}')
 
 
 def build():
-    """Compile the library if it is missing or older than its source.
-    Returns {'cmd', 'seconds', 'library', 'built'}."""
+    """Compile the library if it is missing or older than a source.
+    Returns {'cmds', 'seconds', 'library', 'built'}."""
     BUILD_DIR.mkdir(exist_ok=True)
     with open(BUILD_DIR / 'build.lock', 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         fresh = (LIBRARY.exists()
-                 and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime)
-        tmp = BUILD_DIR / f'librans_cuda.{os.getpid()}.so'
-        cmd = nvcc_command(tmp)
+                 and all(LIBRARY.stat().st_mtime >= src.stat().st_mtime
+                         for src in SOURCES))
+        tag = str(os.getpid())
+        compiles, link = nvcc_commands(tag)
         t0 = time.perf_counter()
         if not fresh:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
-                                   f'{" ".join(cmd)}\n{res.stderr}')
-            os.replace(tmp, LIBRARY)
-        return dict(cmd=' '.join(cmd).replace(str(tmp), str(LIBRARY)),
-                    seconds=time.perf_counter() - t0,
+            try:
+                _run_all(compiles)
+                _run_all([link])
+                os.replace(link[-1], LIBRARY)
+            finally:
+                for c in compiles:
+                    Path(c[-1]).unlink(missing_ok=True)
+        cmds = [' '.join(c).replace(f'.{tag}', '')
+                for c in compiles + [link]]
+        return dict(cmds=cmds, seconds=time.perf_counter() - t0,
                     library=str(LIBRARY), built=not fresh)
 
 

@@ -1,5 +1,7 @@
-"""The port's fused codec (legacy trunk) end to end on qarv_tiny at 64x64,
-against the JAX package's fused legacy codec on the same random weights.
+"""The port's fused codec end to end on qarv_tiny at 64x64, on the legacy and
+the portable trunk, against the JAX package's fused codec of the same kind
+on the same random weights (the JAX portable trunk's Pallas kernels run in
+interpret mode, the port's trunk functions through their plain versions).
 
 The posterior kernels are scaled x300 so that escapes occur (untrained tiny
 models otherwise code ~zero symbols).
@@ -60,10 +62,10 @@ def test_roundtrip_bit_exact(models, image, num_lanes, lmb):
     assert np.isfinite(dec).all() and 0 <= dec.min() and dec.max() <= 1
 
 
-def _jax_symbols(jm, image, lmb, num_lanes):
-    """The JAX fused legacy codec's stream plus the symbols and indexes its
+def _jax_symbols(jm, image, lmb, num_lanes, portable=False):
+    """The JAX fused codec's stream plus the symbols and indexes its
     payload assembly received (captured with a debug callback)."""
-    jm.compress_mode(coder='fused', num_lanes=num_lanes, portable=False)
+    jm.compress_mode(coder='fused', num_lanes=num_lanes, portable=portable)
     codec = jm._fused
     captured = []
     orig = codec.pack_payload
@@ -75,7 +77,7 @@ def _jax_symbols(jm, image, lmb, num_lanes):
         return orig(syms_flat, idx_flat)
 
     codec.pack_payload = spy
-    bits = jm.compress(image, lmb=lmb, portable=False)
+    bits = jm.compress(image, lmb=lmb, portable=portable)
     codec.pack_payload = orig
     arrs = captured[-1]
     nb = len(arrs) // 2
@@ -128,10 +130,12 @@ def test_compress_file_roundtrip(models, tmp_path):
     assert data[:4] == struct.pack('2H', 64, 64)
     lmb, = struct.unpack('f', data[4:8])
     assert lmb == 256.0 and struct.unpack('3H', data[8:14]) == (1, 1, 1)
+    lanes_field, = struct.unpack('<H', data[22:24])
+    assert lanes_field == 0x8000 | 32            # portable by default
     dec = tm.decompress_file(path)
     assert dec.shape == (1, 64, 64, 3)
     img = np.asarray(Image.open(COLLIE).convert('RGB'), np.float32) / 255.0
-    _, recon = tm.compress_check(img[None], lmb=256.0)
+    _, recon = tm.compress_check(img[None], lmb=256.0, portable=True)
     assert np.array_equal(dec, recon)
 
 
@@ -151,7 +155,8 @@ def test_compress_file_pads_and_crops_like_the_reference(models, tmp_path):
     assert bits.read_bytes()[:4] == struct.pack('2H', 50, 60)
     dec = tm.decompress_file(bits)
     assert dec.shape == (1, 50, 60, 3)
-    _, recon = tm.compress_check(padded[None] / np.float32(255), lmb=1024.0)
+    _, recon = tm.compress_check(padded[None] / np.float32(255), lmb=1024.0,
+                                 portable=True)
     assert np.array_equal(dec, recon[:, :50, :60])
 
 
@@ -167,8 +172,106 @@ def test_overflows_and_refusals(models, image):
     bits = bytearray(tm.compress(image, lmb=512.0))
     bits[19] |= 0x80                                    # portable marker
     with pytest.raises(ValueError, match=r'stream trunk kind \(portable\)'):
-        tm.decompress(bytes(bits))
-    with pytest.raises(NotImplementedError):
-        tm.compress_mode(portable=True)
+        tm._fused.parse_payload(bytes(bits[10:]))
     with pytest.raises(NotImplementedError):
         tm.compress_mode(coder='host')
+
+
+# ---- the portable trunk ----------------------------------------------------
+
+@pytest.mark.parametrize('num_lanes,lmb', [(16, 512.0), ('auto', 2048.0)])
+def test_portable_roundtrip_bit_exact(models, image, num_lanes, lmb):
+    _, tm = models
+    tm.compress_mode(num_lanes=num_lanes, portable=True)
+    bits, recon = tm.compress_check(image, lmb=lmb)
+    n_words, n_esc, lanes_field = struct.unpack('<IIH', bits[10:20])
+    assert n_esc > 0 and lanes_field & 0x8000
+    assert lanes_field & 0x7FFF == (16 if num_lanes == 16 else 128)
+    assert tm.compress(image, lmb=lmb) == bits          # deterministic
+    dec = tm.decompress(bits)
+    assert dec.shape == (1, 64, 64, 3) and np.array_equal(dec, recon)
+    assert np.isfinite(dec).all() and 0 <= dec.min() and dec.max() <= 1
+
+
+def test_portable_symbols_and_bytes_match_jax_codec(models, image):
+    """Symbols, scale indexes and wire bytes equal the JAX CPU portable
+    codec's, and the JAX parser reads the port's portable container."""
+    jm, tm = models
+    lmb, N = 512.0, 16
+    jbits, jcodec, jsyms, jidx = _jax_symbols(jm, image, lmb, N,
+                                              portable=True)
+    tm.compress_mode(num_lanes=N, portable=True)
+    codec = tm._fused
+    seen = []
+    orig = codec.pack_payload
+    codec.pack_payload = lambda s, i: (seen.append(
+        (torch.cat(s).numpy().copy(), torch.cat(i).numpy().copy()))
+        or orig(s, i))
+    try:
+        tbits = tm.compress(image, lmb=lmb)
+    finally:
+        codec.pack_payload = orig
+    tsyms, tidx = seen[0]
+    print(f'portable: {int((tsyms != jsyms).sum())} of {tsyms.size} symbols '
+          f'and {int((tidx != jidx).sum())} indexes differ')
+    assert np.array_equal(tsyms, jsyms) and np.array_equal(tidx, jidx)
+    assert tbits == jbits                               # same wire bytes
+    body = tbits[10:]
+    n_words, n_esc, lanes_field = struct.unpack('<IIH', body[:10])
+    assert lanes_field == 0x8000 | N and n_esc > 0
+    jst, jpk, jpos, jval = jcodec.parse_payload(body)
+    pk = np.asarray(jpk).view(np.uint32)
+    jwords = np.stack([pk & 0xFFFF, pk >> 16], 1).reshape(-1)[:n_words]
+    st, words, pos, val = codec.parse_payload(body)
+    assert np.array_equal(np.asarray(jst), st)
+    assert np.array_equal(jwords, words)
+    assert np.array_equal(np.asarray(jpos)[:n_esc], pos)
+    assert np.array_equal(np.asarray(jval)[:n_esc], val)
+    # and the JAX portable codec decodes the port's stream to the pixels
+    # the port decodes, within the float tolerance of the two trunks
+    jdec = jm.decompress(tbits)
+    np.testing.assert_allclose(tm.decompress(tbits), jdec, atol=1e-3)
+
+
+def test_portable_legacy_firewall_and_routing(models, image):
+    """A codec never parses the other trunk kind's stream; the model routes
+    by the stream's marker bit, whatever compress_mode chose
+    (tests/test_portable_trunk.py:155-174)."""
+    _, tm = models
+    tm.compress_mode(num_lanes=16)                      # legacy
+    legacy_codec = tm._fused
+    legacy, legacy_rec = tm.compress_check(image, lmb=512.0)
+    tm.compress_mode(num_lanes=16, portable=True)
+    portable_codec = tm._fused
+    portable, portable_rec = tm.compress_check(image, lmb=512.0)
+    assert legacy[10:20] != portable[10:20]
+    with pytest.raises(ValueError, match=r'trunk kind \(legacy\) != codec '
+                                         r'\(portable\)'):
+        portable_codec.parse_payload(legacy[10:])
+    with pytest.raises(ValueError, match=r'trunk kind \(portable\) != codec '
+                                         r'\(legacy\)'):
+        legacy_codec.parse_payload(portable[10:])
+    # both kinds decode through either configured mode
+    assert np.array_equal(tm.decompress(legacy), legacy_rec)
+    assert np.array_equal(tm.decompress(portable), portable_rec)
+    tm.compress_mode(num_lanes=16)
+    assert np.array_equal(tm.decompress(portable), portable_rec)
+    assert np.array_equal(tm.decompress(legacy), legacy_rec)
+    # per-call override, and compress_mode leaves the other kind cached
+    assert tm.compress(image, lmb=512.0, portable=True) == portable
+    assert tm._fused is legacy_codec
+
+
+def test_compress_file_portable_by_default(models, tmp_path):
+    _, tm = models
+    tm.compress_mode(num_lanes=16)                      # legacy mode
+    img = np.asarray(Image.open(COLLIE).convert('RGB'), np.float32) / 255.0
+    for portable, marker in ((None, 0x8000), (True, 0x8000), (False, 0)):
+        path = tmp_path / f'collie_{portable}.bits'
+        tm.compress_file(COLLIE, path, lmb=512.0, portable=portable)
+        data = path.read_bytes()
+        lanes_field, = struct.unpack('<H', data[22:24])
+        assert lanes_field == marker | 16
+        _, recon = tm.compress_check(img[None], lmb=512.0,
+                                     portable=bool(marker))
+        assert np.array_equal(tm.decompress_file(path), recon)

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on the card: each against its plain version at
-every lane count the codec uses, and a qarv_tiny round trip through them.
+"""The port's CUDA kernels on the card: the rANS kernels against their plain
+versions at every lane count the codec uses, the trunk kernels against
+theirs at qarv_tiny shapes, and qarv_tiny round trips (legacy and portable)
+through them.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -86,3 +88,94 @@ def test_qarv_tiny_roundtrip_on_card(card):
     assert np.array_equal(rec, recon)
     assert re_.rans_encode_all.launches == enc0 + 1
     assert rd.rans_decode_block.launches == dec0 + 2
+
+
+# ---- the portable-trunk kernels (ops/trunk.py, csrc/trunk.cu) ------------
+
+def _trunk_cases(rng, card):
+    """(name, kernel args) at qarv_tiny shapes (C = 16, E = 32, 4x4 and 1x1
+    latents, the 64x64 pixel tail), ragged row counts included."""
+    from lvae_tpu_torch.ops import trunk
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(
+            np.float32), device=card)
+
+    table = torch.as_tensor(cdf.default_gaussian_scale_table().astype(
+        np.float32), device=card)
+    syms = torch.as_tensor(rng.integers(-900, 900, (1, 16, 4)).astype(
+        np.int32), device=card)
+    bz = torch.cat([f(4, scale=0.1), f(4, scale=2.0)])
+    return [
+        ('emb_mlp', trunk.emb_mlp,
+         (torch.tensor([512.0], device=card),
+          torch.as_tensor(trunk.emb_freqs(32, 64), device=card),
+          f(32, 32, scale=0.2), f(32), f(32, 32, scale=0.2), f(32), 64)),
+        ('dw_ln_mod', trunk.dw_ln_mod,
+         (f(1, 16, 16, 16), f(7, 7, 16, scale=0.2), f(16), f(32, 32),
+          f(32), f(1, 32), 7)),
+        ('dw_ln_mod', trunk.dw_ln_mod,
+         (f(1, 4, 4, 16), f(3, 3, 16, scale=0.3), f(16), f(32, 32),
+          f(32), f(1, 32), 3)),
+        ('mlp_res', trunk.mlp_res,
+         (f(1, 256, 16), f(16, 32, scale=0.25), f(32), f(32, 16, scale=0.2),
+          f(16), f(16), f(1, 256, 16))),
+        ('dense', trunk.dense, (f(1, 4096, 16), f(16, 48, scale=0.25),
+                                f(48))),
+        ('dense', trunk.dense, (f(1, 1, 16), f(16, 256, scale=0.25),
+                                f(256))),
+        ('prior_head', trunk.prior_head,
+         (f(1, 16, 16), f(16, 8, scale=0.5), bz, table)),
+        ('prior_head', trunk.prior_head,
+         (f(1, 16, 16), f(16, 8, scale=0.5), bz, table, True)),
+        ('fuse_zproj', trunk.fuse_zproj,
+         (f(1, 16, 16), syms, f(1, 16, 4), f(4, 16, scale=0.01), f(16))),
+        ('finish_image', trunk.finish_image, (f(1, 64, 64, 3, scale=1.5),)),
+    ]
+
+
+def test_trunk_kernels_match_plain(card):
+    """Each trunk kernel against its plain version (atol 1e-5, rtol 1e-4 on
+    floats; the plain products sum in another order), one launch counted
+    per call, and the same bits on a repeat."""
+    from lvae_tpu_torch.ops import trunk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, fn, args in _trunk_cases(np.random.default_rng(0), card):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1, name
+        want = trunk.PLAIN[fn](*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            if g.dtype == torch.int32:
+                assert torch.equal(g, w), name
+            else:
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), name
+
+
+def test_portable_qarv_tiny_roundtrip_on_card(card, tmp_path):
+    from lvae_tpu_torch.ops import trunk
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model('qarv_tiny')
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            if name.endswith('posterior.weight'):
+                p.mul_(300.0)                        # make escapes occur
+    model.compress_mode(num_lanes='auto', portable=True)
+    im = np.random.default_rng(0).uniform(0, 1, (1, 128, 192, 3))
+    counts = {k.__name__: k.launches for k in trunk.KERNELS}
+    bits, recon = model.compress_check(im, lmb=1024.0)
+    rec = model.decompress(bits)
+    assert np.array_equal(rec, recon)
+    # the trunk (emb, 2 latent blocks of 2 ConvNeXt blocks, 1 upsample) and
+    # the tail (2 ConvNeXt blocks, 2 upsamples, the finish), once in
+    # compress_check and once in decompress
+    per_image = {'emb_mlp': 1, 'dw_ln_mod': 6, 'mlp_res': 6, 'dense': 3,
+                 'prior_head': 2, 'fuse_zproj': 2, 'finish_image': 1}
+    for k in trunk.KERNELS:
+        assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
