@@ -18,8 +18,8 @@
    bit-exact against the encode side's reconstruction and that rate and
    quality match the JAX package's recorded results;
 4. holds the seven portable-trunk kernels against their plain versions on
-   the inputs the main path gives them (captured from one photo1
-   encode and decode, every distinct shape), checks that a batch of two
+   the inputs the main path gives them (captured from one encode and
+   decode of each image, every distinct shape), checks that a batch of two
    gives the first image the bits it gets alone, and times each kernel, its
    plain version and, for dense, torch.addmm (device times from CUDA-graph
    replays, and the eager wrapper's time beside them);
@@ -72,8 +72,8 @@ EXPECTED_LAUNCHES = {
                 finish_image=1))}
 # trunk kernel vs plain version on the card: |kernel - plain| <= ATOL +
 # RTOL * |plain|; the plain products sum in cuBLAS's order, the kernels in
-# k order, over K up to 2048 and on residual features of magnitude ~1e2
-TRUNK_ATOL, TRUNK_RTOL = 1e-4, 1e-4
+# k order
+TRUNK_ATOL, TRUNK_RTOL = 1e-5, 1e-4
 # qarv_base 512x768 latent block sizes (1/64 .. 1/8 resolution)
 QARV_BASE_BLOCKS = (3072, 12288, 12288, 147456, 147456, 147456,
                     49152, 49152, 49152)
@@ -458,10 +458,12 @@ def work(name, args):
         M = x.shape[0] * x.shape[1]
         return 4 * (n(x) + M * w.shape[1] + n(w) + n(b)), 2 * M * n(w)
     if name == 'prior_head':
+        # the index of a scale in the ascending table needs ~log2(S)
+        # compares (the kernel counts over all S: more than the bound)
         x, w, b, table = args[:4]
         M, Z = x.shape[0] * x.shape[1], w.shape[1] // 2
         return (4 * (n(x) + n(w) + n(b) + n(table) + 2 * M * Z),
-                2 * M * n(w) + M * Z * n(table))
+                2 * M * n(w) + M * Z * math.ceil(math.log2(n(table))))
     if name == 'fuse_zproj':
         f, syms, pm, w, b = args
         M = f.shape[0] * f.shape[1]
@@ -499,12 +501,24 @@ def graph_ms(torch, fn, inner, repeats=5):
     return cuda_ms(torch, graph.replay, repeats) / inner
 
 
-def check_trunk_kernels(torch, model, im, lmb):
+def check_trunk_kernels(torch, model, cases):
     """Each trunk kernel against its plain version on the card at every
-    main-path shape (the inputs captured from one photo1 encode + decode),
-    the B=1 vs B=2 bitwise check, and the times."""
+    main-path shape, the B=1 vs B=2 bitwise check, and the times. The
+    inputs are captured from one encode + decode of each (label, image,
+    lambda) of `cases`; the per-image launch and time sums count the first
+    case's calls, the others add the shapes it lacks."""
     from lvae_tpu_torch.ops import trunk
+    label, im, lmb = cases[0]
     inputs, calls = capture_trunk_inputs(model, im, lmb)
+    seen_in = {n: dict.fromkeys(inputs[n], label) for n in TRUNK_NAMES}
+    for label, im, lmb in cases[1:]:
+        more, _ = capture_trunk_inputs(model, im, lmb)
+        for name in TRUNK_NAMES:
+            for sig, args in more[name].items():
+                if sig not in inputs[name]:
+                    inputs[name][sig] = args
+                    calls[name][sig] = [0, 0]
+                    seen_in[name][sig] = label
     torch.backends.cuda.matmul.allow_tf32 = False   # exact plain products
     results = {}
     for name in TRUNK_NAMES:
@@ -560,7 +574,7 @@ def check_trunk_kernels(torch, model, im, lmb):
             shapes.append(dict(
                 shapes=[list(s[0]) if isinstance(s, tuple) else s
                         for s in sig],
-                encode_calls=n_enc, decode_calls=n_dec, max_abs_err=err,
+                image=seen_in[name][sig], encode_calls=n_enc, decode_calls=n_dec, max_abs_err=err,
                 err_over_tolerance=worst, index_flips=flips,
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
@@ -708,8 +722,11 @@ def main():
                                       if k != 'path'}
                                      for r in legacy + portable])})
         main_lmb = max(LAMBDAS)
-        photo = coding.read_png(PHOTO).astype(np.float32)[None] / 255.0
-        trunk = check_trunk_kernels(torch, model, photo, main_lmb)
+        trunk = check_trunk_kernels(torch, model, [
+            ('photo1', coding.read_png(PHOTO).astype(np.float32)[None] / 255,
+             main_lmb),
+            ('hopper', coding.read_png(HOPPER).astype(np.float32)[None] / 255,
+             512.0)])
         emit({'trunk': trunk})
         photo512 = next(r for r in portable if r['lmb'] == 512.0
                         and r['image'] == os.path.relpath(PHOTO, ROOT))

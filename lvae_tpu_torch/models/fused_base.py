@@ -40,13 +40,14 @@ class FusedCodecBase:
     """Family-independent half of a fused codec; subclasses provide the
     encode and decode trunks."""
 
+    # a portable codec's trunk runs in the kernels of ops/trunk.py and its
+    # streams carry the marker bit (decode in any process); a legacy one's
+    # runs library convolutions (streams decode in the writing process only)
+    portable = False
+
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None, portable=False, device=None):
+                 word_cap=None, device=None):
         self.net = net
-        # portable: the trunk runs in the kernels of ops/trunk.py and the
-        # streams carry the marker bit (decode in any process); legacy:
-        # library convolutions, streams decode in the writing process only
-        self.portable = bool(portable)
         self.device = (torch.device(device) if device is not None
                        else net.bias.device)
         self._check_table(cdf_table)

@@ -12,17 +12,18 @@ recomputed prior floats differ from the encoder's by a single scale-index
 flip. Both directions therefore run ONE trunk function (`_trunk`) and differ
 only in where the integer symbols come from. Two trunks fill it:
 
-* legacy (``portable=False``): the modules' cuDNN convolutions and cuBLAS
-  products, NCHW, under the precision policy set in ``__init__``; a legacy
-  stream decodes bit-exactly in the process (and on the card type) that
-  wrote it.
-* portable (``portable=True``): every float between the integer junctions
-  comes from the hand-written kernels of ``ops/trunk.py`` (lambda embedding,
-  ConvNeXt-AdaLN blocks, priors and scale indexes, fuses, 1x1 convs, pixel
-  finish), on NHWC features as the JAX kernels take them; outside them only
-  data movement (pad, reshape, pixel shuffle, concatenation). The kernels'
-  results depend on nothing but their inputs, so a portable stream decodes
-  in any process: it is the file format.
+* legacy (``FusedQarvCodec``): the modules' cuDNN convolutions and cuBLAS
+  products, NCHW, in exact float32 whatever the process's flags
+  (``_exact_f32``); a legacy stream decodes bit-exactly in the process (and
+  on the card type) that wrote it.
+* portable (``PortableQarvCodec``, which overrides the trunk's stages):
+  every float between the integer junctions comes from the hand-written
+  kernels of ``ops/trunk.py`` (lambda embedding, ConvNeXt-AdaLN blocks,
+  priors and scale indexes, fuses, 1x1 convs, pixel finish), on NHWC
+  features as the JAX kernels take them; outside them only data movement
+  (pad, reshape, pixel shuffle, concatenation). The kernels' results depend
+  on nothing but their inputs, so a portable stream decodes in any process:
+  it is the file format.
 
 On both trunks the encoder backbone and ``posterior_qm`` stay library
 convolutions (NCHW), because their outputs only choose which symbols are
@@ -64,111 +65,63 @@ def pixel_shuffle_nhwc(x, rate):
     return x.reshape(B, H * rate, W * rate, C)
 
 
+_PERMS = {('NCHW', 'NHWC'): (0, 2, 3, 1), ('NHWC', 'NCHW'): (0, 3, 1, 2),
+          ('NCHW', 'NCHW'): (0, 1, 2, 3), ('NHWC', 'NHWC'): (0, 1, 2, 3)}
+
+
 class FusedQarvCodec(FusedCodecBase):
-    """Fused codec for VariableRateLossyVAENet (lambda-conditioned)."""
+    """Fused codec for VariableRateLossyVAENet (lambda-conditioned) on the
+    legacy trunk; PortableQarvCodec overrides the trunk's stages."""
+
+    layout = 'NCHW'                      # of the trunk's features
+    # Precision policy around the whole trunk (the JAX package's "encode
+    # and decode agree on every trunk float" invariant, held within one
+    # process): the legacy trunk is all library calls, so it runs in exact
+    # float32 - no TF32 in convolutions (cuDNN's default) or matmuls - with
+    # deterministic cuDNN algorithms chosen by shape alone, whatever the
+    # process's flags. GELU is the exact erf form and LayerNorm has eps 1e-6
+    # and no affine (models/common.py).
+    trunk_scope = staticmethod(_exact_f32)
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None, portable=False):
+                 word_cap=None):
         super().__init__(net, cdf_table, num_lanes=num_lanes,
-                         esc_cap=esc_cap, word_cap=word_cap,
-                         portable=portable)
-        if not self.portable:
-            # Legacy precision policy (the JAX package's "encode and decode
-            # agree on every trunk float" invariant, held within one
-            # process): the whole trunk in exact float32 - no TF32 in
-            # convolutions (cuDNN's default) or matmuls - with deterministic
-            # cuDNN algorithms chosen by shape alone (no benchmarking), so
-            # encode and decode pick the same kernels. GELU is the exact erf
-            # form and LayerNorm has eps 1e-6 and no affine
-            # (models/common.py).
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
-        else:
-            self.table = torch.as_tensor(
-                cdf_ops.default_gaussian_scale_table().astype('float32'),
-                device=self.device)
-            self.freqs = torch.as_tensor(
-                trunk.emb_freqs(net.lmb_embed_dim[0], net.sin_period),
-                device=self.device)
+                         esc_cap=esc_cap, word_cap=word_cap)
         blocks = list(net.dec_blocks)
         self.stop = next(i for i, b in enumerate(blocks)
                          if isinstance(b, common.CompressionStopFlag))
 
-    # ---- layouts: legacy features are NCHW, portable ones NHWC ----------
+    def _to(self, t, layout):
+        """A feature of this trunk -> a view in `layout`."""
+        return t.permute(_PERMS[self.layout, layout])
 
-    def _nhwc(self, t):
-        return t if self.portable else t.permute(0, 2, 3, 1)
+    def _from(self, t, layout):
+        """A tensor in `layout` -> this trunk's layout, contiguous."""
+        return t.permute(_PERMS[layout, self.layout]).contiguous()
 
-    def _nchw(self, t):
-        return t.permute(0, 3, 1, 2) if self.portable else t
-
-    def _from_nhwc(self, t):
-        """NHWC tensor -> this trunk's layout, contiguous."""
-        return (t if self.portable else t.permute(0, 3, 1, 2)).contiguous()
-
-    # ---- the trunk's stages (lvae_tpu/models/qarv/fused.py:99-193) --------
+    # ---- the trunk's stages -------------------------------------------
 
     def _emb_ctx(self, lmb):
         """-> (emb for the backbone and posterior, gelu(emb) or None)."""
-        net = self.net
-        if not self.portable:
-            return net.get_lmb_embedding(lmb), None
-        e0, e1 = net.lmb_embed_0, net.lmb_embed_1
-        return trunk.emb_mlp(lmb, self.freqs, e0.weight.t(), e0.bias,
-                             e1.weight.t(), e1.bias, net.sin_period)
+        return self.net.get_lmb_embedding(lmb), None
 
     def _start(self, nH, nW):
-        bias = self.net.bias                                 # (1, C, 1, 1)
-        if not self.portable:
-            return bias.expand(1, -1, nH, nW)
-        return bias.reshape(1, 1, 1, -1).expand(1, nH, nW, -1).contiguous()
+        return self.net.bias.expand(1, -1, nH, nW)           # NCHW
 
     def _prior(self, blk, feature, emb, gemb):
         """-> (f_mid, pm float32, scale indexes int32), in this layout."""
-        if not self.portable:
-            f_mid, pm, _, indexes = blk.prior_stage(feature, emb)
-            return f_mid, pm, indexes
-        f_mid = trunk.convnext_adaln(feature, blk.resnet_front, gemb)
-        B, H, W, C = f_mid.shape
-        Z = blk.zdim
-        pm, idx = trunk.prior_head(
-            f_mid.reshape(B, H * W, C), blk.prior.weight.reshape(2 * Z, C).t(),
-            blk.prior.bias, self.table)
-        return f_mid, pm.reshape(B, H, W, Z), idx.reshape(B, H, W, Z)
+        f_mid, pm, _, indexes = blk.prior_stage(feature, emb)
+        return f_mid, pm, indexes
 
     def _fuse(self, blk, f_mid, pm, syms, emb, gemb):
-        if not self.portable:
-            return blk.fuse_stage(f_mid, pm, syms, emb)
-        B, H, W, C = f_mid.shape
-        Z = blk.zdim
-        f2 = trunk.fuse_zproj(
-            f_mid.reshape(B, H * W, C), syms.reshape(B, H * W, Z),
-            pm.reshape(B, H * W, Z), blk.z_proj.weight.reshape(C, Z).t(),
-            blk.z_proj.bias).reshape(B, H, W, C)
-        return trunk.convnext_adaln(f2, blk.resnet_end, gemb)
+        return blk.fuse_stage(f_mid, pm, syms, emb)
 
     def _plain(self, blk, feature, emb, gemb):
-        if not self.portable:
-            return (blk(feature, emb)
-                    if getattr(blk, 'requires_embedding', False)
-                    else blk(feature))
-        if isinstance(blk, common.ConvNeXtBlockAdaLN):
-            return trunk.convnext_adaln(feature, blk, gemb)
-        if isinstance(blk, common.patch_upsample):
-            y = trunk.conv1x1(feature, blk.conv)
-            return pixel_shuffle_nhwc(y, blk.rate).contiguous()
-        if isinstance(blk, common.upsample_nearest):         # data movement
-            r = blk.rate
-            return feature.repeat_interleave(r, 1).repeat_interleave(r, 2)
-        raise NotImplementedError(
-            f'portable trunk: unsupported block {type(blk).__name__}')
+        return (blk(feature, emb) if getattr(blk, 'requires_embedding', False)
+                else blk(feature))
 
     def _finish(self, feature):
         """-> (1, H, W, 3) float16 in [0, 1], NHWC."""
-        if self.portable:
-            return trunk.finish_image(feature)
         im = torch.clamp(feature.float(), -1.0, 1.0) * 0.5 + 0.5
         return im.to(torch.float16).permute(0, 2, 3, 1)
 
@@ -191,8 +144,8 @@ class FusedQarvCodec(FusedCodecBase):
                 syms = symbols_for(blk, f_mid, pm, indexes,
                                    emb).to(torch.int32).contiguous()
                 feature = self._fuse(blk, f_mid, pm, syms, emb, gemb)
-                syms_flat.append(self._nhwc(syms).reshape(-1))
-                idx_flat.append(self._nhwc(indexes).reshape(-1))
+                syms_flat.append(self._to(syms, 'NHWC').reshape(-1))
+                idx_flat.append(self._to(indexes, 'NHWC').reshape(-1))
             else:
                 feature = self._plain(blk, feature, emb, gemb)
         return feature, (emb, gemb), syms_flat, idx_flat
@@ -210,22 +163,21 @@ class FusedQarvCodec(FusedCodecBase):
         _, _, imH, imW = im.shape
         ms = self.net.max_stride
         enc_features = {}
-        library = _exact_f32 if self.portable else contextlib.nullcontext
 
         def posterior_symbols(blk, f_mid, pm, indexes, emb):
-            with library():
+            with _exact_f32():
                 if not enc_features:   # the backbone, on the trunk's emb
                     enc_features.update(self.net.encode_features(im, emb))
-                qm = blk.posterior_qm(self._nchw(f_mid),
+                qm = blk.posterior_qm(self._to(f_mid, 'NCHW'),
                                       enc_features[blk.enc_key], emb)
-            if self.portable:
-                qm = qm.permute(0, 2, 3, 1)
+            qm = self._from(qm, 'NCHW')
             return torch.round(qm.float() - pm.float())
 
-        feature, ctx, syms_flat, idx_flat = self._trunk(
-            lmb, imH // ms, imW // ms, posterior_symbols)
-        payload = self.pack_payload(syms_flat, idx_flat)
-        return payload, (self._tail(feature, ctx) if want_image else None)
+        with self.trunk_scope():
+            feature, ctx, syms_flat, idx_flat = self._trunk(
+                lmb, imH // ms, imW // ms, posterior_symbols)
+            image = self._tail(feature, ctx) if want_image else None
+        return self.pack_payload(syms_flat, idx_flat), image
 
     def encode(self, im, lmb):
         payload, _ = self._encode(im, lmb, want_image=False)
@@ -244,8 +196,8 @@ class FusedQarvCodec(FusedCodecBase):
         carry = {'states': states, 'ptr': ptr, 'start': 0}
 
         def decoded_symbols(blk, f_mid, pm, indexes, emb):
-            _, H, W, Z = self._nhwc(pm).shape
-            flat_idx = self._nhwc(indexes).reshape(-1)
+            _, H, W, Z = self._to(pm, 'NHWC').shape
+            flat_idx = self._to(indexes, 'NHWC').reshape(-1)
             nsym = flat_idx.numel()
             T = max((nsym + N - 1) // N, 1)
             idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(T, N)
@@ -255,7 +207,75 @@ class FusedQarvCodec(FusedCodecBase):
             z = patch_escapes(vals.reshape(-1)[:nsym], esc_pos, esc_val,
                               carry['start'])
             carry['start'] += nsym
-            return self._from_nhwc(z.reshape(1, H, W, Z))
+            return self._from(z.reshape(1, H, W, Z), 'NHWC')
 
-        feature, ctx, _, _ = self._trunk(lmb, nH, nW, decoded_symbols)
-        return self._tail(feature, ctx)
+        with self.trunk_scope():
+            feature, ctx, _, _ = self._trunk(lmb, nH, nW, decoded_symbols)
+            return self._tail(feature, ctx)
+
+
+class PortableQarvCodec(FusedQarvCodec):
+    """The fused codec on the portable trunk: every float between the
+    integer junctions from the kernels of ops/trunk.py, on NHWC features
+    (lvae_tpu/models/qarv/fused.py:99-193); its streams carry the portable
+    marker and decode in any process."""
+
+    portable = True
+    layout = 'NHWC'
+    # the kernels' results depend on no flag; only the backbone and
+    # posterior (library calls) are scoped, in _encode
+    trunk_scope = staticmethod(contextlib.nullcontext)
+
+    def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
+                 word_cap=None):
+        super().__init__(net, cdf_table, num_lanes=num_lanes,
+                         esc_cap=esc_cap, word_cap=word_cap)
+        self.table = torch.as_tensor(
+            cdf_ops.default_gaussian_scale_table().astype('float32'),
+            device=self.device)
+        self.freqs = torch.as_tensor(
+            trunk.emb_freqs(net.lmb_embed_dim[0], net.sin_period),
+            device=self.device)
+
+    def _emb_ctx(self, lmb):
+        net = self.net
+        e0, e1 = net.lmb_embed_0, net.lmb_embed_1
+        return trunk.emb_mlp(lmb, self.freqs, e0.weight.t(), e0.bias,
+                             e1.weight.t(), e1.bias, net.sin_period)
+
+    def _start(self, nH, nW):
+        bias = self.net.bias.reshape(1, 1, 1, -1)
+        return bias.expand(1, nH, nW, -1).contiguous()
+
+    def _prior(self, blk, feature, emb, gemb):
+        f_mid = trunk.convnext_adaln(feature, blk.resnet_front, gemb)
+        B, H, W, C = f_mid.shape
+        Z = blk.zdim
+        pm, idx = trunk.prior_head(
+            f_mid.reshape(B, H * W, C), blk.prior.weight.reshape(2 * Z, C).t(),
+            blk.prior.bias, self.table)
+        return f_mid, pm.reshape(B, H, W, Z), idx.reshape(B, H, W, Z)
+
+    def _fuse(self, blk, f_mid, pm, syms, emb, gemb):
+        B, H, W, C = f_mid.shape
+        Z = blk.zdim
+        f2 = trunk.fuse_zproj(
+            f_mid.reshape(B, H * W, C), syms.reshape(B, H * W, Z),
+            pm.reshape(B, H * W, Z), blk.z_proj.weight.reshape(C, Z).t(),
+            blk.z_proj.bias).reshape(B, H, W, C)
+        return trunk.convnext_adaln(f2, blk.resnet_end, gemb)
+
+    def _plain(self, blk, feature, emb, gemb):
+        if isinstance(blk, common.ConvNeXtBlockAdaLN):
+            return trunk.convnext_adaln(feature, blk, gemb)
+        if isinstance(blk, common.patch_upsample):
+            y = trunk.conv1x1(feature, blk.conv)
+            return pixel_shuffle_nhwc(y, blk.rate).contiguous()
+        if isinstance(blk, common.upsample_nearest):         # data movement
+            r = blk.rate
+            return feature.repeat_interleave(r, 1).repeat_interleave(r, 2)
+        raise NotImplementedError(
+            f'portable trunk: unsupported block {type(blk).__name__}')
+
+    def _finish(self, feature):
+        return trunk.finish_image(feature)

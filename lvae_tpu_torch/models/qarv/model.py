@@ -182,9 +182,11 @@ class QarvModel(VAEModelBase):
         key = (n_lanes,) + tuple(sorted(cfg.items()))
         codec = self._fused_codecs.get(key)
         if codec is None:
-            from lvae_tpu_torch.models.qarv.fused import FusedQarvCodec
-            codec = FusedQarvCodec(self.net, self._coder.cdf_table,
-                                   num_lanes=n_lanes, **cfg)
+            from lvae_tpu_torch.models.qarv import fused
+            kind = (fused.PortableQarvCodec if cfg.pop('portable')
+                    else fused.FusedQarvCodec)
+            codec = kind(self.net, self._coder.cdf_table, num_lanes=n_lanes,
+                         **cfg)
             self._fused_codecs[key] = codec
         return codec
 

@@ -1,9 +1,10 @@
 """Builds the hand-written CUDA kernels and binds them with ctypes.
 
 Each source of ``csrc/`` (``rans.cu``, ``trunk.cu``) is compiled by its own
-``nvcc -c`` call, all started together, and one more call links the objects
-into a plain C shared library (no PyTorch headers, so the build takes
-seconds) under ``_build/`` beside the package. The build runs at the first
+``nvcc -c`` call, all started together (a build takes as long as its slowest
+source), and one more call links the objects into a plain C shared library
+(no PyTorch headers, so the build takes seconds) under ``_build/`` beside the
+package. The build runs at the first
 kernel launch, under a file lock, and again whenever a source is newer than
 the library. Nothing is built when the module is imported: machines without
 a CUDA toolkit import it freely.
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -68,53 +70,52 @@ _FLAGS = ['-O3', '-std=c++17', '-arch=sm_90a', '-fmad=false',
           '-Xcompiler', '-fPIC']
 
 
-def nvcc_commands(tag):
-    """(one compile command per source, the link command); objects and the
-    library carry `tag` in their names until the library is moved in."""
-    objs = [BUILD_DIR / f'{src.stem}.{tag}.o' for src in SOURCES]
+def nvcc_commands():
+    """(one compile command per source, the link command); the library is
+    linked under a temporary name and moved in whole."""
+    objs = [BUILD_DIR / f'{src.stem}.o' for src in SOURCES]
     compiles = [[nvcc_path(), *_FLAGS, '-c', str(src), '-o', str(obj)]
                 for src, obj in zip(SOURCES, objs)]
     link = [nvcc_path(), '-arch=sm_90a', '-shared', *map(str, objs), '-o',
-            str(BUILD_DIR / f'{LIBRARY.stem}.{tag}.so')]
+            str(LIBRARY) + '.tmp']
     return compiles, link
 
 
-def _run_all(cmds):
-    """Run the commands together; raise with the first failure's output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    outs = [p.communicate() for p in procs]
-    for c, p, (_, err) in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({p.returncode}):\n'
-                               f'{" ".join(c)}\n{err}')
+def _run(cmd):
+    """Run one command; -> its seconds. Raises with its output on failure."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
+                           f'{" ".join(cmd)}\n{res.stderr}')
+    return time.perf_counter() - t0
 
 
 def build():
     """Compile the library if it is missing or older than a source.
-    Returns {'cmds', 'seconds', 'library', 'built'}."""
+    Returns {'cmds', 'seconds', 'compile_seconds' (per source), 'library',
+    'built'}."""
     BUILD_DIR.mkdir(exist_ok=True)
     with open(BUILD_DIR / 'build.lock', 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         fresh = (LIBRARY.exists()
                  and all(LIBRARY.stat().st_mtime >= src.stat().st_mtime
                          for src in SOURCES))
-        tag = str(os.getpid())
-        compiles, link = nvcc_commands(tag)
+        compiles, link = nvcc_commands()
         t0 = time.perf_counter()
+        compile_s = {}
         if not fresh:
-            try:
-                _run_all(compiles)
-                _run_all([link])
-                os.replace(link[-1], LIBRARY)
-            finally:
-                for c in compiles:
-                    Path(c[-1]).unlink(missing_ok=True)
-        cmds = [' '.join(c).replace(f'.{tag}', '')
-                for c in compiles + [link]]
-        return dict(cmds=cmds, seconds=time.perf_counter() - t0,
-                    library=str(LIBRARY), built=not fresh)
+            # the sources compile side by side: the build's wall time is
+            # the slowest source's, not their sum
+            with ThreadPoolExecutor(len(compiles)) as pool:
+                compile_s = dict(zip((s.name for s in SOURCES),
+                                     pool.map(_run, compiles)))
+            _run(link)
+            os.replace(link[-1], LIBRARY)  # a loaded library stays intact
+        return dict(cmds=[' '.join(c) for c in compiles + [link]],
+                    seconds=time.perf_counter() - t0,
+                    compile_seconds=compile_s, library=str(LIBRARY),
+                    built=not fresh)
 
 
 def library():

@@ -275,3 +275,36 @@ def test_compress_file_portable_by_default(models, tmp_path):
         _, recon = tm.compress_check(img[None], lmb=512.0,
                                      portable=bool(marker))
         assert np.array_equal(tm.decompress_file(path), recon)
+
+
+@pytest.mark.parametrize('portable', [False, True])
+def test_codecs_leave_process_flags_alone(models, image, portable):
+    """Either trunk scopes its precision policy to its own library calls:
+    coding neither reads nor changes the process's TF32 / cuDNN flags."""
+    _, tm = models
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    tm.compress_mode(num_lanes=16, portable=portable)
+    want, want_rec = tm.compress_check(image, lmb=512.0)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.deterministic = False
+        # another esc_cap: a codec built under these flags
+        tm.compress_mode(num_lanes=16, portable=portable, esc_cap=4096)
+        bits = tm.compress(image, lmb=512.0)
+        rec = tm.decompress(bits)
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.deterministic) == (True, True, True,
+                                                         False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+    assert bits == want and np.array_equal(rec, want_rec)
