@@ -157,36 +157,16 @@ def _avg_row(cur: bytearray, prev: bytes, bpp: int):
         cur[i] = (cur[i] + ((a + prev[i]) >> 1)) & 0xFF
 
 
-def read_png(path) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced RGB or RGBA PNG -> uint8 (H, W, 3).
+# channels per pixel of each PNG colour type: gray, RGB, palette,
+# gray+alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
 
-    Supports the five standard row filters (None, Sub, Up, Average, Paeth);
-    an alpha channel is dropped, as PIL's convert('RGB') does."""
-    with open(path, 'rb') as f:
-        data = f.read()
-    if data[:8] != b'\x89PNG\r\n\x1a\n':
-        raise ValueError(f'{path}: not a PNG file')
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        n, kind = struct.unpack('>I4s', data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b'IHDR':
-            hdr = struct.unpack('>IIBBBBB', body)
-        elif kind == b'IDAT':
-            idat.append(body)
-        elif kind == b'IEND':
-            break
-    if hdr is None:
-        raise ValueError(f'{path}: no IHDR chunk')
-    width, height, depth, color, _, _, interlace = hdr
-    if depth != 8 or color not in (2, 6) or interlace != 0:
-        raise ValueError(f'{path}: only 8-bit non-interlaced RGB/RGBA PNGs '
-                         f'are supported (depth={depth}, color={color}, '
-                         f'interlace={interlace})')
-    bpp = 3 if color == 2 else 4
-    stride = width * bpp
-    raw = zlib.decompress(b''.join(idat))
+
+def _unfilter(raw, height, stride, bpp, path):
+    """Undo the five standard row filters (None, Sub, Up, Average, Paeth)
+    -> (height, stride) uint8. bpp: bytes per complete pixel, at least 1
+    (the filters work on bytes, also for sub-byte depths)."""
     if len(raw) != height * (stride + 1):
         raise ValueError(f'{path}: truncated image data')
     out = np.zeros((height, stride), np.uint8)
@@ -196,9 +176,10 @@ def read_png(path) -> np.ndarray:
         line = np.frombuffer(raw, np.uint8, stride, r * (stride + 1) + 1)
         if ftype == 0:
             cur = line.copy()
-        elif ftype == 1:      # Sub: running sum per channel, modulo 256
-            cur = np.cumsum(line.reshape(width, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
+        elif ftype == 1:      # Sub: running sum per byte lane, modulo 256
+            pad = -stride % bpp
+            cur = np.cumsum(np.pad(line, (0, pad)).reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)[:stride]
         elif ftype == 2:      # Up
             cur = line + prev
         elif ftype in (3, 4):
@@ -209,4 +190,62 @@ def read_png(path) -> np.ndarray:
             raise ValueError(f'{path}: bad PNG filter type {ftype}')
         out[r] = cur
         prev = out[r]
-    return np.ascontiguousarray(out.reshape(height, width, bpp)[..., :3])
+    return out
+
+
+def read_png(path) -> np.ndarray:
+    """Decode a non-interlaced PNG -> uint8 (H, W, 3), converted to RGB as
+    PIL's convert('RGB') converts it: 8-bit RGB and RGBA (alpha dropped),
+    8-bit gray and gray+alpha (gray copied to the three channels, alpha
+    dropped), gray at 1, 2 or 4 bits (scaled to 0..255), and palette
+    images at 1, 2, 4 or 8 bits (each index looked up in PLTE; tRNS
+    ignored). 16-bit and interlaced images raise ValueError."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise ValueError(f'{path}: not a PNG file')
+    pos, idat, hdr, plte = 8, [], None, b''
+    while pos < len(data):
+        n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b'IHDR':
+            hdr = struct.unpack('>IIBBBBB', body)
+        elif kind == b'PLTE':
+            plte = body
+        elif kind == b'IDAT':
+            idat.append(body)
+        elif kind == b'IEND':
+            break
+    if hdr is None:
+        raise ValueError(f'{path}: no IHDR chunk')
+    width, height, depth, color, _, _, interlace = hdr
+    if interlace != 0:
+        raise ValueError(f'{path}: interlaced PNGs are not supported')
+    if depth == 16:
+        raise ValueError(f'{path}: 16-bit PNGs are not supported')
+    if depth not in _PNG_DEPTHS.get(color, ()):
+        raise ValueError(f'{path}: unsupported PNG colour type {color} at '
+                         f'bit depth {depth}')
+    channels = _PNG_CHANNELS[color]
+    stride = (width * channels * depth + 7) // 8
+    rows = _unfilter(zlib.decompress(b''.join(idat)), height, stride,
+                     max(1, channels * depth // 8), path)
+    if depth < 8:             # unpack MSB-first; each row pads to a byte
+        rows = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        rows = (rows * weights).sum(-1)[:, :width].astype(np.uint8)
+    px = rows.reshape(height, width, channels)
+    if color == 3:
+        if not plte:
+            raise ValueError(f'{path}: palette image without PLTE')
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
+        pal[:len(entries)] = entries
+        return pal[px[..., 0]]
+    if color in (0, 4):
+        gray = px[..., 0]
+        if depth < 8:
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        return np.ascontiguousarray(np.repeat(gray[..., None], 3, axis=2))
+    return np.ascontiguousarray(px[..., :3])

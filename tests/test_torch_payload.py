@@ -214,3 +214,102 @@ def test_read_png_all_filters(tmp_path, channels):
     assert got.dtype == np.uint8 and got.shape == (13, 17, 3)
     assert np.array_equal(got, arr[..., :3])
     assert np.array_equal(got, np.asarray(Image.open(path).convert('RGB')))
+
+
+def _write_png_packed(path, rows, width, depth, color, filters, plte=b'',
+                      interlace=0):
+    """PNG writer for packed byte rows (H, stride) of any depth: row r
+    filtered with filters[r % len] on bytes, bpp = max(1, bytes/pixel)."""
+    import struct as st
+    import zlib
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    bpp = max(1, channels * depth // 8)
+    raw, prev = bytearray(), np.zeros(rows.shape[1], np.int64)
+    for r, row in enumerate(rows.astype(np.int64)):
+        f = filters[r % len(filters)]
+        left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        p = left + prev - upleft
+        pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, upleft))
+        pred = [0, left, prev, (left + prev) // 2, paeth][f]
+        raw += bytes([f]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes()
+        prev = row
+
+    def chunk(kind, data):
+        return (st.pack('>I', len(data)) + kind + data
+                + st.pack('>I', zlib.crc32(kind + data) & 0xFFFFFFFF))
+    ihdr = st.pack('>IIBBBBB', width, rows.shape[0], depth, color, 0, 0,
+                   interlace)
+    path.write_bytes(b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', ihdr)
+                     + (chunk(b'PLTE', plte) if plte else b'')
+                     + chunk(b'IDAT', zlib.compress(bytes(raw)))
+                     + chunk(b'IEND', b''))
+
+
+def _pil_image(kind, rng):
+    """A PIL image of `kind` (L, LA, 1 or P<bits>), 37x29 random pixels,
+    and the save options that keep its kind."""
+    from PIL import Image
+    a = rng.integers(0, 256, (37, 29)).astype(np.uint8)
+    if kind == 'L':
+        return Image.fromarray(a, 'L'), {}
+    if kind == 'LA':
+        return Image.fromarray(np.stack([a, a[::-1]], -1), 'LA'), {}
+    if kind == '1':
+        return Image.fromarray(a > 128).convert('1'), {}
+    bits = int(kind[1:])
+    im = Image.fromarray(a & ((1 << bits) - 1), 'P')
+    im.putpalette(rng.integers(0, 256, 3 * (1 << bits)).tolist())
+    return im, {'bits': bits}
+
+
+@pytest.mark.parametrize('kind,depth,color', [
+    ('L', 8, 0), ('LA', 8, 4), ('1', 1, 0),
+    ('P1', 1, 3), ('P2', 2, 3), ('P4', 4, 3), ('P8', 8, 3)])
+def test_read_png_gray_and_palette_like_pil(tmp_path, kind, depth, color):
+    """Gray, gray+alpha and palette PNGs written by PIL read as PIL's
+    convert('RGB') reads them."""
+    import struct as st
+    from PIL import Image
+    im, opts = _pil_image(kind, np.random.default_rng(depth + color))
+    path = tmp_path / f'{kind}.png'
+    im.save(path, **opts)
+    assert st.unpack('>BB', path.read_bytes()[24:26]) == (depth, color)
+    got = tcoding.read_png(path)
+    assert got.dtype == np.uint8 and got.shape == (37, 29, 3)
+    assert np.array_equal(got, np.asarray(Image.open(path).convert('RGB')))
+
+
+@pytest.mark.parametrize('depth,color', [(1, 3), (2, 0), (4, 0), (4, 3)])
+def test_read_png_sub_byte_filters(tmp_path, depth, color):
+    """Sub-byte rows under all five filters (which then work on whole
+    bytes, bpp 1), with a width that leaves padding bits in each row."""
+    from PIL import Image
+    rng = np.random.default_rng(depth)
+    width, height = 13, 11
+    vals = rng.integers(0, 1 << depth, (height, width))
+    bits = ((vals[..., None] >> np.arange(depth - 1, -1, -1)) & 1)
+    bits = bits.reshape(height, -1)
+    bits = np.pad(bits, ((0, 0), (0, -bits.shape[1] % 8)))
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    plte = rng.integers(0, 256, 3 * (1 << depth)).astype(np.uint8).tobytes()
+    path = tmp_path / 'sub.png'
+    _write_png_packed(path, rows, width, depth, color, [0, 1, 2, 3, 4, 1],
+                      plte=plte if color == 3 else b'')
+    got = tcoding.read_png(path)
+    assert got.shape == (height, width, 3)
+    assert np.array_equal(got, np.asarray(Image.open(path).convert('RGB')))
+
+
+@pytest.mark.parametrize('depth,color,interlace,what', [
+    (16, 2, 0, '16-bit'), (16, 0, 0, '16-bit'), (8, 2, 1, 'interlaced')])
+def test_read_png_refuses_16_bit_and_interlaced(tmp_path, depth, color,
+                                                interlace, what):
+    path = tmp_path / 'x.png'
+    channels = 3 if color == 2 else 1
+    rows = np.zeros((4, 4 * channels * depth // 8), np.uint8)
+    _write_png_packed(path, rows, 4, depth, color, [0], interlace=interlace)
+    with pytest.raises(ValueError, match=what):
+        tcoding.read_png(path)
