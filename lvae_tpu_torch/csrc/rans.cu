@@ -13,14 +13,15 @@
 // links its own (static) CUDA runtime, so it selects the caller's device
 // itself; PyTorch's pointers and streams belong to the same primary context.
 //
-// Simple by design: one thread block of N threads (one lane per thread, N in
-// {16, 32, 64, 128}), a loop over the rows, CDF rows read straight from device
-// memory through the L1 cache. Each row depends on the previous one through
-// the lane states and the word pointer, so the serial chain of T rows, each a
-// few dependent loads plus one block barrier, bounds both kernels on this
-// card; the bytes they move (~5 MB per qarv_base 512x768 image) take ~1.5 us
-// at 3.35 TB/s and do not. Making the chain shorter (rows staged in shared
-// memory, several images per launch) is later work.
+// Simple by design: one thread block of N threads per image (one lane per
+// thread, N in {16, 32, 64, 128}), a loop over the rows, CDF rows read straight
+// from device memory through the L1 cache. Each row depends on the previous
+// one through the lane states and the word pointer, so the serial chain of T
+// rows, each a few dependent loads plus one block barrier, bounds both kernels
+// on this card; the bytes they move (~5 MB per qarv_base 512x768 image) take
+// ~1.5 us at 3.35 TB/s and do not. The multi-image entry points launch the
+// same kernels with one block per image (grid = B), so that B images' chains
+// run side by side on B SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,10 +46,15 @@ __device__ __forceinline__ int search_row(const int* __restrict__ row, int L,
 }
 
 // Replaces lvae_tpu/ops/pallas/rans_decode.py:160 rans_decode_block (the
-// Pallas _decode_kernel): decodes one latent block of T rows. The TPU kernel's
-// byte-split one-hot matmuls and 2048-word windows exist only for the MXU;
-// here a thread does a binary search over its CDF row and reads its word
-// directly. Lanes at t*N + lane >= nsym keep their state and write 0.
+// Pallas _decode_kernel) and, launched with one block per image,
+// rans_decode.py:359 rans_decode_block_multi (_decode_kernel_multi, which
+// stacks B images' states on the TPU's sublanes). Decodes one latent block of
+// T rows; block b decodes image b: its (T, N) indexes and values at b*T*N,
+// its states at b*N, its word pointer at b, its stream at row b of a (B, W)
+// array (words past W read as 0). The TPU kernels' byte-split one-hot
+// matmuls and 2048-word windows exist only for the MXU; here a thread does a
+// binary search over its CDF row and reads its word directly. Lanes at
+// t*N + lane >= nsym keep their state and write 0.
 __global__ void __launch_bounds__(kMaxLanes)
 rans_decode_block_kernel(const int* __restrict__ indexes, int T, int N,
                          const int* __restrict__ states_in,
@@ -60,13 +66,20 @@ rans_decode_block_kernel(const int* __restrict__ indexes, int T, int N,
                          const int* __restrict__ offsets, long long nsym,
                          int* __restrict__ values) {
     __shared__ int warp_count[2][kMaxWarps];
+    const int img = blockIdx.x;
+    const long long rows = (long long)T * N;
+    indexes += img * rows;
+    values += img * rows;
+    states_in += (long long)img * N;
+    states_out += (long long)img * N;
+    stream += img * W;
     const int lane = threadIdx.x;
     const int warp = lane / kWarp, wl = lane % kWarp;
     const int nwarps = blockDim.x / kWarp;
     const bool lane_ok = lane < N;
     const unsigned below = (1u << wl) - 1u;
     uint32_t x = lane_ok ? (uint32_t)states_in[lane] : 0u;
-    long long ptr = ptr_in[0];
+    long long ptr = ptr_in[img];
 
     for (int t = 0; t < T; ++t) {
         const long long pos = (long long)t * N + lane;
@@ -105,24 +118,34 @@ rans_decode_block_kernel(const int* __restrict__ indexes, int T, int N,
         ptr += total;
     }
     if (lane_ok) states_out[lane] = (int)x;
-    if (lane == 0) ptr_out[0] = (int)ptr;
+    if (lane == 0) ptr_out[img] = (int)ptr;
 }
 
 // Replaces lvae_tpu/ops/pallas/rans_encode.py:217 rans_encode_all (the
-// Pallas _encode_kernel): encodes all rows of an image in reverse row order
-// from states 2^16. Words go out in push order (lane-descending inside each
-// reversed row) into the u16 view of a zero-filled pair buffer; words past
-// w_cap are counted but not written, so the caller detects the overflow from
-// n_words. Native u32 division replaces the TPU's f32 long division.
+// Pallas _encode_kernel) and, launched with one block per image,
+// rans_encode.py:419 rans_encode_all_multi (_encode_kernel_multi). Encodes
+// all rows of an image in reverse row order from states 2^16; block b
+// encodes image b: its (T, N) symbols and indexes at b*T*N, its pairs at
+// b*pair_cap (int32 elements), its word count at b and states at b*N; the
+// row lengths are shared. Words go out in push order (lane-descending inside
+// each reversed row) into the u16 view of a zero-filled pair buffer; words
+// past w_cap are counted but not written, so the caller detects the overflow
+// from n_words. Native u32 division replaces the TPU's f32 long division.
 __global__ void __launch_bounds__(kMaxLanes)
 rans_encode_all_kernel(const int* __restrict__ syms,
                        const int* __restrict__ indexes,
                        const int* __restrict__ row_n, int T, int N,
                        const int* __restrict__ cdfs, int S, int L,
-                       uint16_t* __restrict__ words, long long w_cap,
-                       int* __restrict__ n_words,
+                       uint16_t* __restrict__ words, long long pair_cap,
+                       long long w_cap, int* __restrict__ n_words,
                        int* __restrict__ states_out) {
     __shared__ int warp_count[2][kMaxWarps];
+    const int img = blockIdx.x;
+    const long long rows = (long long)T * N;
+    syms += img * rows;
+    indexes += img * rows;
+    words += 2 * img * pair_cap;
+    states_out += (long long)img * N;
     const int lane = threadIdx.x;
     const int warp = lane / kWarp, wl = lane % kWarp;
     const int nwarps = blockDim.x / kWarp;
@@ -161,12 +184,36 @@ rans_encode_all_kernel(const int* __restrict__ syms,
         end += total;
     }
     if (lane_ok) states_out[lane] = (int)x;
-    if (lane == 0) n_words[0] = (int)end;
+    if (lane == 0) n_words[img] = (int)end;
 }
 
 int threads_for(int N) { return ((N + kWarp - 1) / kWarp) * kWarp; }
 
+int check_args(int B, int T, int N, int S, int L, int device) {
+    if (B < 1 || N < 1 || N > kMaxLanes || T < 1 || S < 1 || L < 2)
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaSetDevice(device);
+}
+
 }  // namespace
+
+// B images' decode of one latent block (B = 1: rans_decode_block's
+// (1, N) states and 0-dim pointer). Shapes as documented at the kernel.
+extern "C" int rans_decode_block_multi(
+        const void* indexes, int B, int T, int N, const void* states_in,
+        void* states_out, const void* ptrs_in, void* ptrs_out,
+        const void* streams, long long W, const void* cdfs, int S, int L,
+        const void* offsets, long long nsym, void* values, int device,
+        void* cuda_stream) {
+    const int err = check_args(B, T, N, S, L, device);
+    if (err != 0) return err;
+    rans_decode_block_kernel<<<B, threads_for(N), 0,
+                               (cudaStream_t)cuda_stream>>>(
+        (const int*)indexes, T, N, (const int*)states_in, (int*)states_out,
+        (const int*)ptrs_in, (int*)ptrs_out, (const int*)streams, W,
+        (const int*)cdfs, S, L, (const int*)offsets, nsym, (int*)values);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int rans_decode_block(const void* indexes, int T, int N,
                                  const void* states_in, void* states_out,
@@ -176,30 +223,37 @@ extern "C" int rans_decode_block(const void* indexes, int T, int N,
                                  const void* offsets, long long nsym,
                                  void* values, int device,
                                  void* cuda_stream) {
-    if (N < 1 || N > kMaxLanes || T < 1 || S < 1 || L < 2)
-        return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    rans_decode_block_kernel<<<1, threads_for(N), 0, (cudaStream_t)cuda_stream>>>(
-        (const int*)indexes, T, N, (const int*)states_in, (int*)states_out,
-        (const int*)ptr_in, (int*)ptr_out, (const int*)stream, W,
-        (const int*)cdfs, S, L, (const int*)offsets, nsym, (int*)values);
+    return rans_decode_block_multi(indexes, 1, T, N, states_in, states_out,
+                                   ptr_in, ptr_out, stream, W, cdfs, S, L,
+                                   offsets, nsym, values, device,
+                                   cuda_stream);
+}
+
+// B images' encode (B = 1: rans_encode_all); `pairs` holds B regions of
+// pair_cap int32 elements, zero-filled by the caller.
+extern "C" int rans_encode_all_multi(
+        const void* syms, const void* indexes, const void* row_n, int B,
+        int T, int N, const void* cdfs, int S, int L, void* pairs,
+        long long pair_cap, long long w_cap, void* n_words, void* states_out,
+        int device, void* cuda_stream) {
+    const int err = check_args(B, T, N, S, L, device);
+    if (err != 0) return err;
+    if (2 * pair_cap < w_cap) return (int)cudaErrorInvalidValue;
+    rans_encode_all_kernel<<<B, threads_for(N), 0,
+                             (cudaStream_t)cuda_stream>>>(
+        (const int*)syms, (const int*)indexes, (const int*)row_n, T, N,
+        (const int*)cdfs, S, L, (uint16_t*)pairs, pair_cap, w_cap,
+        (int*)n_words, (int*)states_out);
     return (int)cudaGetLastError();
 }
 
 extern "C" int rans_encode_all(const void* syms, const void* indexes,
                                const void* row_n, int T, int N,
                                const void* cdfs, int S, int L, void* pairs,
-                               long long w_cap, void* n_words,
-                               void* states_out, int device,
+                               long long pair_cap, long long w_cap,
+                               void* n_words, void* states_out, int device,
                                void* cuda_stream) {
-    if (N < 1 || N > kMaxLanes || T < 1 || S < 1 || L < 2)
-        return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    rans_encode_all_kernel<<<1, threads_for(N), 0, (cudaStream_t)cuda_stream>>>(
-        (const int*)syms, (const int*)indexes, (const int*)row_n, T, N,
-        (const int*)cdfs, S, L, (uint16_t*)pairs, w_cap, (int*)n_words,
-        (int*)states_out);
-    return (int)cudaGetLastError();
+    return rans_encode_all_multi(syms, indexes, row_n, 1, T, N, cdfs, S, L,
+                                 pairs, pair_cap, w_cap, n_words,
+                                 states_out, device, cuda_stream);
 }

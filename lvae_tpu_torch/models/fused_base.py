@@ -1,5 +1,5 @@
-"""Payload layout, escape handling and stream parsing of the fused codec:
-the single-image parts of ``lvae_tpu/models/fused_base.py``.
+"""Payload layout, escape handling and stream parsing of the fused codec,
+for single images and batches: ``lvae_tpu/models/fused_base.py``.
 
 Wire format of the fused payload (little-endian), identical to the JAX
 package's:
@@ -7,15 +7,19 @@ package's:
     [compact lane states (utils/coding.pack_states)]
     [escape varints (utils/coding.pack_escapes) x n_esc][words u16 x n_words]
 
-On the device, the encode side builds one int32 payload
+On the device, the encode side builds one int32 payload per image
     [n_words, n_esc, N][N states][pair buffer][escape (pos, val) pairs]
 with the escape pairs written right after the words, so that the host
-pulls header, words and escapes in one device-to-host copy.
+pulls header, words and escapes of a whole batch chunk in one
+device-to-host copy. A batch stream is a single-image stream: each row of
+a chunk's (B, P) payload holds exactly the bytes `pack_payload` gives that
+image alone.
 """
 import struct
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
@@ -24,16 +28,30 @@ from lvae_tpu_torch.utils import coding
 
 def _extract_escapes_scatter(esc_mask, values, esc_cap):
     """Escape compaction by a scatter over the whole symbol range (any
-    escape density); escapes past esc_cap are dropped."""
-    mask_i = esc_mask.to(torch.int64)
-    rank = torch.cumsum(mask_i, 0) - 1
+    escape density), along the last axis: each row ranked by its own
+    cumsum, escapes past esc_cap dropped (into a spare column)."""
+    rank = torch.cumsum(esc_mask.to(torch.int64), -1) - 1
     slot = torch.where(esc_mask & (rank < esc_cap), rank, esc_cap)
-    pos_iota = torch.arange(values.shape[0], device=values.device)
-    esc_pos = torch.full((esc_cap + 1,), -1, dtype=torch.int64,
-                         device=values.device)
-    esc_pos = esc_pos.scatter_(0, slot, pos_iota)[:esc_cap]
-    esc_val = torch.where(esc_pos >= 0, values[esc_pos.clamp(min=0)], 0)
+    pos_iota = torch.arange(values.shape[-1],
+                            device=values.device).expand_as(slot)
+    esc_pos = torch.full(values.shape[:-1] + (esc_cap + 1,), -1,
+                         dtype=torch.int64, device=values.device)
+    esc_pos = esc_pos.scatter_(-1, slot, pos_iota)[..., :esc_cap]
+    esc_val = torch.where(esc_pos >= 0,
+                          values.gather(-1, esc_pos.clamp(min=0)), 0)
     return esc_pos.to(torch.int32), esc_val.to(torch.int32)
+
+
+def _place_escapes(packed, n_words, esc_pairs):
+    """[pair buffer][escape pairs] with the pairs moved to right after the
+    words ((n_words+1)//2 pairs), the offset clamped so that they fit, as a
+    dynamic update slice does; along the last axis."""
+    E = esc_pairs.shape[-1]
+    body = torch.cat([packed, torch.zeros_like(esc_pairs)], -1)
+    start = torch.clamp((n_words.to(torch.int64) + 1) // 2,
+                        max=packed.shape[-1])
+    at = start[..., None] + torch.arange(E, device=packed.device)
+    return body.scatter_(-1, at, esc_pairs)
 
 
 class FusedCodecBase:
@@ -46,7 +64,7 @@ class FusedCodecBase:
     portable = False
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None, device=None):
+                 word_cap=None, max_program_batch=None, device=None):
         self.net = net
         self.device = (torch.device(device) if device is not None
                        else net.bias.device)
@@ -62,6 +80,8 @@ class FusedCodecBase:
         # word buffer shrinks to it, and a stream that overflows it raises
         # OverflowError at assembly (n_words is always counted exactly)
         self.word_cap = int(word_cap) if word_cap is not None else None
+        # batch requests larger than this run as balanced chunks
+        self.max_program_batch = max_program_batch
         self._row_n = {}
 
     @staticmethod
@@ -82,7 +102,7 @@ class FusedCodecBase:
         """Escapes, row layout, the rANS encode kernel and the payload.
         syms_flat/idx_flat: flat int32 tensors, one per latent block in
         decode order (NHWC symbol order)."""
-        N, esc_cap, dev = self.N, self.esc_cap, self.device
+        N, esc_cap = self.N, self.esc_cap
         values = torch.cat(syms_flat)
         idx_all = torch.cat(idx_flat)
         inband, esc_mask = re_.prepare_inband(values, idx_all, self.offsets,
@@ -90,36 +110,66 @@ class FusedCodecBase:
         n_esc_true = esc_mask.sum()
         esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values, esc_cap)
 
-        # each block starts on a fresh row of N lanes
-        sizes = tuple(v.shape[0] for v in syms_flat)
-        sym_rows, idx_rows = [], []
-        off = 0
-        for s in sizes:
-            pad = max((s + N - 1) // N, 1) * N - s
-            sym_rows.append(torch.nn.functional.pad(
-                inband[off:off + s], (0, pad)).reshape(-1, N))
-            idx_rows.append(torch.nn.functional.pad(
-                idx_all[off:off + s], (0, pad)).reshape(-1, N))
-            off += s
-        sym_cat = torch.cat(sym_rows)
-        w_cap = (min(self.word_cap, sym_cat.shape[0] * N)
-                 if self.word_cap is not None else None)
+        sym_cat, idx_cat, row_n, w_cap = self._row_layout(
+            inband[None], idx_all[None], [v.shape[0] for v in syms_flat])
         packed, n_words, states = re_.rans_encode_all(
-            sym_cat, torch.cat(idx_rows), self._rows_per_block(sizes),
-            self.cdfs, num_lanes=N, w_cap=w_cap)
+            sym_cat[0], idx_cat[0], row_n, self.cdfs, num_lanes=N,
+            w_cap=w_cap)
         head = torch.cat([
             torch.stack([n_words, n_esc_true.to(torch.int32),
                          n_words.new_full((), N)]),
             states.reshape(-1)])
         esc_pairs = torch.stack([esc_pos, esc_val], dim=1).reshape(-1)
-        # escape pairs go right after the words ((n_words+1)//2 pairs), the
-        # offset clamped so the pairs fit, as a dynamic update slice does
-        body = torch.cat([packed, torch.zeros_like(esc_pairs)])
-        start = torch.clamp((n_words.to(torch.int64) + 1) // 2,
-                            max=body.numel() - esc_pairs.numel())
-        body.scatter_(0, start + torch.arange(esc_pairs.numel(), device=dev),
-                      esc_pairs)
-        return torch.cat([head, body])
+        return torch.cat([head, _place_escapes(packed, n_words, esc_pairs)])
+
+    def pack_payload_batch(self, syms_flat, idx_flat):
+        """pack_payload for B same-shape images in one pass: the escape
+        compaction and row layout over (B, ...), one multi-image rANS encode
+        launch. syms_flat/idx_flat: (B, nsym) int32 tensors, one per latent
+        block in decode order. Returns (B, P) payload rows, row b equal to
+        pack_payload on image b's symbols alone."""
+        N, esc_cap = self.N, self.esc_cap
+        values = torch.cat(syms_flat, 1)                        # (B, total)
+        idx_all = torch.cat(idx_flat, 1)
+        B = values.shape[0]
+        inband, esc_mask = re_.prepare_inband(values, idx_all, self.offsets,
+                                              self.lengths)
+        n_esc_true = esc_mask.sum(1)
+        esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values, esc_cap)
+        sym_cat, idx_cat, row_n, w_cap = self._row_layout(
+            inband, idx_all, [v.shape[1] for v in syms_flat])
+        packed, n_words, states = re_.rans_encode_all_multi(
+            sym_cat, idx_cat, row_n, self.cdfs, num_lanes=N, w_cap=w_cap)
+        head = torch.cat([
+            torch.stack([n_words, n_esc_true.to(torch.int32),
+                         torch.full_like(n_words, N)], 1),
+            states], 1)
+        esc_pairs = torch.stack([esc_pos, esc_val], dim=2).reshape(B, -1)
+        return torch.cat([head, _place_escapes(packed, n_words, esc_pairs)],
+                         1)
+
+    def _row_layout(self, inband, idx_all, sizes):
+        """(B, total) in-band symbols and indexes of latent blocks of
+        `sizes` symbols -> (syms (B, T, N), idx (B, T, N), row_n (T,),
+        w_cap): each block starts on a fresh row of N lanes."""
+        N = self.N
+        B = inband.shape[0]
+        sizes = tuple(sizes)
+        sym_rows, idx_rows = [], []
+        off = 0
+        for s in sizes:
+            pad = max((s + N - 1) // N, 1) * N - s
+            sym_rows.append(F.pad(inband[:, off:off + s], (0, pad)).reshape(
+                B, -1, N))
+            idx_rows.append(F.pad(idx_all[:, off:off + s], (0, pad)).reshape(
+                B, -1, N))
+            off += s
+        sym_cat = torch.cat(sym_rows, 1)
+        T = sym_cat.shape[1]
+        w_cap = (min(self.word_cap, T * N) if self.word_cap is not None
+                 else None)
+        return (sym_cat, torch.cat(idx_rows, 1), self._rows_per_block(sizes),
+                w_cap)
 
     def _rows_per_block(self, sizes):
         """Active lanes of each row (N except at block tails), kept on the
@@ -168,9 +218,73 @@ class FusedCodecBase:
         return out, n_words, n_esc
 
     def _payload_to_bytes(self, payload):
-        """Pull the whole payload (one device-to-host copy) and assemble
-        the body."""
-        return self._assemble_body(payload.cpu().numpy())[0]
+        """One image's (P,) payload -> its body."""
+        return self._payloads_to_bytes(payload[None])[0]
+
+    def _payloads_to_bytes(self, payload):
+        """(B, P) payload rows -> B bodies: ONE device-to-host copy, then
+        each row assembled."""
+        return [self._assemble_body(row)[0] for row in payload.cpu().numpy()]
+
+    # ---- batch serving (lvae_tpu/models/fused_base.py:477-650) ----------
+
+    @staticmethod
+    def _chunk_sizes(B, mpb):
+        """Balanced chunk sizes for a B-image request under a per-chunk
+        batch cap: sizes differ by at most 1 (B=8, cap 4 -> [4, 4]; B=7 ->
+        [4, 3]). Deterministic in (B, cap): decode re-derives the split, so
+        legacy streams decode at the batch size that wrote them."""
+        if not mpb or B <= mpb:
+            return [B]
+        k = -(-B // mpb)
+        base, rem = divmod(B, k)
+        return [base + 1] * rem + [base] * (k - rem)
+
+    def _chunks(self, B):
+        """(start, stop) of each chunk of a B-image request."""
+        edges = np.cumsum([0] + self._chunk_sizes(B, self.max_program_batch))
+        return list(zip(edges[:-1].tolist(), edges[1:].tolist()))
+
+    def encode_batch(self, ims, lmb):
+        """B same-shape images (NCHW float32 on the device, lmb (B,)) ->
+        list of B single-image wire-format bodies."""
+        return self.encode_batch_finish(self.encode_batch_async(ims, lmb))
+
+    def encode_batch_async(self, ims, lmb):
+        """Dispatch-only half of encode_batch: queues every chunk's encode
+        and the device-to-host copy of its payload into pinned memory, and
+        returns a handle without synchronising the host. A serving loop
+        dispatches batch k+1 before finishing batch k, so the copy and the
+        stream assembly of one batch overlap the next one's compute."""
+        handles = []
+        for a, b in self._chunks(ims.shape[0]):
+            payload, _ = self._encode(ims[a:b], lmb[a:b], want_image=False,
+                                      batch=True)
+            handles.append(_pull_async(payload))
+        return handles
+
+    def encode_batch_finish(self, handle):
+        """Wait for each chunk's payload copy and assemble the bodies."""
+        bodies = []
+        for host, done in handle:
+            if done is not None:
+                done.synchronize()
+            bodies.extend(self._assemble_body(row)[0]
+                          for row in host.numpy())
+        return bodies
+
+    def encode_check_batch(self, ims, lmb):
+        """encode_batch that also returns the images reconstructed from the
+        encode-side symbols ((B, H, W, 3) float32 numpy), chunked exactly
+        like encode_batch so that the reconstruction comes from the trunk
+        runs that wrote the streams."""
+        bodies, imgs = [], []
+        for a, b in self._chunks(ims.shape[0]):
+            payload, img = self._encode(ims[a:b], lmb[a:b], want_image=True,
+                                        batch=True)
+            bodies += self._payloads_to_bytes(payload)
+            imgs.append(img.float().cpu().numpy())
+        return bodies, np.concatenate(imgs)
 
     # ---- decode side ---------------------------------------------------
 
@@ -200,14 +314,53 @@ class FusedCodecBase:
                 words.astype(np.int32), e_pos.astype(np.int32),
                 e_val.astype(np.int32))
 
-    def decode_to_device(self, body: bytes, nH, nW, *extra):
-        """Parse the body, push states, words and escapes to the device as
-        one int32 blob, and run the decode trunk. Returns the image on the
-        device (asynchronous)."""
-        states, words, esc_pos, esc_val = self.parse_payload(body)
-        N, nw, ne = self.N, words.size, esc_pos.size
+    def _push(self, bodies):
+        """Parse the bodies and push their states, words and escapes to the
+        device as ONE int32 blob: -> (states (B, N), streams (B, W), esc_pos
+        (B, E), esc_val (B, E)), streams zero-padded and escapes padded
+        with (-1, 0) to the longest body's."""
+        parsed = [self.parse_payload(body) for body in bodies]
+        B, N = len(parsed), self.N
+        W = max(1, max(p[1].size for p in parsed))
+        E = max(p[2].size for p in parsed)
+        states = np.concatenate([p[0] for p in parsed])
+        streams = np.zeros((B, W), np.int32)
+        esc = np.zeros((2, B, E), np.int32)
+        esc[0] = -1
+        for b, (_, words, pos, val) in enumerate(parsed):
+            streams[b, :words.size] = words
+            esc[0, b, :pos.size] = pos
+            esc[1, b, :val.size] = val
         blob = torch.from_numpy(np.concatenate(
-            [states.ravel(), words, esc_pos, esc_val])).to(self.device)
-        return self._decode(blob[:N].reshape(1, N), blob[N:N + nw],
-                            blob[N + nw:N + nw + ne], blob[N + nw + ne:],
-                            nH, nW, *extra)
+            [states.ravel(), streams.ravel(), esc.ravel()])).to(self.device)
+        st, sw, ep, ev = torch.split(blob, [B * N, B * W, B * E, B * E])
+        return (st.reshape(B, N), sw.reshape(B, W), ep.reshape(B, E),
+                ev.reshape(B, E))
+
+    def decode_to_device(self, body: bytes, nH, nW, *extra):
+        """Parse the body, push it to the device in one blob and run the
+        decode trunk (single-image kernels). Returns the (1, H, W, 3)
+        image on the device (asynchronous)."""
+        return self._decode(*self._push([body]), nH, nW, *extra)
+
+    def decode_batch_to_device(self, bodies, nH, nW, lmb):
+        """Decode B same-shape bodies, chunked as encode_batch chunks them,
+        each chunk pushed in one blob and decoded by the multi-image
+        kernels. Returns the (B, H, W, 3) images on the device
+        (asynchronous)."""
+        imgs = [self._decode(*self._push(bodies[a:b]), nH, nW, lmb[a:b],
+                             batch=True)
+                for a, b in self._chunks(len(bodies))]
+        return imgs[0] if len(imgs) == 1 else torch.cat(imgs)
+
+
+def _pull_async(payload):
+    """Queue a device-to-host copy of `payload` into pinned memory: ->
+    (host tensor, event to wait for, None on the CPU)."""
+    if payload.device.type == 'cpu':
+        return payload, None
+    host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+    host.copy_(payload, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done

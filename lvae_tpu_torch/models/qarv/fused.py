@@ -1,11 +1,15 @@
-"""The fused QARV codec: the single-image parts of
-``lvae_tpu/models/qarv/fused.py``, on either trunk.
+"""The fused QARV codec of ``lvae_tpu/models/qarv/fused.py``, for single
+images and batches, on either trunk.
 
 Encode: lambda embedding -> encoder backbone -> per latent block prior ->
 symbols = round(posterior mean - prior mean) -> fuse, with the plain blocks
 in between -> escapes, row layout and the CUDA rANS encode kernel -> one
 payload pull. Decode: the same trunk with the symbols from the CUDA rANS
 decode kernel, then the synthesis tail and clip*0.5+0.5 -> float16.
+
+The trunk runs B images at once, each with its own lambda. A single image
+goes through the single-image rANS kernels; a batch (chunk) through the
+multi-image ones: one encode launch, and one decode launch per latent block.
 
 Bit-exactness: an arithmetic-coded stream desyncs when the decoder's
 recomputed prior floats differ from the encoder's by a single scale-index
@@ -83,10 +87,8 @@ class FusedQarvCodec(FusedCodecBase):
     # and no affine (models/common.py).
     trunk_scope = staticmethod(_exact_f32)
 
-    def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None):
-        super().__init__(net, cdf_table, num_lanes=num_lanes,
-                         esc_cap=esc_cap, word_cap=word_cap)
+    def __init__(self, net, cdf_table, **cfg):
+        super().__init__(net, cdf_table, **cfg)
         blocks = list(net.dec_blocks)
         self.stop = next(i for i, b in enumerate(blocks)
                          if isinstance(b, common.CompressionStopFlag))
@@ -105,8 +107,8 @@ class FusedQarvCodec(FusedCodecBase):
         """-> (emb for the backbone and posterior, gelu(emb) or None)."""
         return self.net.get_lmb_embedding(lmb), None
 
-    def _start(self, nH, nW):
-        return self.net.bias.expand(1, -1, nH, nW)           # NCHW
+    def _start(self, B, nH, nW):
+        return self.net.bias.expand(B, -1, nH, nW)           # NCHW
 
     def _prior(self, blk, feature, emb, gemb):
         """-> (f_mid, pm float32, scale indexes int32), in this layout."""
@@ -121,20 +123,21 @@ class FusedQarvCodec(FusedCodecBase):
                 else blk(feature))
 
     def _finish(self, feature):
-        """-> (1, H, W, 3) float16 in [0, 1], NHWC."""
+        """-> (B, H, W, 3) float16 in [0, 1], NHWC."""
         im = torch.clamp(feature.float(), -1.0, 1.0) * 0.5 + 0.5
         return im.to(torch.float16).permute(0, 2, 3, 1)
 
     # ---- the shared trunk ---------------------------------------------
 
-    def _trunk(self, lmb, nH, nW, symbols_for):
+    def _trunk(self, lmb, B, nH, nW, symbols_for):
         """Lambda embedding, then per latent block prior -> symbols -> fuse,
         with the plain blocks in between, up to the compression stop.
-        symbols_for(block, f_mid, pm, indexes, emb) -> symbols in this
-        trunk's layout. Returns (feature, (emb, gemb), symbols, indexes),
-        the last two as per-block flat int32 tensors in NHWC order."""
+        lmb: (B,) one lambda per image. symbols_for(block, f_mid, pm,
+        indexes, emb) -> symbols in this trunk's layout. Returns (feature,
+        (emb, gemb), symbols, indexes), the last two per block as (B, nsym)
+        int32 tensors in NHWC order."""
         emb, gemb = self._emb_ctx(lmb)
-        feature = self._start(nH, nW)
+        feature = self._start(B, nH, nW)
         syms_flat, idx_flat = [], []
         for blk in list(self.net.dec_blocks)[:self.stop]:
             if getattr(blk, 'is_latent_block', False):
@@ -144,8 +147,8 @@ class FusedQarvCodec(FusedCodecBase):
                 syms = symbols_for(blk, f_mid, pm, indexes,
                                    emb).to(torch.int32).contiguous()
                 feature = self._fuse(blk, f_mid, pm, syms, emb, gemb)
-                syms_flat.append(self._to(syms, 'NHWC').reshape(-1))
-                idx_flat.append(self._to(indexes, 'NHWC').reshape(-1))
+                syms_flat.append(self._to(syms, 'NHWC').reshape(B, -1))
+                idx_flat.append(self._to(indexes, 'NHWC').reshape(B, -1))
             else:
                 feature = self._plain(blk, feature, emb, gemb)
         return feature, (emb, gemb), syms_flat, idx_flat
@@ -158,9 +161,11 @@ class FusedQarvCodec(FusedCodecBase):
     # ---- the two directions -------------------------------------------
 
     @torch.no_grad()
-    def _encode(self, im, lmb, want_image):
-        """im: (1, 3, H, W) float32 on the device -> (payload, image|None)."""
-        _, _, imH, imW = im.shape
+    def _encode(self, im, lmb, want_image, batch=False):
+        """im: (B, 3, H, W) float32 on the device, lmb (B,) -> (payload,
+        image|None); a single image's payload (P,) from the single-image
+        rANS kernel, a batch's (B, P) from the multi-image one."""
+        B, _, imH, imW = im.shape
         ms = self.net.max_stride
         enc_features = {}
 
@@ -175,9 +180,12 @@ class FusedQarvCodec(FusedCodecBase):
 
         with self.trunk_scope():
             feature, ctx, syms_flat, idx_flat = self._trunk(
-                lmb, imH // ms, imW // ms, posterior_symbols)
+                lmb, B, imH // ms, imW // ms, posterior_symbols)
             image = self._tail(feature, ctx) if want_image else None
-        return self.pack_payload(syms_flat, idx_flat), image
+        if batch:
+            return self.pack_payload_batch(syms_flat, idx_flat), image
+        return self.pack_payload([s[0] for s in syms_flat],
+                                 [i[0] for i in idx_flat]), image
 
     def encode(self, im, lmb):
         payload, _ = self._encode(im, lmb, want_image=False)
@@ -190,27 +198,40 @@ class FusedQarvCodec(FusedCodecBase):
         return self._payload_to_bytes(payload), img
 
     @torch.no_grad()
-    def _decode(self, states, words, esc_pos, esc_val, nH, nW, lmb):
+    def _decode(self, states, streams, esc_pos, esc_val, nH, nW, lmb,
+                batch=False):
+        """states (B, N), streams (B, W), esc_pos/esc_val (B, E), lmb (B,)
+        on the device -> (B, H, W, 3) float16 images. A single image
+        (batch=False, B = 1) decodes through the single-image rANS kernel,
+        a batch through one multi-image launch per latent block."""
         N = self.N
-        ptr = torch.zeros((), dtype=torch.int32, device=self.device)
+        B = states.shape[0]
+        ptr = torch.zeros((B,) if batch else (), dtype=torch.int32,
+                          device=self.device)
         carry = {'states': states, 'ptr': ptr, 'start': 0}
 
         def decoded_symbols(blk, f_mid, pm, indexes, emb):
             _, H, W, Z = self._to(pm, 'NHWC').shape
-            flat_idx = self._to(indexes, 'NHWC').reshape(-1)
-            nsym = flat_idx.numel()
+            flat_idx = self._to(indexes, 'NHWC').reshape(B, -1)
+            nsym = flat_idx.shape[1]
             T = max((nsym + N - 1) // N, 1)
-            idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(T, N)
-            vals, carry['states'], carry['ptr'] = rd.rans_decode_block(
-                idx_rows, carry['states'], carry['ptr'], words, self.cdfs,
-                self.offsets, nsym, num_lanes=N)
-            z = patch_escapes(vals.reshape(-1)[:nsym], esc_pos, esc_val,
+            idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(B, T, N)
+            if batch:
+                vals, carry['states'], carry['ptr'] = (
+                    rd.rans_decode_block_multi(
+                        idx_rows, carry['states'], carry['ptr'], streams,
+                        self.cdfs, self.offsets, nsym, num_lanes=N))
+            else:
+                vals, carry['states'], carry['ptr'] = rd.rans_decode_block(
+                    idx_rows[0], carry['states'], carry['ptr'], streams[0],
+                    self.cdfs, self.offsets, nsym, num_lanes=N)
+            z = patch_escapes(vals.reshape(B, -1)[:, :nsym], esc_pos, esc_val,
                               carry['start'])
             carry['start'] += nsym
-            return self._from(z.reshape(1, H, W, Z), 'NHWC')
+            return self._from(z.reshape(B, H, W, Z), 'NHWC')
 
         with self.trunk_scope():
-            feature, ctx, _, _ = self._trunk(lmb, nH, nW, decoded_symbols)
+            feature, ctx, _, _ = self._trunk(lmb, B, nH, nW, decoded_symbols)
             return self._tail(feature, ctx)
 
 
@@ -226,10 +247,8 @@ class PortableQarvCodec(FusedQarvCodec):
     # posterior (library calls) are scoped, in _encode
     trunk_scope = staticmethod(contextlib.nullcontext)
 
-    def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None):
-        super().__init__(net, cdf_table, num_lanes=num_lanes,
-                         esc_cap=esc_cap, word_cap=word_cap)
+    def __init__(self, net, cdf_table, **cfg):
+        super().__init__(net, cdf_table, **cfg)
         self.table = torch.as_tensor(
             cdf_ops.default_gaussian_scale_table().astype('float32'),
             device=self.device)
@@ -243,9 +262,9 @@ class PortableQarvCodec(FusedQarvCodec):
         return trunk.emb_mlp(lmb, self.freqs, e0.weight.t(), e0.bias,
                              e1.weight.t(), e1.bias, net.sin_period)
 
-    def _start(self, nH, nW):
+    def _start(self, B, nH, nW):
         bias = self.net.bias.reshape(1, 1, 1, -1)
-        return bias.expand(1, nH, nW, -1).contiguous()
+        return bias.expand(B, nH, nW, -1).contiguous()
 
     def _prior(self, blk, feature, emb, gemb):
         f_mid = trunk.convnext_adaln(feature, blk.resnet_front, gemb)

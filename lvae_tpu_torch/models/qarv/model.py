@@ -84,16 +84,18 @@ class VRLVBlockSmall(VRLVBlockBase):
         return self.posterior(self.posterior2(merged, emb))
 
 
-def patch_escapes(z_flat, esc_pos, esc_val, start):
+def patch_escapes(z, esc_pos, esc_val, start):
     """Write the true values of escape-coded positions into one block's
-    flat symbols. Out-of-block and padding (-1) entries go to a spare slot
-    past the end, which is dropped."""
-    n = z_flat.numel()
+    symbols, per image: z (B, n), esc_pos/esc_val (B, E) in the image's
+    symbol numbering, which starts the block at `start`. Out-of-block and
+    padding (-1) entries go to a spare slot past the end, which is
+    dropped."""
+    n = z.shape[1]
     rel = esc_pos.to(torch.int64) - start
     valid = (rel >= 0) & (rel < n) & (esc_pos >= 0)
-    out = torch.cat([z_flat, z_flat.new_zeros(1)])
-    out.scatter_(0, torch.where(valid, rel, n), esc_val.to(z_flat.dtype))
-    return out[:n]
+    out = torch.cat([z, z.new_zeros(z.shape[0], 1)], 1)
+    out.scatter_(1, torch.where(valid, rel, n), esc_val.to(z.dtype))
+    return out[:, :n]
 
 
 class VariableRateLossyVAENet(nn.Module):
@@ -140,8 +142,8 @@ class VariableRateLossyVAENet(nn.Module):
 
 
 class QarvModel(VAEModelBase):
-    """User-facing QARV handle: single-image compression through the fused
-    codec (models/qarv/fused.py)."""
+    """User-facing QARV handle: single-image and batch compression through
+    the fused codec (models/qarv/fused.py)."""
 
     def __init__(self, net, device=None):
         super().__init__(net, device)
@@ -151,21 +153,25 @@ class QarvModel(VAEModelBase):
         self.compressing = False
 
     def compress_mode(self, mode=True, coder='fused', num_lanes=128,
-                      esc_cap=8192, word_cap=None, portable=False):
+                      esc_cap=8192, word_cap=None, portable=False,
+                      max_program_batch=None):
         """Prepare entropy coding through the fused codec (coder='fused',
         the only one the port has). portable=True codes on the portable
         trunk (ops/trunk.py kernels): its streams decode in any process.
         num_lanes: 16/32/64/128, or 'auto' (by lambda, _auto_lanes).
         word_cap caps the coded stream length in 16-bit words; streams that
-        overflow it (or esc_cap escapes) raise OverflowError. Codecs stay
-        cached across calls, keyed by their whole configuration."""
+        overflow it (or esc_cap escapes) raise OverflowError.
+        max_program_batch caps the images coded at once: larger
+        compress_batch requests run as balanced chunks. Codecs stay cached
+        across calls, keyed by their whole configuration."""
         if coder != 'fused':
             raise NotImplementedError(
                 f'coder={coder!r}: the port has only the fused codec')
         if mode:
             self._coder.update()
             self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap,
-                                   portable=bool(portable))
+                                   portable=bool(portable),
+                                   max_program_batch=max_program_batch)
             self._fused_codecs = getattr(self, '_fused_codecs', {})
             self.num_lanes = num_lanes
             self._fused = self._get_fused(
@@ -202,23 +208,35 @@ class QarvModel(VAEModelBase):
             return 64
         return 128
 
-    def _check_input(self, im):
+    def _to_input(self, im, batch=False):
+        """Image(s) -> NCHW float32 batch on the device, checked as
+        lvae_tpu/models/qarv/model.py:440-451 checks them: the stride, one
+        image unless `batch`, and values in [0, 1] for host (numpy) input;
+        device tensors are not range-checked."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        if isinstance(im, np.ndarray) and im.size and not (
+                im.min() >= 0.0 and im.max() <= 1.0):
+            raise ValueError('input values must be in [0, 1]')
+        im = to_nchw_batch(im, self.device)
         s = self.net.max_stride
-        if im.shape[0] != 1:
+        if im.shape[0] != 1 and not batch:
             raise ValueError(f'only a single image is supported, got '
-                             f'{tuple(im.shape)}')
+                             f'{tuple(im.shape)}; use compress_batch')
         if im.shape[2] % s or im.shape[3] % s:
             raise ValueError(f'input H/W {tuple(im.shape[2:])} must be '
                              f'divisible by {s} (use compress_file)')
+        return im
+
+    @staticmethod
+    def _round_lmb(lmb):
+        # struct 'f' stores float32; use the same rounded value on both sides
+        return struct.unpack('f', struct.pack('f', float(lmb)))[0]
 
     def _prepare(self, im, lmb, portable):
-        if not self.compressing:
-            raise RuntimeError('call compress_mode() first')
-        im = to_nchw_batch(im, self.device)
-        self._check_input(im)
-        lmb = float(lmb) if lmb is not None else float(self.default_lmb)
-        # struct 'f' stores float32; use the same rounded value on both sides
-        lmb_f32 = struct.unpack('f', struct.pack('f', lmb))[0]
+        im = self._to_input(im)
+        lmb_f32 = self._round_lmb(lmb if lmb is not None
+                                  else self.default_lmb)
         n = (self._auto_lanes(lmb_f32) if self.num_lanes == 'auto'
              else self.num_lanes)
         fused = self._get_fused(n, portable=portable)
@@ -226,55 +244,152 @@ class QarvModel(VAEModelBase):
             self._fused = fused
         return im, lmb_f32, fused
 
-    def _header(self, lmb_f32, im):
-        nH, nW = im.shape[2] // self.max_stride, im.shape[3] // self.max_stride
+    def _header(self, lmb_f32, nH, nW):
         return struct.pack('f', lmb_f32) + struct.pack('3H', 1, nH, nW)
+
+    def _grid(self, im):
+        return im.shape[2] // self.max_stride, im.shape[3] // self.max_stride
 
     def compress(self, im, lmb=None, portable=None):
         """Compress one image (NHWC in [0,1]) -> bytes. `portable`
         overrides the compress_mode trunk kind for this stream."""
         im, lmb_f32, fused = self._prepare(im, lmb, portable)
-        body = fused.encode(im, self._lmb_tensor(lmb_f32))
-        return self._header(lmb_f32, im) + body
+        body = fused.encode(im, self._lmb_tensor([lmb_f32]))
+        return self._header(lmb_f32, *self._grid(im)) + body
 
     def compress_check(self, im, lmb=None, portable=None):
         """compress() that also returns the image reconstructed from the
         encode-side symbols (NHWC float32): decompress() must reproduce it
         bitwise."""
         im, lmb_f32, fused = self._prepare(im, lmb, portable)
-        body, img = fused.encode_check(im, self._lmb_tensor(lmb_f32))
-        return (self._header(lmb_f32, im) + body,
+        body, img = fused.encode_check(im, self._lmb_tensor([lmb_f32]))
+        return (self._header(lmb_f32, *self._grid(im)) + body,
                 img.float().cpu().numpy())
 
-    def _lmb_tensor(self, lmb):
-        return torch.full((1,), lmb, dtype=torch.float32, device=self.device)
+    def _lmb_tensor(self, lmbs):
+        """(B,) float32 lambdas on the device, copied from pinned memory
+        without synchronising the host."""
+        t = torch.tensor(lmbs, dtype=torch.float32)
+        if self.device.type == 'cuda':
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
-    def decompress_to_device(self, string):
-        """Decode -> (1, H, W, 3) float16 image on the device."""
+    # ---- batch serving (lvae_tpu/models/qarv/model.py:941-1024) --------
+
+    def compress_batch_async(self, ims, lmb=None):
+        """Dispatch-only half of compress_batch: queues the encode of B
+        same-shape images and returns an opaque handle without
+        synchronising the host; compress_batch_finish gives the streams.
+        lmb: a scalar or one lambda per image."""
+        ims = self._to_input(ims, batch=True)
+        B = ims.shape[0]
+        if lmb is None:
+            lmb = self.default_lmb
+        lmbs = [self._round_lmb(v)
+                for v in (lmb if np.ndim(lmb) else [lmb] * B)]
+        if len(lmbs) != B:
+            raise ValueError(f'{len(lmbs)} lambdas for {B} images')
+        # one lane count for the batch: with 'auto', the largest any image
+        # would choose alone, which keeps the high-rate images' latency
+        fused = self._get_fused(max(self._auto_lanes(v) for v in lmbs)
+                                if self.num_lanes == 'auto'
+                                else self.num_lanes)
+        self._fused = fused
+        handle = fused.encode_batch_async(ims, self._lmb_tensor(lmbs))
+        return fused, handle, lmbs, self._grid(ims)
+
+    def compress_batch(self, ims, lmb=None):
+        """Batch encode: B same-shape images (B, H, W, 3) in [0, 1] -> list
+        of B streams, each a standard single-image stream
+        ([f lmb][3H 1 nH nW][body]). lmb: a scalar or one per image. The
+        trunk runs the B images at once; rANS codes them in one multi-image
+        launch. Portable streams decode anywhere, alone or in any batch;
+        legacy ones in this process, through decompress_batch at the same
+        max_program_batch."""
+        return self.compress_batch_finish(
+            self.compress_batch_async(ims, lmb=lmb))
+
+    def compress_batch_finish(self, handle):
+        """Wait for a compress_batch_async dispatch and return its B
+        streams. A serving loop dispatches batch k+1 before finishing batch
+        k, hiding the payload copy and stream assembly behind device
+        compute."""
+        fused, fhandle, lmbs, (nH, nW) = handle
+        bodies = fused.encode_batch_finish(fhandle)
+        return [self._header(v, nH, nW) + b for v, b in zip(lmbs, bodies)]
+
+    def decompress_batch_to_device(self, strings):
+        """Decode B same-shape streams -> (B, H, W, 3) float16 images on the
+        device (asynchronous). Routed by the streams' lane field, which all
+        of them must share."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
-        lmb, = struct.unpack('f', string[:4])
-        nB, nH, nW = struct.unpack('3H', string[4:10])
+        lmbs, bodies, shapes, fields = [], [], set(), set()
+        for s in strings:
+            lmb_v, = struct.unpack('f', s[:4])
+            nB, nH, nW = struct.unpack('3H', s[4:10])
+            if nB != 1:
+                raise ValueError(f'stream holds {nB} images; expected 1')
+            shapes.add((nH, nW))
+            fields.add(struct.unpack('<H', s[18:20])[0])
+            lmbs.append(lmb_v)
+            bodies.append(s[10:])
+        if len(shapes) != 1:
+            raise ValueError(f'batch streams must share one image shape, '
+                             f'got latent grids {sorted(shapes)}')
+        if len(fields) != 1:
+            raise ValueError(f'mixed lane counts / trunk kinds in batch: '
+                             f'{sorted(fields)}')
+        (nH, nW), = shapes
+        lanes_field, = fields
+        fused = self._get_fused(lanes_field & 0x7FFF,
+                                portable=bool(lanes_field & 0x8000))
+        return fused.decode_batch_to_device(bodies, nH, nW,
+                                            self._lmb_tensor(lmbs))
+
+    def decompress_batch(self, strings):
+        """decompress_batch_to_device -> (B, H, W, 3) float32 numpy."""
+        return self.decompress_batch_to_device(strings).float().cpu().numpy()
+
+    # ---- decode ---------------------------------------------------------
+
+    def decompress_to_device(self, *args):
+        """Decode -> (1, H, W, 3) float16 image on the device.
+        decompress_to_device(stream), or the JAX package's form
+        decompress_to_device(lmb, nB, nH, nW, body) with the stream's
+        header fields given apart from its body."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        if len(args) == 1:
+            string, = args
+            lmb, = struct.unpack('f', string[:4])
+            nB, nH, nW = struct.unpack('3H', string[4:10])
+            body = string[10:]
+        elif len(args) == 5:
+            lmb, nB, nH, nW, body = args
+        else:
+            raise TypeError('decompress_to_device(stream) or '
+                            'decompress_to_device(lmb, nB, nH, nW, body)')
         if nB != 1:
             raise ValueError(f'stream holds {nB} images; expected 1')
-        body = string[10:]
         # route by the stream's lane count and trunk kind (the lane field's
         # high bit marks a portable stream), whatever compress_mode chose:
         # a portable file decodes in any process
         lanes_field, = struct.unpack('<H', body[8:10])
         fused = self._get_fused(lanes_field & 0x7FFF,
                                 portable=bool(lanes_field & 0x8000))
-        return fused.decode_to_device(body, nH, nW, self._lmb_tensor(lmb))
+        return fused.decode_to_device(body, nH, nW, self._lmb_tensor([lmb]))
 
     def decompress(self, string):
         """Decode -> (1, H, W, 3) float32 numpy image in [0,1]."""
         return self.decompress_to_device(string).float().cpu().numpy()
 
     def compress_file(self, img_path, output_path, lmb=None, portable=None):
-        """Compress an 8-bit RGB(A) PNG into a file: [2H h w][compress()].
-        Files are portable streams by default, so that they decode in any
-        process (lvae_tpu/models/qarv/model.py:1157-1158); portable=False
-        writes a legacy stream, bound to the writing process."""
+        """Compress a PNG (8-bit gray, gray+alpha, RGB, RGBA or palette,
+        converted to RGB) into a file: [2H h w][compress()]. Files are
+        portable streams by default, so that they decode in any process
+        (lvae_tpu/models/qarv/model.py:1157-1158); portable=False writes a
+        legacy stream, bound to the writing process."""
         img = coding.read_png(img_path)
         padded = coding.pad_divisible_by(img, div=self.net.max_stride)
         body = self.compress(padded.astype(np.float32) / 255.0, lmb=lmb,

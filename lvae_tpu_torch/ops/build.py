@@ -37,8 +37,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'rans_decode_block': [_P, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I,
                           _P, _LL, _P, _I, _P],
-    'rans_encode_all': [_P, _P, _P, _I, _I, _P, _I, _I, _P, _LL, _P, _P,
-                        _I, _P],
+    'rans_decode_block_multi': [_P, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
+                                _I, _I, _P, _LL, _P, _I, _P],
+    'rans_encode_all': [_P, _P, _P, _I, _I, _P, _I, _I, _P, _LL, _LL, _P,
+                        _P, _I, _P],
+    'rans_encode_all_multi': [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _LL,
+                              _LL, _P, _P, _I, _P],
     'trunk_emb_mlp': [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I,
                       _P],
     'trunk_dw_ln_mod': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,

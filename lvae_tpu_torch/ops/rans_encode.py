@@ -1,10 +1,10 @@
-"""N-lane interleaved rANS encode of all an image's symbol rows.
+"""N-lane interleaved rANS encode of all the symbol rows of one image or B.
 
-`rans_encode_all` has the interface of the JAX package's Pallas function
-(lvae_tpu/ops/pallas/rans_encode.py:217): it launches the CUDA kernel of
-csrc/rans.cu for tensors on the card, and runs `rans_encode_all_plain`, a
-row loop in plain PyTorch, for tensors on the CPU. Streams are
-byte-identical to lvae_tpu/ops/rans_interleaved.py's encoder.
+`rans_encode_all` and `rans_encode_all_multi` have the interfaces of the JAX
+package's Pallas functions (lvae_tpu/ops/pallas/rans_encode.py:217 and
+:419): each launches the CUDA kernel of csrc/rans.cu for tensors on the card
+and runs its plain PyTorch version, a row loop, for tensors on the CPU.
+Streams are byte-identical to lvae_tpu/ops/rans_interleaved.py's encoder.
 
 Escapes are handled outside the kernel (`prepare_inband`): out-of-range
 values are coded as the escape bin and their (position, value) pairs travel
@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from lvae_tpu_torch.ops import build
-from lvae_tpu_torch.ops.rans_decode import to_i32_bits
+from lvae_tpu_torch.ops.rans_decode import (launch_context,
+                                            launches_kernel, to_i32_bits)
 
 MASK16 = (1 << 16) - 1
 
@@ -125,15 +126,11 @@ def rans_encode_all(syms, indexes, row_n, cdfs, num_lanes=128, w_cap=None):
     if N != num_lanes:
         raise ValueError(f'symbols have {N} lanes, expected {num_lanes}')
     dev = syms.device
-    if dev.type == 'cpu':
+    if dev.type == 'cuda':
+        row_n = torch.as_tensor(row_n, dtype=torch.int32, device=dev)
+    if not launches_kernel('rans_encode_all', dev,
+                           (syms, indexes, row_n, cdfs)):
         return rans_encode_all_plain(syms, indexes, row_n, cdfs, w_cap)
-    if dev.type != 'cuda':
-        raise ValueError(f'rans_encode_all: unsupported device {dev}')
-    row_n = torch.as_tensor(row_n, dtype=torch.int32, device=dev)
-    for a in (syms, indexes, row_n, cdfs):
-        if a.device != dev or a.dtype != torch.int32 or not a.is_contiguous():
-            raise ValueError('rans_encode_all: every input must be a '
-                             'contiguous int32 tensor on the same card')
     if indexes.shape != syms.shape or row_n.shape != (T,):
         raise ValueError('rans_encode_all: bad indexes/row_n shape')
     w_cap = T * N if w_cap is None else int(w_cap)
@@ -144,12 +141,94 @@ def rans_encode_all(syms, indexes, row_n, cdfs, num_lanes=128, w_cap=None):
     states = torch.empty((1, N), dtype=torch.int32, device=dev)
     err = lib.rans_encode_all(
         syms.data_ptr(), indexes.data_ptr(), row_n.data_ptr(), T, N,
-        cdfs.data_ptr(), S, L, pairs.data_ptr(), w_cap, n_words.data_ptr(),
-        states.data_ptr(), dev.index if dev.index is not None else
-        torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream)
+        cdfs.data_ptr(), S, L, pairs.data_ptr(), pairs.numel(), w_cap,
+        n_words.data_ptr(), states.data_ptr(), *launch_context(dev))
     build.check(err, 'rans_encode_all')
     rans_encode_all.launches += 1
     return pairs, n_words, states
 
 
 rans_encode_all.launches = 0
+
+
+def rans_encode_all_multi_plain(syms, indexes, row_n, cdfs, w_cap=None):
+    """Plain PyTorch twin of the kernel launched with one block per image:
+    `rans_encode_all_plain`'s reverse row loop vectorised over (B, N), as the
+    TPU kernel stacks the B images' states; word positions are laid out per
+    image after the loop. Same arguments and results as
+    `rans_encode_all_multi`; runs on any device."""
+    B, T, N = syms.shape
+    dev = syms.device
+    w_cap = T * N if w_cap is None else int(w_cap)
+    cdf = cdfs.to(torch.int64)
+    S, L = cdf.shape
+    flat = (indexes.to(torch.int64).clamp(0, S - 1) * L
+            + syms.to(torch.int64).clamp(0, L - 2))
+    rn = torch.as_tensor(row_n, dtype=torch.int64, device=dev)
+    active = torch.arange(N, device=dev)[None, :] < rn[:, None]    # (T, N)
+    start = torch.where(active, cdf.reshape(-1)[flat], 0)         # (B, T, N)
+    freq = torch.where(active, cdf.reshape(-1)[flat + 1] - start, 1)
+    x = torch.full((B, N), 1 << 16, dtype=torch.int64, device=dev)
+    flags, words = [], []                   # in push order of the rows
+    for t in range(T - 1, -1, -1):
+        act, f = active[t], freq[:, t]
+        flag = act & ((x >> 16) >= f)
+        flags.append(flag)
+        words.append(x & MASK16)
+        x = torch.where(flag, x >> 16, x)
+        x = torch.where(act, ((x // f) << 16) + x % f + start[:, t], x)
+    # push order per image: rows T-1 .. 0, lanes descending inside each row
+    pf = torch.stack(flags, 1).flip(2).reshape(B, -1)
+    pw = torch.stack(words, 1).flip(2).reshape(B, -1)
+    pos = torch.cumsum(pf.to(torch.int64), 1) - 1
+    keep = pf & (pos < w_cap)
+    P = pair_capacity(w_cap)
+    buf = torch.zeros((B, 2 * P + 1), dtype=torch.int64, device=dev)
+    buf.scatter_(1, torch.where(keep, pos, 2 * P), torch.where(keep, pw, 0))
+    pairs = to_i32_bits(buf[:, 0:2 * P:2] | (buf[:, 1:2 * P:2] << 16))
+    n_words = pf.sum(1).to(torch.int32)
+    return pairs, n_words, to_i32_bits(x)
+
+
+def rans_encode_all_multi(syms, indexes, row_n, cdfs, num_lanes=128,
+                          w_cap=None):
+    """Encode B same-layout images' symbol rows in one launch (one thread
+    block per image); byte-identical to B `rans_encode_all` calls.
+
+    Args:
+        syms:    (B, T, N) int32 in-band symbols (prepare_inband)
+        indexes: (B, T, N) int32 scale indexes
+        row_n:   (T,) active lanes per row, shared by the images
+        cdfs, w_cap: as for `rans_encode_all`
+    Returns:
+        (pairs (B, pair_capacity(w_cap)) int32, image b's pairs in row b;
+         n_words (B,) int32; states (B, N) int32)
+    """
+    B, T, N = syms.shape
+    if N != num_lanes:
+        raise ValueError(f'symbols have {N} lanes, expected {num_lanes}')
+    dev = syms.device
+    if dev.type == 'cuda':
+        row_n = torch.as_tensor(row_n, dtype=torch.int32, device=dev)
+    if not launches_kernel('rans_encode_all_multi', dev,
+                           (syms, indexes, row_n, cdfs)):
+        return rans_encode_all_multi_plain(syms, indexes, row_n, cdfs, w_cap)
+    if indexes.shape != syms.shape or row_n.shape != (T,):
+        raise ValueError('rans_encode_all_multi: bad indexes/row_n shape')
+    w_cap = T * N if w_cap is None else int(w_cap)
+    S, L = cdfs.shape
+    lib = build.library()
+    pairs = torch.zeros((B, pair_capacity(w_cap)), dtype=torch.int32,
+                        device=dev)
+    n_words = torch.empty((B,), dtype=torch.int32, device=dev)
+    states = torch.empty((B, N), dtype=torch.int32, device=dev)
+    err = lib.rans_encode_all_multi(
+        syms.data_ptr(), indexes.data_ptr(), row_n.data_ptr(), B, T, N,
+        cdfs.data_ptr(), S, L, pairs.data_ptr(), pairs.shape[1], w_cap,
+        n_words.data_ptr(), states.data_ptr(), *launch_context(dev))
+    build.check(err, 'rans_encode_all_multi')
+    rans_encode_all_multi.launches += 1
+    return pairs, n_words, states
+
+
+rans_encode_all_multi.launches = 0

@@ -308,3 +308,56 @@ def test_codecs_leave_process_flags_alone(models, image, portable):
          torch.backends.cudnn.benchmark,
          torch.backends.cudnn.deterministic) = flags
     assert bits == want and np.array_equal(rec, want_rec)
+
+
+# ---- the entry points' contracts (lvae_tpu/models/qarv/model.py) ----------
+
+@pytest.mark.parametrize('bad', [1.5, -0.25, np.nan])
+def test_host_input_outside_unit_range_raises(models, image, bad):
+    """Host (numpy) input outside [0, 1] is refused by compress and
+    compress_batch, as the JAX _check_input refuses it; device tensors are
+    not range-checked."""
+    _, tm = models
+    tm.compress_mode(num_lanes=16, portable=True)
+    im = image.copy()
+    im[0, 3, 5, 1] = bad
+    with pytest.raises(ValueError, match=r'in \[0, 1\]'):
+        tm.compress(im, lmb=512.0)
+    with pytest.raises(ValueError, match=r'in \[0, 1\]'):
+        tm.compress_batch(np.concatenate([image, im]), lmb=512.0)
+    if not np.isnan(bad):
+        assert tm.compress(torch.from_numpy(im), lmb=512.0)[:4] == \
+            struct.pack('f', 512.0)
+
+
+def test_decompress_to_device_takes_the_jax_form(models, image):
+    """decompress_to_device(lmb, nB, nH, nW, body), the JAX package's form,
+    gives the whole-stream form's image; nB != 1 raises."""
+    _, tm = models
+    tm.compress_mode(num_lanes='auto', portable=True)
+    bits = tm.compress(image, lmb=1024.0)
+    lmb, = struct.unpack('f', bits[:4])
+    nB, nH, nW = struct.unpack('3H', bits[4:10])
+    whole = tm.decompress_to_device(bits)
+    parts = tm.decompress_to_device(lmb, nB, nH, nW, bits[10:])
+    assert parts.shape == (1, 64, 64, 3) and torch.equal(parts, whole)
+    with pytest.raises(ValueError, match='holds 2 images'):
+        tm.decompress_to_device(lmb, 2, nH, nW, bits[10:])
+    with pytest.raises(TypeError):
+        tm.decompress_to_device(lmb, bits[10:])
+
+
+@pytest.mark.parametrize('mode', ['L', 'P'])
+def test_compress_file_gray_and_palette_png(models, tmp_path, mode):
+    """A gray or palette PNG codes as its RGB conversion and round-trips."""
+    _, tm = models
+    tm.compress_mode(num_lanes=16)
+    src = Image.open(COLLIE).convert(mode)
+    png = tmp_path / f'collie_{mode}.png'
+    src.save(png)
+    bits = tmp_path / f'collie_{mode}.bits'
+    tm.compress_file(png, bits, lmb=512.0)
+    dec = tm.decompress_file(bits)
+    rgb = np.asarray(src.convert('RGB'), np.float32) / 255.0
+    _, recon = tm.compress_check(rgb[None], lmb=512.0, portable=True)
+    assert dec.shape == (1, 64, 64, 3) and np.array_equal(dec, recon)
