@@ -23,11 +23,27 @@
    gives the first image the bits it gets alone, and times each kernel, its
    plain version and, for dense, torch.addmm (device times from CUDA-graph
    replays, and the eager wrapper's time beside them);
-5. decodes photo1's portable file in a fresh python3 process with TF32 and
-   cudnn.benchmark on, and checks the pixels bitwise.
+5. holds the two multi-image rANS kernels against their plain versions and
+   against B single-kernel launches at N = 16, 64 and 128 and B = 2 and 6,
+   on random symbols at qarv_base size (the same block layout for every
+   image, other symbols), and times them beside the single launches;
+6. serves batches on the portable trunk (the batch main path): one B = 6
+   request of photo1..3 at lambda 776.05 and 2048 through compress_batch /
+   decompress_batch, bit-exact against encode_check_batch, with each
+   lambda's mean rate and PSNR held against the JAX package's recorded
+   sweep; a batch stream decoded alone and single streams decoded as a
+   batch, bitwise; the request split [3, 3] by max_program_batch=4; the
+   dispatch run under torch.cuda.set_sync_debug_mode('error'); the launches
+   of each call counted; and bench.py's serving timings (photo1 x 6 at
+   lambda 512: per-image latency and the pipelined loop) beside the
+   single-image path's;
+7. decodes photo1's portable file, and one batch stream as a file, in a
+   fresh python3 process with TF32 and cudnn.benchmark on, and checks the
+   pixels bitwise.
 
 Standard output: the card line of nvidia-smi, then one JSON object per line
-(build, card, codec, trunk, fresh_process, kernels), then the result line.
+(build, card, codec, trunk, multi_kernels, batch, fresh_process, kernels),
+then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
@@ -48,6 +64,14 @@ CHECKPOINT = os.path.join(ROOT, 'checkpoints',
                           'qarv_base_mixed20k_ema_f16.msgpack')
 PHOTO = os.path.join(ROOT, 'images', 'photo1_512x768.png')
 HOPPER = os.path.join(ROOT, 'images', 'hopper_576x512.png')
+PHOTOS = [os.path.join(ROOT, 'images', f'photo{i}_512x768.png')
+          for i in (1, 2, 3)]
+# the JAX package's sweep over photo1..3 (eval-var-rate.py, one
+# compress_mode() at N = 128): each lambda's mean bpp and PSNR gate the batch
+SWEEP = os.path.join(ROOT, 'runs', 'results',
+                     'realphotos-r5mix-qarv_base.json')
+BATCH_LAMBDAS = (776.0468820533245, 2048.0)
+SERVING_B, SERVING_LMB, SERVING_K = 6, 512.0, 5    # bench.py:418-466
 LAMBDAS = (16.0, 512.0, 2048.0)
 # the JAX package's results (runs/suite4-r5mix.json): (bpp, PSNR dB); the
 # photo1 ones gate the run, hopper's is reported beside the port's
@@ -61,7 +85,8 @@ BPP_REL_TOL, PSNR_TOL_DB = 0.02, 0.2
 # blocks, 2 upsample convs, the finish: 91) and decodes 9 latent blocks
 TRUNK_NAMES = ('emb_mlp', 'dw_ln_mod', 'mlp_res', 'dense', 'prior_head',
                'fuse_zproj', 'finish_image')
-RANS_NAMES = ('rans_encode_all', 'rans_decode_block')
+RANS_NAMES = ('rans_encode_all', 'rans_decode_block',
+              'rans_encode_all_multi', 'rans_decode_block_multi')
 _NONE = dict.fromkeys(RANS_NAMES + TRUNK_NAMES, 0)
 EXPECTED_LAUNCHES = {
     False: (dict(_NONE, rans_encode_all=1), dict(_NONE, rans_decode_block=9)),
@@ -70,6 +95,14 @@ EXPECTED_LAUNCHES = {
            dict(_NONE, rans_decode_block=9, emb_mlp=1, dw_ln_mod=33,
                 mlp_res=33, dense=5, prior_head=9, fuse_zproj=9,
                 finish_image=1))}
+# a batch chunk launches the portable trunk's kernels as often as one image
+# does (on (B, ...) tensors), and the multi-image rANS kernels in place of
+# the single-image ones: 1 encode launch and 9 decode launches
+EXPECTED_BATCH_LAUNCHES = tuple(
+    dict(want, rans_encode_all=0, rans_decode_block=0,
+         rans_encode_all_multi=want['rans_encode_all'],
+         rans_decode_block_multi=want['rans_decode_block'])
+    for want in EXPECTED_LAUNCHES[True])
 # trunk kernel vs plain version on the card: |kernel - plain| <= ATOL +
 # RTOL * |plain|; the plain products sum in cuBLAS's order, the kernels in
 # k order
@@ -268,12 +301,163 @@ def check_kernels(torch, np, table, device, lane_counts):
     return results
 
 
+def check_multi_kernels(torch, np, table, device, lane_counts, batches):
+    """Both multi-image kernels against their plain versions and against B
+    single-kernel launches, at each lane count and batch size: B images of
+    qarv_base size with one block layout (random_blocks' sizes depend on N
+    only) and their own symbols; times of one multi launch (encode) or the
+    nine of a batch (decode), of the B (9 B) single launches doing the same
+    work, and of the plain version (its compared run)."""
+    from lvae_tpu_torch.ops import rans_decode as rd, rans_encode as re_
+    cdfs_np, offs_np = rd.prepare_device_cdf(table)
+    cdfs = torch.as_tensor(cdfs_np, device=device)
+    offs = torch.as_tensor(offs_np, device=device)
+    lengths = torch.as_tensor(table.cdf_lengths, device=device)
+    table_bytes = 4 * (cdfs.numel() + offs.numel())
+    results = {'rans_encode_all_multi': {}, 'rans_decode_block_multi': {}}
+    for N in lane_counts:
+        for B in batches:
+            per = [random_blocks(np, 1234 + N + 1000 * b, N)
+                   for b in range(B)]
+            rows = [re_.blocks_to_rows(v, i, N) for v, i in per]
+            row_n = torch.as_tensor(rows[0][2], device=device)
+            syms = torch.as_tensor(np.stack([r[0] for r in rows]),
+                                   device=device)
+            idx = torch.as_tensor(np.stack([r[1] for r in rows]),
+                                  device=device)
+            inband, _ = re_.prepare_inband(syms, idx, offs, lengths)
+            T = syms.shape[1]
+            sizes = [v.size for v in per[0][0]]
+            nsym = sum(sizes)
+
+            # ---- encode
+            def enc_multi():
+                return re_.rans_encode_all_multi(inband, idx, row_n, cdfs,
+                                                 num_lanes=N)
+
+            def enc_singles():
+                return [re_.rans_encode_all(inband[b], idx[b], row_n, cdfs,
+                                            num_lanes=N) for b in range(B)]
+
+            got = enc_multi()
+            alone = enc_singles()
+            want, enc_plain_ms = timed(torch, lambda: (
+                re_.rans_encode_all_multi_plain(inband, idx, row_n, cdfs)))
+            enc_err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(got, want))
+            enc_plain = all(torch.equal(a, b) for a, b in zip(got, want))
+            enc_single = all(
+                torch.equal(got[0][b], p) and torch.equal(got[1][b], n)
+                and torch.equal(got[2][b], st[0])
+                for b, (p, n, st) in enumerate(alone))
+            pairs, n_words, states = got
+            n_words = n_words.tolist()
+
+            # ---- decode the streams the multi encode wrote
+            streams = np.zeros((B, max(n_words)), np.int32)
+            host = pairs.cpu().numpy()
+            for b, n in enumerate(n_words):
+                streams[b, :n] = re_.pairs_to_words(host[b], n)[::-1]
+            streams = torch.as_tensor(streams, device=device)
+            blocks, r0 = [], 0
+            for size in sizes:
+                Tb = -(-size // N)
+                blocks.append((idx[:, r0:r0 + Tb].contiguous(), size))
+                r0 += Tb
+
+            def dec_run(fn):
+                st = states
+                p = torch.zeros(B, dtype=torch.int32, device=device)
+                outs = []
+                for rows_b, n in blocks:
+                    v, st, p = fn(rows_b, st, p, streams, cdfs, offs, n)
+                    outs.append(v)
+                return torch.cat(outs, 1), st, p
+
+            def dec_multi():
+                return dec_run(lambda *a: rd.rans_decode_block_multi(
+                    *a, num_lanes=N))
+
+            def dec_singles():
+                outs = []
+                for b in range(B):
+                    st = states[b:b + 1]
+                    p = torch.zeros((), dtype=torch.int32, device=device)
+                    vals = []
+                    for rows_b, n in blocks:
+                        v, st, p = rd.rans_decode_block(
+                            rows_b[b], st, p, streams[b], cdfs, offs, n,
+                            num_lanes=N)
+                        vals.append(v)
+                    outs.append((torch.cat(vals), st, p))
+                return outs
+
+            got = dec_multi()
+            alone = dec_singles()
+            want, dec_plain_ms = timed(torch, lambda: dec_run(
+                rd.rans_decode_block_multi_plain))
+            dec_err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(got, want))
+            dec_plain = all(torch.equal(a, b) for a, b in zip(got, want))
+            dec_single = all(
+                torch.equal(got[0][b], v) and torch.equal(got[1][b], st[0])
+                and int(got[2][b]) == int(p)
+                for b, (v, st, p) in enumerate(alone))
+            active = (torch.arange(N, device=device)[None, :]
+                      < row_n[:, None].long())
+            roundtrip = (torch.equal(got[0], torch.where(
+                active, inband + offs[idx], 0))
+                and got[2].tolist() == n_words)
+            what = f'N={N} B={B}'
+            progress(f'multi {what}: T={T} encode plain={enc_plain} '
+                     f'single={enc_single}; decode plain={dec_plain} '
+                     f'single={dec_single} roundtrip={roundtrip}')
+            require(enc_plain and enc_single,
+                    f'rans_encode_all_multi {what} disagrees with its plain '
+                    f'version or single launches (max abs err {enc_err})')
+            require(dec_plain and dec_single and roundtrip,
+                    f'rans_decode_block_multi {what} disagrees with its '
+                    f'plain version or single launches (max abs err '
+                    f'{dec_err}) or does not give back the symbols')
+            runs = {
+                'rans_encode_all_multi': dict(
+                    multi=enc_multi, singles=enc_singles,
+                    plain_ms=enc_plain_ms, err=enc_err, launches=1,
+                    bytes=B * 4 * (2 * T * N + pairs.shape[1] + N + 1)
+                    + 4 * T + table_bytes,
+                    ops=B * 7 * nsym),
+                'rans_decode_block_multi': dict(
+                    multi=dec_multi, singles=dec_singles,
+                    plain_ms=dec_plain_ms, err=dec_err, launches=len(blocks),
+                    bytes=4 * (B * (2 * T * N + 2 * N + 2) + sum(n_words))
+                    + table_bytes,
+                    ops=B * 16 * nsym)}
+            for name, r in runs.items():
+                ms = cuda_ms(torch, r['multi'], KERNEL_REPEATS)
+                singles_ms = cuda_ms(torch, r['singles'], KERNEL_REPEATS)
+                bytes_ms = r['bytes'] / HBM_BYTES_PER_S * 1e3
+                ops_ms = r['ops'] / SCALAR_OPS_PER_S * 1e3
+                results[name][f'N{N}_B{B}'] = dict(
+                    N=N, B=B, T=T, nsym_per_image=nsym, n_words=n_words,
+                    match_plain=True, match_single_launches=True,
+                    max_abs_err=r['err'], launches_per_batch=r['launches'],
+                    ms=ms, single_launches_ms=singles_ms,
+                    plain_ms=r['plain_ms'], bytes=r['bytes'], ops=r['ops'],
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+                progress(f'{name} {what}: {ms:.3f} ms, {B} images alone '
+                         f'{singles_ms:.3f} ms, plain {r["plain_ms"]:.1f} ms')
+    return results
+
+
 def launch_counters():
-    """{kernel name: wrapper} for every kernel of the main path."""
+    """{kernel name: wrapper} for every kernel of the main paths."""
     from lvae_tpu_torch.ops import rans_decode as rd, rans_encode as re_
     from lvae_tpu_torch.ops import trunk
     counted = {'rans_encode_all': re_.rans_encode_all,
-               'rans_decode_block': rd.rans_decode_block}
+               'rans_decode_block': rd.rans_decode_block,
+               'rans_encode_all_multi': re_.rans_encode_all_multi,
+               'rans_decode_block_multi': rd.rans_decode_block_multi}
     counted.update((k.__name__, k) for k in trunk.KERNELS)
     return counted
 
@@ -366,6 +550,193 @@ def run_codec(torch, model, portable, cases, tmpdir):
             require(abs(row['psnr_diff_db']) <= PSNR_TOL_DB,
                     f'{what}: PSNR {row["psnr"]:.2f} vs {row["ref_psnr"]}')
     return rows
+
+
+# ---- batch serving -----------------------------------------------------------
+
+def _host_ms(torch, fn, repeats=3):
+    """Median host-clock time (ms) of fn() ending in a device
+    synchronisation, after one warm-up call; -> (ms, last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def serving_times(torch, model, photo):
+    """bench.py's serving section (bench.py:418-466) on photo1 x 6 at
+    lambda 512, word_cap 1<<17, esc_cap 8192, device-resident input:
+    per-image latency (compress_batch + decompress_batch_to_device) / 6,
+    each the median of 3 after a warm-up; the pipelined loop of K = 5
+    batches (dispatch batch k+1 before finishing batch k) per image; and the
+    single-image path's enc + dec on the same image, timed the same way."""
+    B, lmb, K = SERVING_B, SERVING_LMB, SERVING_K
+    model.compress_mode(num_lanes='auto', portable=True, word_cap=1 << 17,
+                        esc_cap=8192)
+    im = torch.as_tensor(photo.astype(np.float32) / 255.0,
+                         device=model.device)[None]
+    ims = im.expand(B, -1, -1, -1).contiguous()
+    lmbs = [lmb] * B
+    enc_ms, bodies = _host_ms(torch, lambda: model.compress_batch(ims, lmbs))
+    dec_ms, _ = _host_ms(torch,
+                         lambda: model.decompress_batch_to_device(bodies))
+    h = model.compress_batch_async(ims, lmb=lmbs)
+    t = time.perf_counter()
+    for _ in range(K):
+        h_next = model.compress_batch_async(ims, lmb=lmbs)
+        bodies = model.compress_batch_finish(h)
+        h = h_next
+    enc_pipe = (time.perf_counter() - t) / K
+    bodies = model.compress_batch_finish(h)
+    prev = model.decompress_batch_to_device(bodies)
+    t = time.perf_counter()
+    for _ in range(K):
+        nxt = model.decompress_batch_to_device(bodies)
+        prev[0, :1, :1, 0].cpu()             # the previous batch is done
+        prev = nxt
+    dec_pipe = (time.perf_counter() - t) / K
+    torch.cuda.synchronize()
+    single_enc, bits = _host_ms(torch, lambda: model.compress(im, lmb=lmb))
+    single_dec, _ = _host_ms(torch, lambda: model.decompress_to_device(bits))
+    out = dict(images=B, lmb=lmb, lanes=struct.unpack('<H', bodies[0][18:20])[
+        0] & 0x7FFF, word_cap=1 << 17, esc_cap=8192,
+        batch_enc_ms=enc_ms, batch_dec_ms=dec_ms,
+        latency_ms_per_image=(enc_ms + dec_ms) / B,
+        pipelined_ms_per_image=(enc_pipe + dec_pipe) * 1e3 / B,
+        single_enc_ms=single_enc, single_dec_ms=single_dec,
+        single_ms_per_image=single_enc + single_dec,
+        bpp=(len(bodies[0]) + 4) * 8 / (photo.shape[0] * photo.shape[1]))
+    progress(f'serving B={B} lambda {lmb:g}: {out["latency_ms_per_image"]:.2f}'
+             f' ms/image, pipelined {out["pipelined_ms_per_image"]:.2f}, '
+             f'single image {out["single_ms_per_image"]:.2f} ms')
+    return out
+
+
+def run_batch(torch, model, tmpdir):
+    """The batch main path on the portable trunk, with its checks (see the
+    module docstring, 6). -> (result dict, {kernel: launches} of the B = 6
+    request's compress_batch + decompress_batch, fresh-process case)."""
+    from lvae_tpu_torch.utils import coding
+    with open(SWEEP) as f:
+        sweep = json.load(f)
+    photos = [coding.read_png(p) for p in PHOTOS]
+    u8 = np.stack(photos + photos)                       # photo1..3 twice
+    ims = u8.astype(np.float32) / 255.0
+    lmbs = [BATCH_LAMBDAS[0]] * 3 + [BATCH_LAMBDAS[1]] * 3
+    H, W = u8.shape[1:3]
+    model.compress_mode(num_lanes='auto', portable=True)
+
+    # 1. round trip, rate and quality; the launches of each call
+    bodies, enc_l = counted_call(lambda: model.compress_batch(ims, lmb=lmbs))
+    dec, dec_l = counted_call(lambda: model.decompress_batch(bodies))
+    codec = model._fused
+    lmb_t = torch.tensor([struct.unpack('f', struct.pack('f', v))[0]
+                          for v in lmbs], device=model.device)
+    ims_t = torch.as_tensor(ims, device=model.device).permute(0, 3, 1, 2)
+    bodies_chk, recon = codec.encode_check_batch(ims_t.contiguous(), lmb_t)
+    bit_exact = bool([b[10:] for b in bodies] == bodies_chk
+                     and np.array_equal(dec, recon))
+    fields = sorted({struct.unpack('<H', b[18:20])[0] for b in bodies})
+    per_lmb = []
+    for i, lmb in enumerate(BATCH_LAMBDAS):
+        rows = range(3 * i, 3 * i + 3)
+        bpp = float(np.mean([(len(bodies[r]) + 4) * 8 / (H * W)
+                             for r in rows]))
+        psnr = float(np.mean([-10 * math.log10(max(float(np.mean(
+            (dec[r] - ims[r]) ** 2)), 1e-12)) for r in rows]))
+        k = sweep['lambdas'].index(lmb)
+        ref_bpp, ref_psnr = (sweep['results']['bpp'][k],
+                             sweep['results']['psnr'][k])
+        per_lmb.append(dict(lmb=lmb, bpp=bpp, psnr=psnr, ref_bpp=ref_bpp,
+                            ref_psnr=ref_psnr, bpp_rel_diff=bpp / ref_bpp - 1,
+                            psnr_diff_db=psnr - ref_psnr))
+        progress(f'batch lambda {lmb:g}: {bpp:.4f} bpp {psnr:.2f} dB '
+                 f'(reference {ref_bpp:.4f} / {ref_psnr:.2f})')
+    want_enc, want_dec = EXPECTED_BATCH_LAUNCHES
+
+    # 2. across batch sizes: a batch stream alone, single streams as a batch
+    alone0 = model.decompress(bodies[0])
+    singles = [model.compress(ims[b:b + 1], lmb=BATCH_LAMBDAS[1])
+               for b in range(3)]
+    as_batch = model.decompress_batch(singles)
+    singles_ok = bool(np.array_equal(as_batch, np.concatenate(
+        [model.decompress(s) for s in singles])))
+    fresh_path = os.path.join(tmpdir, 'batch_photo1_lmb2048.bits')
+    with open(fresh_path, 'wb') as f:
+        f.write(struct.pack('2H', H, W) + bodies[3])
+
+    # 3. chunks: max_program_batch=4 splits B = 6 into [3, 3]
+    model.compress_mode(num_lanes='auto', portable=True, max_program_batch=4)
+    chunked, chunk_enc_l = counted_call(
+        lambda: model.compress_batch(ims, lmb=lmbs))
+    chunk_dec, chunk_dec_l = counted_call(
+        lambda: model.decompress_batch(chunked))
+    ccodec = model._fused
+    cbodies, crecon = ccodec.encode_check_batch(ims_t.contiguous(), lmb_t)
+    chunk_ok = bool([b[10:] for b in chunked] == cbodies
+                    and np.array_equal(chunk_dec, crecon))
+    split = ccodec._chunk_sizes(len(lmbs), ccodec.max_program_batch)
+
+    # 4. dispatch without a host synchronisation, on a device-resident batch
+    model.compress_mode(num_lanes='auto', portable=True)
+    ims_dev = torch.as_tensor(ims, device=model.device)
+    model.compress_batch(ims_dev, lmb=lmbs)                   # warm caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        handle = model.compress_batch_async(ims_dev, lmb=lmbs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    no_sync_same = model.compress_batch_finish(handle) == bodies
+
+    # 5. bench.py's serving timings
+    serving = serving_times(torch, model, photos[0])
+    model.compress_mode(num_lanes='auto', portable=True)
+
+    result = dict(
+        images=[os.path.relpath(p, ROOT) for p in PHOTOS] * 2, lmbs=lmbs,
+        lane_fields=fields, bit_exact=bit_exact, per_lambda=per_lmb,
+        stream_bytes=[len(b) for b in bodies],
+        batch_stream_alone_bitwise=bool(np.array_equal(alone0[0], dec[0])),
+        single_streams_as_batch_bitwise=singles_ok,
+        encode_launches=enc_l, decode_launches=dec_l,
+        chunks=split, chunked_bit_exact=chunk_ok,
+        chunked_encode_launches=chunk_enc_l,
+        chunked_decode_launches=chunk_dec_l,
+        dispatch_without_host_sync=True, dispatch_same_bytes=no_sync_same,
+        serving=serving)
+    progress(f'batch B=6: bit_exact={bit_exact} alone={result["batch_stream_alone_bitwise"]} '
+             f'singles={singles_ok} chunks={split} chunked={chunk_ok} '
+             f'no_sync_same={no_sync_same}')
+    require(fields == [0x8000 | 128], f'batch lane fields {fields}')
+    require(bit_exact, 'batch decode is not bit-exact')
+    for r in per_lmb:
+        require(abs(r['bpp_rel_diff']) <= BPP_REL_TOL
+                and abs(r['psnr_diff_db']) <= PSNR_TOL_DB,
+                f'batch lambda {r["lmb"]:g}: {r["bpp"]:.4f} bpp / '
+                f'{r["psnr"]:.2f} dB vs {r["ref_bpp"]:.4f} / '
+                f'{r["ref_psnr"]:.2f}')
+    require(result['batch_stream_alone_bitwise'],
+            'a batch stream decoded alone gives other pixels')
+    require(singles_ok, 'single streams decoded as a batch give other pixels')
+    require(split == [3, 3] and chunk_ok, f'chunked request {split}: not '
+                                          f'bit-exact')
+    require(no_sync_same, 'the dispatch-checked batch gave other bytes')
+    for got, want, what in ((enc_l, want_enc, 'compress_batch'),
+                            (dec_l, want_dec, 'decompress_batch')):
+        require(got == want, f'{what}: launches {got}, expected {want}')
+    for got, want, what in ((chunk_enc_l, want_enc, 'chunked compress'),
+                            (chunk_dec_l, want_dec, 'chunked decompress')):
+        require(got == {k: 2 * v for k, v in want.items()},
+                f'{what}: launches {got}, expected twice {want}')
+    launches = {n: enc_l[n] + dec_l[n] for n in enc_l}
+    return result, launches, ('batch stream, photo1 lambda 2048', fresh_path,
+                              dec[3:4])
 
 
 # ---- the portable-trunk kernels --------------------------------------------
@@ -630,40 +1001,38 @@ torch.backends.cudnn.benchmark = True
 import lvae_tpu_torch
 model = lvae_tpu_torch.get_model('qarv_base', pretrained=sys.argv[1])
 model.compress_mode(num_lanes='auto', portable=True)
-np.save(sys.argv[3], model.decompress_file(sys.argv[2]))
+np.savez(sys.argv[2], *[model.decompress_file(p) for p in sys.argv[3:]])
 assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
 assert torch.backends.cuda.matmul.allow_tf32
 print('decoded in a fresh process')
 '''
 
 
-def fresh_process_decode(model, row, tmpdir):
-    """Decode a portable file in a new python3 process with TF32 and
-    cudnn.benchmark on; its pixels must equal this process's encode-side
-    reconstruction bitwise."""
-    from lvae_tpu_torch.utils import coding
-    out = os.path.join(tmpdir, 'fresh.npy')
+def fresh_process_decode(cases, tmpdir):
+    """Decode portable files in a new python3 process with TF32 and
+    cudnn.benchmark on; each file's pixels must equal the ones this process
+    holds for it bitwise. cases: [(label, path, pixels)]."""
+    out = os.path.join(tmpdir, 'fresh.npz')
     t = time.perf_counter()
     res = subprocess.run(
-        [sys.executable, '-c', _FRESH_DECODE, CHECKPOINT, row['path'], out],
+        [sys.executable, '-c', _FRESH_DECODE, CHECKPOINT, out]
+        + [path for _, path, _ in cases],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=600)
     seconds = time.perf_counter() - t
     require(res.returncode == 0,
             f'fresh-process decode failed:\n{res.stderr[-3000:]}')
-    img = coding.read_png(os.path.join(ROOT, row['image']))
-    H, W = img.shape[:2]
-    _, rec_chk = model.compress_check(img.astype(np.float32)[None] / 255.0,
-                                      lmb=row['lmb'], portable=True)
     got = np.load(out)
-    same = bool(np.array_equal(got, rec_chk[:, :H, :W]))
-    progress(f'fresh-process decode of {row["image"]} lambda '
-             f'{row["lmb"]:g}: bitwise equal {same} ({seconds:.1f} s)')
-    require(same, 'a portable stream decoded in a fresh process (TF32 and '
-                  'cudnn.benchmark on) gives other pixels')
-    return dict(image=row['image'], lmb=row['lmb'], bitwise_equal=same,
+    files = []
+    for i, (label, _, want) in enumerate(cases):
+        same = bool(np.array_equal(got[f'arr_{i}'], want))
+        progress(f'fresh-process decode of {label}: bitwise equal {same}')
+        require(same, f'{label} decoded in a fresh process (TF32 and '
+                      f'cudnn.benchmark on) gives other pixels')
+        files.append(dict(file=label, bitwise_equal=same))
+    return dict(files=files, seconds=seconds,
                 flags='cudnn.allow_tf32, cuda.matmul.allow_tf32, '
-                      'cudnn.benchmark all True', seconds=seconds)
+                      'cudnn.benchmark all True')
 
 
 def main():
@@ -697,6 +1066,10 @@ def main():
     lanes_of = {lmb: QarvModel._auto_lanes(lmb) for lmb in LAMBDAS}
     rans = check_kernels(torch, np, table, device,
                          sorted(set(lanes_of.values())))
+    multi = check_multi_kernels(torch, np, table, device,
+                                sorted(set(lanes_of.values())),
+                                (2, SERVING_B))
+    emit({'multi_kernels': multi})
 
     t = time.perf_counter()
     model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
@@ -728,22 +1101,36 @@ def main():
             ('hopper', coding.read_png(HOPPER).astype(np.float32)[None] / 255,
              512.0)])
         emit({'trunk': trunk})
+        batch, batch_launches, fresh_batch = run_batch(torch, model, tmpdir)
+        emit({'batch': batch})
         photo512 = next(r for r in portable if r['lmb'] == 512.0
                         and r['image'] == os.path.relpath(PHOTO, ROOT))
-        emit({'fresh_process': fresh_process_decode(model, photo512,
-                                                    tmpdir)})
+        _, rec512 = model.compress_check(
+            coding.read_png(PHOTO).astype(np.float32)[None] / 255.0,
+            lmb=512.0, portable=True)
+        emit({'fresh_process': fresh_process_decode(
+            [('photo1 file, lambda 512', photo512['path'], rec512),
+             fresh_batch], tmpdir)})
 
-    # one entry per kernel, for one photo1 image at the largest lambda on
-    # the main path (portable files): its launches in that image's
-    # compress_file + decompress_file and the time of those launches
+    # one entry per kernel. The single-image kernels and the trunk's: one
+    # photo1 image at the largest lambda on the file path (portable files),
+    # its launches in that image's compress_file + decompress_file and the
+    # time of those launches. The multi-image kernels: the B = 6 request of
+    # the batch path, its launches in compress_batch + decompress_batch and
+    # the multi-kernel phase's times at B = 6, N = 128.
     main_row = next(r for r in portable if r['lmb'] == main_lmb)
     launches = {n: main_row['encode_launches'][n]
                 + main_row['decode_launches'][n] for n in _NONE}
+    for name in ('rans_encode_all_multi', 'rans_decode_block_multi'):
+        require(launches[name] == 0, f'the file path launched {name}')
+        launches[name] = batch_launches[name]
     require(all(v > 0 for v in launches.values()),
-            f'a kernel was not launched on the main path: {launches}')
+            f'a kernel was not launched on its main path: {launches}')
     rans_sources = {
         'rans_encode_all': 'lvae_tpu/ops/pallas/rans_encode.py:217',
-        'rans_decode_block': 'lvae_tpu/ops/pallas/rans_decode.py:160'}
+        'rans_decode_block': 'lvae_tpu/ops/pallas/rans_decode.py:160',
+        'rans_encode_all_multi': 'lvae_tpu/ops/pallas/rans_encode.py:419',
+        'rans_decode_block_multi': 'lvae_tpu/ops/pallas/rans_decode.py:359'}
     trunk_sources = {
         'emb_mlp': 'lvae_tpu/ops/pallas/trunk.py:122',
         'dw_ln_mod': 'lvae_tpu/ops/pallas/trunk.py:166',
@@ -774,6 +1161,28 @@ def main():
                 f'below)'),
             library_ms=None,
             by_lanes={str(n): r for n, r in by_n.items()}))
+    batch_n = max(lanes_of.values())
+    for name, by_case in multi.items():
+        main_b = by_case[f'N{batch_n}_B{SERVING_B}']
+        entries.append(dict(
+            name=name, route='cuda', source='lvae_tpu_torch/csrc/rans.cu',
+            replaces=rans_sources[name], launches=launches[name],
+            launches_encode=batch['encode_launches'][name],
+            launches_decode=batch['decode_launches'][name],
+            launches_unit=f'one B = {SERVING_B} request (photo1..3 at lambda '
+                          f'776.05 and 2048), compress_batch + '
+                          f'decompress_batch',
+            match=True,
+            max_abs_err=max(r['max_abs_err'] for r in by_case.values()),
+            ms=main_b['ms'], single_launches_ms=main_b['single_launches_ms'],
+            plain_ms=main_b['plain_ms'],
+            bound_ms=main_b['bound_ms'], bound_by=main_b['bound_by'],
+            bound_derivation=(
+                f'max(bytes / 3.35 TB/s, ops / 67 Tops/s) for {SERVING_B} '
+                f'qarv_base 512x768 images at N={batch_n}; the real limit is '
+                f'the serial chain of T dependent rows of one image'),
+            library_ms=None,
+            by_case=by_case))
     for name in TRUNK_NAMES:
         r = trunk[name]
         entries.append(dict(
