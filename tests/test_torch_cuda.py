@@ -179,3 +179,92 @@ def test_portable_qarv_tiny_roundtrip_on_card(card, tmp_path):
                  'prior_head': 2, 'fuse_zproj': 2, 'finish_image': 1}
     for k in trunk.KERNELS:
         assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
+
+
+# ---- the multi-image rANS kernels and batch serving ------------------------
+
+@pytest.mark.parametrize('N', [16, 128])
+def test_multi_kernels_match_plain_and_single_launches(card, N):
+    """Each multi kernel at B = 2 against its plain version and against two
+    single-kernel launches, one launch counted per call."""
+    B = 2
+    table = cdf.build_cdf_table(cdf.default_gaussian_scale_table())
+    cdfs_np, offs_np = rd.prepare_device_cdf(table)
+    cdfs = torch.as_tensor(cdfs_np, device=card)
+    offs = torch.as_tensor(offs_np, device=card)
+    sizes = [300, 7, 129, 5000]
+    rows = [re_.blocks_to_rows(*_blocks(np.random.default_rng(N + b), sizes),
+                               N) for b in range(B)]
+    row_n = torch.as_tensor(rows[0][2], device=card)
+    idx = torch.as_tensor(np.stack([r[1] for r in rows]), device=card)
+    inband, _ = re_.prepare_inband(
+        torch.as_tensor(np.stack([r[0] for r in rows]), device=card), idx,
+        offs_np, table.cdf_lengths)
+    launches = re_.rans_encode_all_multi.launches
+    got = re_.rans_encode_all_multi(inband, idx, row_n, cdfs, num_lanes=N)
+    assert re_.rans_encode_all_multi.launches == launches + 1
+    want = re_.rans_encode_all_multi_plain(inband, idx, row_n, cdfs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pairs, n_words, states = got
+    streams = np.zeros((B, int(n_words.max())), np.int32)
+    for b in range(B):
+        p1, n1, s1 = re_.rans_encode_all(inband[b], idx[b], row_n, cdfs,
+                                         num_lanes=N)
+        assert torch.equal(pairs[b], p1) and torch.equal(n_words[b], n1)
+        assert torch.equal(states[b], s1[0])
+        words = re_.pairs_to_words(p1.cpu().numpy(), int(n1))[::-1]
+        streams[b, :words.size] = words
+    streams = torch.as_tensor(streams, device=card)
+    st_k = st_p = states
+    p_k = p_p = torch.zeros(B, dtype=torch.int32, device=card)
+    st_1 = [states[b:b + 1] for b in range(B)]
+    p_1 = [torch.zeros((), dtype=torch.int32, device=card)] * B
+    r0 = 0
+    for size in sizes:
+        Tb = -(-size // N)
+        blk = idx[:, r0:r0 + Tb].contiguous()
+        launches = rd.rans_decode_block_multi.launches
+        vk, st_k, p_k = rd.rans_decode_block_multi(
+            blk, st_k, p_k, streams, cdfs, offs, size, num_lanes=N)
+        assert rd.rans_decode_block_multi.launches == launches + 1
+        vp, st_p, p_p = rd.rans_decode_block_multi_plain(
+            blk, st_p, p_p, streams, cdfs, offs, size)
+        assert torch.equal(vk, vp) and torch.equal(st_k, st_p)
+        assert torch.equal(p_k, p_p)
+        for b in range(B):
+            v1, st_1[b], p_1[b] = rd.rans_decode_block(
+                blk[b], st_1[b], p_1[b], streams[b], cdfs, offs, size,
+                num_lanes=N)
+            assert torch.equal(vk[b], v1) and torch.equal(st_k[b], st_1[b][0])
+        r0 += Tb
+    assert p_k.tolist() == n_words.tolist()
+
+
+def test_portable_qarv_tiny_batch_roundtrip_on_card(card):
+    """compress_batch / decompress_batch on the card: bit-exact against
+    encode_check_batch and across batch sizes, one multi-image launch per
+    encode and one per latent block on decode, no single-image rANS
+    launch."""
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model('qarv_tiny')
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            if name.endswith('posterior.weight'):
+                p.mul_(300.0)                        # make escapes occur
+    model.compress_mode(num_lanes='auto', portable=True)
+    ims = np.random.default_rng(0).uniform(0, 1, (3, 128, 192, 3))
+    lmbs = [64.0, 512.0, 2048.0]
+    kernels = (re_.rans_encode_all, rd.rans_decode_block,
+               re_.rans_encode_all_multi, rd.rans_decode_block_multi)
+    before = [k.launches for k in kernels]
+    bodies = model.compress_batch(ims, lmb=lmbs)
+    dec = model.decompress_batch(bodies)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 2]
+    lmb_t = torch.tensor(lmbs, device=card)
+    ims_t = torch.as_tensor(ims, dtype=torch.float32, device=card)
+    bodies2, recon = model._fused.encode_check_batch(
+        ims_t.permute(0, 3, 1, 2).contiguous(), lmb_t)
+    assert [b[10:] for b in bodies] == bodies2
+    assert np.array_equal(dec, recon)
+    for b, body in enumerate(bodies):
+        assert np.array_equal(model.decompress(body)[0], dec[b])
