@@ -33,7 +33,8 @@
    lambda's mean rate and PSNR held against the JAX package's recorded
    sweep; a batch stream decoded alone and single streams decoded as a
    batch, bitwise; the request split [3, 3] by max_program_batch=4; the
-   dispatch run under torch.cuda.set_sync_debug_mode('error'); the launches
+   dispatch run under torch.cuda.set_sync_debug_mode('error') on both
+   trunks; the launches
    of each call counted; and bench.py's serving timings (photo1 x 6 at
    lambda 512: per-image latency and the pipelined loop) beside the
    single-image path's;
@@ -682,17 +683,22 @@ def run_batch(torch, model, tmpdir):
                     and np.array_equal(chunk_dec, crecon))
     split = ccodec._chunk_sizes(len(lmbs), ccodec.max_program_batch)
 
-    # 4. dispatch without a host synchronisation, on a device-resident batch
-    model.compress_mode(num_lanes='auto', portable=True)
+    # 4. dispatch without a host synchronisation, on a device-resident
+    # batch, on both trunks (the portable one's bytes are step 1's)
     ims_dev = torch.as_tensor(ims, device=model.device)
-    model.compress_batch(ims_dev, lmb=lmbs)                   # warm caches
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        handle = model.compress_batch_async(ims_dev, lmb=lmbs)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    no_sync_same = model.compress_batch_finish(handle) == bodies
+    no_sync_same = {}
+    for portable in (True, False):
+        model.compress_mode(num_lanes='auto', portable=portable)
+        want = model.compress_batch(ims_dev, lmb=lmbs)        # warm caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            handle = model.compress_batch_async(ims_dev, lmb=lmbs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        no_sync_same['portable' if portable else 'legacy'] = (
+            model.compress_batch_finish(handle) == want
+            and (not portable or want == bodies))
 
     # 5. bench.py's serving timings
     serving = serving_times(torch, model, photos[0])
@@ -708,7 +714,8 @@ def run_batch(torch, model, tmpdir):
         chunks=split, chunked_bit_exact=chunk_ok,
         chunked_encode_launches=chunk_enc_l,
         chunked_decode_launches=chunk_dec_l,
-        dispatch_without_host_sync=True, dispatch_same_bytes=no_sync_same,
+        dispatch_without_host_sync=['portable', 'legacy'],
+        dispatch_same_bytes=no_sync_same,
         serving=serving)
     progress(f'batch B=6: bit_exact={bit_exact} alone={result["batch_stream_alone_bitwise"]} '
              f'singles={singles_ok} chunks={split} chunked={chunk_ok} '
@@ -726,7 +733,8 @@ def run_batch(torch, model, tmpdir):
     require(singles_ok, 'single streams decoded as a batch give other pixels')
     require(split == [3, 3] and chunk_ok, f'chunked request {split}: not '
                                           f'bit-exact')
-    require(no_sync_same, 'the dispatch-checked batch gave other bytes')
+    require(all(no_sync_same.values()),
+            f'the dispatch-checked batch gave other bytes: {no_sync_same}')
     for got, want, what in ((enc_l, want_enc, 'compress_batch'),
                             (dec_l, want_dec, 'decompress_batch')):
         require(got == want, f'{what}: launches {got}, expected {want}')

@@ -12,8 +12,9 @@ def build_indexes(scales, scale_table):
     """Per-element scale-table index (int32): the smallest index whose table
     entry is >= scale, as the count of f32 table entries strictly below the
     scale, capped at the last entry. A sum of broadcast compares, exactly as
-    the JAX package computes it."""
-    st = torch.as_tensor(np.asarray(scale_table, np.float32),
+    the JAX package computes it. scale_table: numpy, or a float32 tensor
+    (on the scales' device, it is used without a copy)."""
+    st = torch.as_tensor(scale_table, dtype=torch.float32,
                          device=scales.device)
     scales = torch.maximum(scales.to(torch.float32), st[0])
     idx = (st < scales[..., None]).sum(-1, dtype=torch.int32)

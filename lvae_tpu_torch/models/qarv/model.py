@@ -45,6 +45,11 @@ class VRLVBlockBase(nn.Module):
         self.posterior = common.conv_k3s1(w, zdim)
         self.z_proj = common.conv_k1s1(zdim, w)
         self.prior = common.conv_k1s1(w, zdim * 2)
+        # kept on the module's device, so that the scale-index lookup copies
+        # nothing from the host (no synchronisation in a batch dispatch)
+        self.register_buffer('scale_table', torch.as_tensor(
+            cdf_ops.default_gaussian_scale_table(), dtype=torch.float32),
+            persistent=False)
 
     def _posterior_branches(self, enc_width, ed, ks, mr):
         B = common.ConvNeXtBlockAdaLN
@@ -57,7 +62,7 @@ class VRLVBlockBase(nn.Module):
         feature = self.resnet_front(feature, emb)
         pm, plogv = self.prior(feature).float().chunk(2, dim=1)
         pv = torch.exp(softplus(plogv + 2.3) - 2.3)
-        indexes = ec.build_indexes(pv, cdf_ops.default_gaussian_scale_table())
+        indexes = ec.build_indexes(pv, self.scale_table)
         return feature, pm, pv, indexes
 
     def posterior_qm(self, feature, enc_feature, emb):
