@@ -192,12 +192,17 @@ def test_multi_wrappers_take_plain_path_on_cpu(table):
     wrong lane counts are refused."""
     before = (tre.rans_encode_all_multi.launches,
               trd.rans_decode_block_multi.launches)
-    _streams(table, 2, 16, seed=4)
-    _, syms, idx, row_n = _blocks(2, 16, seed=4)
+    _, idx, streams, states, _ = _streams(table, 2, 16, seed=4)
+    _, syms, _, row_n = _blocks(2, 16, seed=4)
     cdfs, offs = _cdfs(table)
-    tre.rans_encode_all_multi(_inband(table, syms, idx),
-                              torch.from_numpy(idx), row_n, cdfs,
+    idx_t = torch.from_numpy(idx)
+    tre.rans_encode_all_multi(_inband(table, syms, idx), idx_t, row_n, cdfs,
                               num_lanes=16)
+    T = -(-_SIZES[0] // 16)
+    trd.rans_decode_block_multi(idx_t[:, :T].contiguous(), states,
+                                torch.zeros(2, dtype=torch.int32),
+                                torch.from_numpy(streams), cdfs, offs,
+                                _SIZES[0], num_lanes=16)
     assert (tre.rans_encode_all_multi.launches,
             trd.rans_decode_block_multi.launches) == before
     x = torch.zeros((2, 3, 16), dtype=torch.int32, device='meta')
