@@ -42,19 +42,34 @@
    of each call counted; and bench.py's serving timings (photo1 x 6 at
    lambda 512: per-image latency and the pipelined loop) beside the
    single-image path's;
-7. decodes photo1's portable file, and one batch stream as a file, in a
+7. runs qres34m at full width (random weights from a seeded generator,
+   each prior's last conv re-drawn, N = 128, esc_cap 1 << 18) on photo1 on
+   the portable trunk: compress_file / decompress_file and compress /
+   decompress bitwise against compress_check's reconstruction, with every
+   call's launches checked against the block list; a legacy-trunk round
+   trip; a B = 2 request (photo1, photo2) bitwise against
+   encode_check_batch, each batch stream alone and single streams as a
+   batch; the six QRes kernels, and the four kernels it shares with qarv,
+   held against their plain versions at every shape of one encode and
+   decode (B = 1 against B = 2 bitwise, CUDA-graph, plain and library
+   times); bench.py's qres34m enc_ms / dec_ms on both trunks; then, with
+   one channel of the last latent block's posterior scaled x3000 so that
+   escapes occur, a portable, a legacy and a B = 2 round trip bitwise;
+8. decodes photo1's qarv portable file, one qarv batch stream as a file and
+   the qres34m file (its weights saved to the temporary directory) in a
    fresh python3 process with TF32 and cudnn.benchmark on, and checks the
    pixels bitwise.
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-codec, trunk, batch, fresh_process), the card line of nvidia-smi, the
-kernels line, then the result line.
+codec, trunk, batch, qres, qres_trunk, fresh_process), the card line of
+nvidia-smi, the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
 import json
 import math
 import os
+import pickle
 import struct
 import subprocess
 import sys
@@ -88,8 +103,15 @@ BPP_REL_TOL, PSNR_TOL_DB = 0.02, 0.2
 # 24 dw_ln_mod + 24 mlp_res, 3 upsample convs, 9 priors and fuses: 70
 # trunk launches) and the rANS encode; decode adds the tail (9 ConvNeXt
 # blocks, 2 upsample convs, the finish: 91) and decodes 9 latent blocks
-TRUNK_NAMES = ('emb_mlp', 'dw_ln_mod', 'mlp_res', 'dense', 'prior_head',
-               'fuse_zproj', 'finish_image')
+QARV_TRUNK = ('emb_mlp', 'dw_ln_mod', 'mlp_res', 'dense', 'prior_head',
+              'fuse_zproj', 'finish_image')
+# the QRes-VAE trunk's own kernels (it also runs mlp_res, dense, prior_head
+# and finish_image)
+QRES_TRUNK = ('dw_ln_affine', 'dense_act', 'conv_kxk_act', 'zadd_dense',
+              'zadd', 'res_dense_act')
+TRUNK_NAMES = QARV_TRUNK + QRES_TRUNK
+QRES_PATH_TRUNK = QRES_TRUNK + ('mlp_res', 'dense', 'prior_head',
+                                'finish_image')
 RANS_NAMES = ('rans_encode_all', 'rans_decode_block',
               'rans_encode_all_multi', 'rans_decode_block_multi')
 _NONE = dict.fromkeys(RANS_NAMES + TRUNK_NAMES, 0)
@@ -100,6 +122,22 @@ EXPECTED_LAUNCHES = {
            dict(_NONE, rans_decode_block=9, emb_mlp=1, dw_ln_mod=33,
                 mlp_res=33, dense=5, prior_head=9, fuse_zproj=9,
                 finish_image=1))}
+# qres34m (lvae_tpu/models/qresvae/zoo.py:37-92) on the portable trunk, per
+# 512x768 image: 12 latent blocks (one at kernel size 1, eleven at 3/5/7),
+# each 2 plain ConvNeXt blocks (dw_ln_affine + mlp_res), a prior (dense_act,
+# then two 3x3 conv_kxk_act or at size 1 two more dense_act, then
+# prior_head) and a fuse (zadd + 3x3 conv_kxk_act, or zadd_dense; then
+# res_dense_act); 4 upsample convs between the stages, and on decode the
+# tail's upsample conv and the finish
+_QRES = dict(_NONE, dw_ln_affine=24, mlp_res=24, dense_act=14,
+             conv_kxk_act=33, prior_head=12, zadd=11, zadd_dense=1,
+             res_dense_act=12, dense=4)
+EXPECTED_QRES_LAUNCHES = (
+    dict(_QRES, rans_encode_all=1),
+    dict(_QRES, rans_decode_block=12, dense=5, finish_image=1))
+QRES_SEED = 0
+QRES_LANES, QRES_ESC_CAP = 128, 1 << 18     # bench.py:511-518: random init
+QRES_PHOTOS = PHOTOS[:2]                     # the B = 2 batch
 # a batch chunk launches the portable trunk's kernels as often as one image
 # does (on (B, ...) tensors), and the multi-image rANS kernels in place of
 # the single-image ones: 1 encode launch and 9 decode launches
@@ -776,8 +814,8 @@ def run_batch(torch, model, tmpdir):
         require(got == {k: 2 * v for k, v in want.items()},
                 f'{what}: launches {got}, expected twice {want}')
     launches = {n: enc_l[n] + dec_l[n] for n in enc_l}
-    return result, launches, ('batch stream, photo1 lambda 2048', fresh_path,
-                              dec[3:4])
+    return result, launches, ('batch stream, photo1 lambda 2048', 'qarv',
+                              fresh_path, dec[3:4])
 
 
 # ---- the portable-trunk kernels --------------------------------------------
@@ -786,7 +824,10 @@ def run_batch(torch, model, tmpdir):
 # batch of two can be built from a main-path input and a second image
 PER_IMAGE_ARGS = {'emb_mlp': (0,), 'dw_ln_mod': (0, 5), 'mlp_res': (0, 6),
                   'dense': (0,), 'prior_head': (0,), 'fuse_zproj': (0, 1, 2),
-                  'finish_image': (0,)}
+                  'finish_image': (0,), 'dw_ln_affine': (0,),
+                  'dense_act': (0,), 'conv_kxk_act': (0,),
+                  'zadd_dense': (0, 1), 'zadd': (0, 1),
+                  'res_dense_act': (0, 1)}
 
 
 def _signature(args):
@@ -794,14 +835,14 @@ def _signature(args):
                  else a for a in args)
 
 
-def capture_trunk_inputs(encode, decode):
-    """Run encode() and decode(encode()) with every trunk wrapper wrapped by
-    a recorder: -> ({name: {signature: cloned args}}, {name: {signature:
-    (encode calls, decode calls)}})."""
+def capture_trunk_inputs(encode, decode, names=QARV_TRUNK):
+    """Run encode() and decode(encode()) with the trunk wrappers of `names`
+    wrapped by a recorder: -> ({name: {signature: cloned args}}, {name:
+    {signature: (encode calls, decode calls)}})."""
     from lvae_tpu_torch.ops import trunk
-    inputs = {n: {} for n in TRUNK_NAMES}
-    calls = {n: {} for n in TRUNK_NAMES}
-    originals = {n: getattr(trunk, n) for n in TRUNK_NAMES}
+    inputs = {n: {} for n in names}
+    calls = {n: {} for n in names}
+    originals = {n: getattr(trunk, n) for n in names}
     phase = {'i': 0}
 
     def recorder(name, fn):
@@ -879,7 +920,7 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
     in its one-chunk mode. -> {kernel: summary}."""
     from lvae_tpu_torch.models.fused_base import FusedCodecBase
     torch.backends.cuda.matmul.allow_tf32 = False   # exact plain products
-    inputs = {n: {} for n in TRUNK_NAMES}
+    inputs = {n: {} for n in QARV_TRUNK}
     want = sorted({len(lmbs), *FusedCodecBase._chunk_sizes(len(lmbs), 4)})
     for cap in (4, None):
         model.compress_mode(num_lanes='auto', portable=True,
@@ -887,11 +928,11 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
         more, _ = capture_trunk_inputs(
             lambda: model.compress_batch(ims, lmb=lmbs),
             model.decompress_batch)
-        for name in TRUNK_NAMES:
+        for name in QARV_TRUNK:
             for sig, args in more[name].items():
                 inputs[name].setdefault(sig, args)
     out = {}
-    for name in TRUNK_NAMES:
+    for name in QARV_TRUNK:
         rows = []
         for sig, args in inputs[name].items():
             _, err, worst, flips, flips_ok = compare_trunk_kernel(
@@ -971,7 +1012,71 @@ def work(name, args):
     if name == 'finish_image':
         x, = args
         return 4 * 2 * n(x), 4 * n(x)
+    if name == 'dw_ln_affine':
+        x, dwk, dwb, scale, bias, K = args
+        return (4 * (2 * n(x) + n(dwk) + n(dwb) + n(scale) + n(bias)),
+                n(x) * (2 * K * K + 8))
+    if name == 'dense_act':
+        x, w, b = args[:3]
+        act = args[3] if len(args) > 3 else True
+        M = x.shape[0] * x.shape[1]
+        return (4 * (n(x) + M * w.shape[1] + n(w) + n(b)),
+                2 * M * n(w) + GELU_OPS * n(x) * act)
+    if name == 'conv_kxk_act':
+        x, wk, b = args[:3]
+        act = args[3] if len(args) > 3 else True
+        M = x.shape[0] * x.shape[1] * x.shape[2]
+        return (4 * (n(x) + M * wk.shape[-1] + n(wk) + n(b)),
+                2 * M * n(wk) + GELU_OPS * n(x) * act)
+    if name == 'zadd_dense':
+        syms, pm, w, b = args
+        M = syms.shape[0] * syms.shape[1]
+        return (4 * (n(syms) + n(pm) + M * w.shape[1] + n(w) + n(b)),
+                2 * M * n(w) + n(pm))
+    if name == 'zadd':
+        syms, pm = args
+        return 4 * 3 * n(pm), n(pm)
+    if name == 'res_dense_act':
+        f, t, w, b = args
+        M = f.shape[0] * f.shape[1]
+        return (4 * (2 * n(f) + n(t) + n(w) + n(b)),
+                2 * M * n(w) + GELU_OPS * n(t) + 2 * n(f))
     raise KeyError(name)
+
+
+LIBRARY_CALLS = {
+    'dense': 'torch.addmm(b, x, w), TF32 off',
+    'conv_kxk_act': 'F.conv2d (cuDNN, TF32 off) on the launches without '
+                    'GELU (z_proj_0); none computes the GELU-first conv',
+    'zadd': 'torch.add(syms, pm) (int32 + float32 promotes to float32)'}
+
+
+# operations of one GELU (the A&S erf polynomial: |x|, the reciprocal, ten
+# multiply-adds, the exponential's argument and the outer 0.5 * x * (1 + .))
+GELU_OPS = 20
+
+
+def library_call(torch, name, args):
+    """One PyTorch call computing the same function on the same inputs,
+    where there is one: torch.addmm for dense (and dense_act without its
+    GELU), F.conv2d for conv_kxk_act without its GELU (NHWC views, weight
+    in torch's layout prepared outside the call), torch.add for zadd; else
+    None."""
+    import torch.nn.functional as F
+    if name == 'dense' or (name == 'dense_act' and len(args) > 3
+                           and not args[3]):
+        x, w, b = args[:3]
+        x2 = x.reshape(-1, x.shape[-1])
+        return lambda: torch.addmm(b, x2, w)
+    if name == 'conv_kxk_act' and len(args) > 3 and not args[3]:
+        x, wk, b = args[:3]
+        xc = x.permute(0, 3, 1, 2)
+        wc = wk.permute(3, 2, 0, 1).contiguous()
+        return lambda: F.conv2d(xc, wc, b, padding=(wk.shape[0] - 1) // 2)
+    if name == 'zadd':
+        syms, pm = args
+        return lambda: torch.add(syms, pm)
+    return None
 
 
 def per_call_ms(torch, fn, inner, repeats=5):
@@ -1000,25 +1105,22 @@ def graph_ms(torch, fn, inner, repeats=5):
     return cuda_ms(torch, graph.replay, repeats) / inner
 
 
-def check_trunk_kernels(torch, model, cases):
-    """Each trunk kernel against its plain version on the card at every
-    main-path shape, the B=1 vs B=2 bitwise check, and the times. The
-    inputs are captured from one encode + decode of each (label, image,
-    lambda) of `cases`; the per-image launch and time sums count the first
-    case's calls, the others add the shapes it lacks."""
+def check_trunk_kernels(torch, names, cases):
+    """Each trunk kernel of `names` against its plain version on the card at
+    every main-path shape, the B=1 vs B=2 bitwise check, and the times. The
+    inputs are captured from one encode + decode of each (label, encode,
+    decode) of `cases` (decode takes what encode returns); the per-image
+    launch and time sums count the first case's calls, the others add the
+    shapes it lacks. Library times (one PyTorch call computing the same
+    function, TF32 off) are summed over the launches that have one."""
     from lvae_tpu_torch.ops import trunk
 
-    def capture(im, lmb):
-        return capture_trunk_inputs(
-            lambda: model.compress(im, lmb=lmb, portable=True),
-            model.decompress)
-
-    label, im, lmb = cases[0]
-    inputs, calls = capture(im, lmb)
-    seen_in = {n: dict.fromkeys(inputs[n], label) for n in TRUNK_NAMES}
-    for label, im, lmb in cases[1:]:
-        more, _ = capture(im, lmb)
-        for name in TRUNK_NAMES:
+    label, encode, decode = cases[0]
+    inputs, calls = capture_trunk_inputs(encode, decode, names)
+    seen_in = {n: dict.fromkeys(inputs[n], label) for n in names}
+    for label, encode, decode in cases[1:]:
+        more, _ = capture_trunk_inputs(encode, decode, names)
+        for name in names:
             for sig, args in more[name].items():
                 if sig not in inputs[name]:
                     inputs[name][sig] = args
@@ -1026,7 +1128,7 @@ def check_trunk_kernels(torch, model, cases):
                     seen_in[name][sig] = label
     torch.backends.cuda.matmul.allow_tf32 = False   # exact plain products
     results = {}
-    for name in TRUNK_NAMES:
+    for name in names:
         fn = getattr(trunk, name)
         plain = trunk.PLAIN[fn]
         shapes = []
@@ -1047,16 +1149,17 @@ def check_trunk_kernels(torch, model, cases):
             plain_ms = graph_ms(torch, lambda: plain(*args),
                                 TRUNK_PLAIN_INNER, repeats=3)
             library_ms = None
-            if name == 'dense':
-                x, w, b = args
-                x2 = x.reshape(-1, x.shape[-1])
-                library_ms = graph_ms(torch, lambda: torch.addmm(b, x2, w),
-                                      TRUNK_INNER)
+            lib = library_call(torch, name, args)
+            if lib is not None:
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=False):
+                    library_ms = graph_ms(torch, lib, TRUNK_INNER)
             nbytes, ops = work(name, args)
             shapes.append(dict(
                 shapes=[list(s[0]) if isinstance(s, tuple) else s
                         for s in sig],
-                image=seen_in[name][sig], encode_calls=n_enc, decode_calls=n_dec, max_abs_err=err,
+                image=seen_in[name][sig], encode_calls=n_enc,
+                decode_calls=n_dec, max_abs_err=err,
                 err_over_tolerance=worst, index_flips=flips,
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
@@ -1068,6 +1171,7 @@ def check_trunk_kernels(torch, model, cases):
                      f'{batch_ok} {ms * 1e3:.1f} us, eager '
                      f'{eager_ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} '
                      f'us)')
+        require(shapes, f'{name}: no call captured on its path')
         for r in shapes:
             what = f'{name} at {r["shapes"]}'
             require_trunk_match(f'{what} (max abs err '
@@ -1077,29 +1181,220 @@ def check_trunk_kernels(torch, model, cases):
             require(r['batch_independent'],
                     f'{what}: batch of two changes the first image\'s bits')
 
-        def per_image(key, enc=1, dec=1):
+        def per_image(key, enc=1, dec=1, rows=shapes):
             """key summed over one image's launches (encode, decode)."""
             return sum(r[key] * (enc * r['encode_calls']
-                                 + dec * r['decode_calls']) for r in shapes)
+                                 + dec * r['decode_calls']) for r in rows)
 
         nbytes, ops = per_image('bytes'), per_image('ops')
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+        lib_rows = [r for r in shapes if r['library_ms'] is not None]
         results[name] = dict(
             ms=per_image('ms'), encode_ms=per_image('ms', dec=0),
             decode_ms=per_image('ms', enc=0), plain_ms=per_image('plain_ms'),
             eager_ms=per_image('eager_ms'),
-            library_ms=(per_image('library_ms') if name == 'dense'
-                        else None),
+            # the library's time and the kernel's over the same launches
+            library_ms=per_image('library_ms', rows=lib_rows)
+            if lib_rows else None,
+            library_launches=sum(r['encode_calls'] + r['decode_calls']
+                                 for r in lib_rows),
+            kernel_ms_where_library=per_image('ms', rows=lib_rows)
+            if lib_rows else None,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
             max_abs_err=max(r['max_abs_err'] for r in shapes),
+            err_over_tolerance=max(r['err_over_tolerance'] for r in shapes),
             index_flips=sum(r['index_flips'] for r in shapes),
             by_shape=shapes)
     return results
 
 
+# ---- QRes-VAE (qres34m) ----------------------------------------------------
+
+def build_qres34m(torch):
+    """qres34m at full width on the card, its weights drawn as the JAX
+    package's flax init draws them (lecun-normal kernels, zero biases) from
+    a seeded generator; then each latent block's prior.c4 re-drawn at the
+    same scale: flax zero-initialises it, and with it the prior would give
+    pm = 0 and one scale index everywhere, so that its check would prove
+    nothing. No trained QRes checkpoint exists (bench.py:507-510)."""
+    import lvae_tpu_torch
+    from lvae_tpu_torch.models import common
+    model = lvae_tpu_torch.get_model('qres34m')
+    g = torch.Generator().manual_seed(QRES_SEED)
+    common.flax_init_(model.net, g)
+    for blk in model.net.dec_blocks:
+        if getattr(blk, 'is_latent_block', False):
+            common.lecun_normal_(blk.prior.c4.weight, g)
+    return model
+
+
+def run_qres(torch, tmpdir):
+    """The QRes-VAE phase (module docstring, 7). -> (result dict, {kernel:
+    launches of the photo1 file's compress_file + decompress_file}, kernel
+    check results, fresh-process case, path of the saved weights)."""
+    from lvae_tpu_torch.utils import coding
+    t = time.perf_counter()
+    model = build_qres34m(torch)
+    load_s = time.perf_counter() - t
+    state = os.path.join(tmpdir, 'qres34m_state.pt')
+    torch.save(model.net.state_dict(), state)
+    progress(f'qres34m built ({model.num_params()} params) in '
+             f'{load_s:.1f} s')
+    u8 = np.stack([coding.read_png(p) for p in QRES_PHOTOS])
+    ims = u8.astype(np.float32) / 255.0
+    im = ims[:1]
+    H, W = u8.shape[1:3]
+    cfg = dict(num_lanes=QRES_LANES, esc_cap=QRES_ESC_CAP)
+    model.compress_mode(portable=True, **cfg)
+
+    # 1. the file path (portable), the launches of each call; compress ->
+    # decompress, the file and compress_check's reconstruction, bitwise
+    path = os.path.join(tmpdir, 'photo1.qres34m.bits')
+    _, enc_l = counted_call(lambda: model.compress_file(QRES_PHOTOS[0],
+                                                         path))
+    rec, dec_l = counted_call(lambda: model.decompress_file(path))
+    obj_chk, recon = model.compress_check(im)
+    obj, c_enc_l = counted_call(lambda: model.compress(im))
+    dec, c_dec_l = counted_call(lambda: model.decompress(obj))
+    with open(path, 'rb') as f:
+        file_body = pickle.loads(f.read())[0]
+    bit_exact = bool(obj == obj_chk and file_body == obj[0]
+                     and np.array_equal(dec, recon)
+                     and np.array_equal(rec, recon))
+    n_words, n_esc, lanes_field = struct.unpack('<IIH', obj[0][:10])
+    psnr, bpp = psnr_bpp(rec, im, os.path.getsize(path))
+    progress(f'qres34m photo1 portable: {bpp:.4f} bpp {psnr:.2f} dB, '
+             f'{n_esc} escapes, {n_words} words, bit_exact={bit_exact}')
+
+    # 2. the legacy trunk
+    model.compress_mode(portable=False, **cfg)
+    lobj, lrecon = model.compress_check(im)
+    legacy_field = struct.unpack('<H', lobj[0][8:10])[0]
+    legacy_ok = bool(np.array_equal(model.decompress(lobj), lrecon)
+                     and legacy_field == QRES_LANES)
+
+    # 3. a B = 2 request (photo1, photo2): the batch decode against
+    # encode_check_batch, each batch stream alone, single streams as a batch
+    model.compress_mode(portable=True, **cfg)
+    objs, b_enc_l = counted_call(lambda: model.compress_batch(ims))
+    bdec, b_dec_l = counted_call(lambda: model.decompress_batch(objs))
+    ims_t = torch.as_tensor(ims, device=model.device).permute(0, 3, 1, 2)
+    bodies, brecon = model._fused.encode_check_batch(ims_t.contiguous())
+    batch_ok = bool([o[0] for o in objs] == bodies
+                    and np.array_equal(bdec, brecon))
+    alone_ok = all(bool(np.array_equal(model.decompress(o)[0], bdec[b]))
+                   for b, o in enumerate(objs))
+    singles = [obj, model.compress(ims[1:2])]
+    singles_ok = bool(np.array_equal(
+        model.decompress_batch(singles),
+        np.concatenate([model.decompress(o) for o in singles])))
+
+    # 4. every trunk kernel of the path (the six QRes kernels and the four
+    # it shares with qarv) against its plain version at every shape of one
+    # photo1 encode + decode, B = 1 against B = 2; the trunk's device time
+    kernels = check_trunk_kernels(torch, QRES_PATH_TRUNK, [
+        ('photo1', lambda: model.compress(im), model.decompress)])
+    trunk_ms = {d: sum(r[f'{d}_ms'] for r in kernels.values())
+                for d in ('encode', 'decode')}
+
+    # 5. bench.py's qres34m workload (bench.py:511-539): enc_ms from a
+    # device-resident image to the bytes on the host, dec_ms to the image
+    # on the device, synchronised; median of 5 after a warm-up; both trunks
+    im_dev = torch.as_tensor(im, device=model.device)
+    times = {}
+    for portable in (True, False):
+        model.compress_mode(portable=portable, **cfg)
+        enc_ms, o = _host_ms(torch, lambda: model.compress(im_dev), 5)
+        _, fH, fW, _ = o[1]
+        dec_ms, _ = _host_ms(torch, lambda: model.decompress_to_device(
+            o[0], fH, fW), 5)
+        times['portable' if portable else 'legacy'] = dict(
+            enc_ms=enc_ms, dec_ms=dec_ms)
+    model.compress_mode(portable=True, **cfg)
+    progress(f'qres34m times: {times}')
+
+    # 6. escapes: random posteriors at flax scale give none at this width,
+    # so channel 0 of the last latent block's posterior is scaled x3000 (at
+    # most one escape per pixel of its 128x192 grid, far under esc_cap);
+    # the escape compaction and patch_escapes run on both trunks and in a
+    # batch. Last, as it changes the weights (restored after)
+    c4 = [b for b in model.net.dec_blocks
+          if getattr(b, 'is_latent_block', False)][-1].posterior.c4
+    kept = c4.weight.detach().clone()
+    with torch.no_grad():
+        c4.weight[0].mul_(3000.0)
+    esc = {}
+    for portable in (True, False):
+        model.compress_mode(portable=portable, **cfg)
+        eobj, erecon = model.compress_check(im)
+        esc['portable' if portable else 'legacy'] = dict(
+            escapes=struct.unpack('<IIH', eobj[0][:10])[1],
+            bit_exact=bool(np.array_equal(model.decompress(eobj), erecon)))
+    model.compress_mode(portable=True, **cfg)
+    eobjs = model.compress_batch(ims)
+    ebodies, ebrecon = model._fused.encode_check_batch(ims_t.contiguous())
+    ebdec = model.decompress_batch(eobjs)
+    esc['batch'] = dict(
+        escapes=[struct.unpack('<IIH', o[0][:10])[1] for o in eobjs],
+        bit_exact=bool([o[0] for o in eobjs] == ebodies
+                       and np.array_equal(ebdec, ebrecon)
+                       and all(np.array_equal(model.decompress(o)[0],
+                                              ebdec[b])
+                               for b, o in enumerate(eobjs))))
+    with torch.no_grad():
+        c4.weight.copy_(kept)
+    progress(f'qres34m with escapes: {esc}')
+
+    want_enc, want_dec = EXPECTED_QRES_LAUNCHES
+    want_benc = dict(want_enc, rans_encode_all=0, rans_encode_all_multi=1)
+    want_bdec = dict(want_dec, rans_decode_block=0,
+                     rans_decode_block_multi=want_dec['rans_decode_block'])
+    result = dict(
+        model='qres34m',
+        weights=f'random, flax-style init, seed {QRES_SEED}, prior.c4 '
+                'redrawn', params=model.num_params(), load_s=load_s,
+        image=os.path.relpath(QRES_PHOTOS[0], ROOT), lanes=QRES_LANES,
+        esc_cap=QRES_ESC_CAP, portable_marker=bool(lanes_field & 0x8000),
+        bytes=os.path.getsize(path), bpp=bpp, psnr=psnr, escapes=n_esc,
+        n_words=n_words, finite=bool(np.isfinite(rec).all()),
+        shape=list(rec.shape), bit_exact=bit_exact,
+        legacy_bit_exact=legacy_ok, batch_images=[
+            os.path.relpath(p, ROOT) for p in QRES_PHOTOS],
+        batch_bit_exact=batch_ok, batch_stream_alone_bitwise=alone_ok,
+        single_streams_as_batch_bitwise=singles_ok,
+        file_encode_launches=enc_l, file_decode_launches=dec_l,
+        compress_launches=c_enc_l, decompress_launches=c_dec_l,
+        batch_encode_launches=b_enc_l, batch_decode_launches=b_dec_l,
+        times=times, trunk_device_ms=trunk_ms, scaled_posterior=esc)
+    require(result['finite'] and rec.shape == (1, H, W, 3),
+            'qres34m: bad reconstruction')
+    require(result['portable_marker'], 'qres34m: file without the marker')
+    require(bit_exact, 'qres34m: portable decode is not bit-exact')
+    require(legacy_ok, 'qres34m: legacy decode is not bit-exact')
+    require(batch_ok, 'qres34m: batch decode is not bit-exact')
+    require(alone_ok, 'qres34m: a batch stream decoded alone differs')
+    require(singles_ok, 'qres34m: single streams decoded as a batch differ')
+    for what, r in esc.items():
+        require(r['bit_exact'], f'qres34m {what} with escapes: not bit-exact')
+        require(min(np.atleast_1d(r['escapes'])) > 0,
+                f'qres34m {what}: the scaled posterior gave no escape')
+    for got, want, what in ((enc_l, want_enc, 'compress_file'),
+                            (dec_l, want_dec, 'decompress_file'),
+                            (c_enc_l, want_enc, 'compress'),
+                            (c_dec_l, want_dec, 'decompress'),
+                            (b_enc_l, want_benc, 'compress_batch'),
+                            (b_dec_l, want_bdec, 'decompress_batch')):
+        require(got == want, f'qres34m {what}: launches {got}, expected '
+                             f'{want}')
+    launches = {n: enc_l[n] + dec_l[n] for n in enc_l}
+    return (result, launches, kernels,
+            ('qres34m photo1 file', 'qres', path, recon), state)
+
+
 _FRESH_DECODE = r'''
+import json
 import sys
 import numpy as np
 import torch
@@ -1109,24 +1404,39 @@ torch.backends.cudnn.allow_tf32 = True
 torch.backends.cuda.matmul.allow_tf32 = True
 torch.backends.cudnn.benchmark = True
 import lvae_tpu_torch
-model = lvae_tpu_torch.get_model('qarv_base', pretrained=sys.argv[1])
-model.compress_mode(num_lanes='auto', portable=True)
-np.savez(sys.argv[2], *[model.decompress_file(p) for p in sys.argv[3:]])
+spec = json.loads(sys.argv[1])
+models = {}
+if any(kind == 'qarv' for kind, _ in spec['files']):
+    models['qarv'] = lvae_tpu_torch.get_model('qarv_base',
+                                              pretrained=spec['checkpoint'])
+    models['qarv'].compress_mode(num_lanes='auto', portable=True)
+if any(kind == 'qres' for kind, _ in spec['files']):
+    # random weights: the writing process saved them
+    models['qres'] = lvae_tpu_torch.get_model('qres34m')
+    models['qres'].net.load_state_dict(torch.load(
+        spec['qres_state'], map_location='cuda', weights_only=True))
+    models['qres'].compress_mode(num_lanes=spec['qres_lanes'],
+                                 portable=True)
+np.savez(spec['out'], *[models[kind].decompress_file(path)
+                        for kind, path in spec['files']])
 assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
 assert torch.backends.cuda.matmul.allow_tf32
 print('decoded in a fresh process')
 '''
 
 
-def fresh_process_decode(cases, tmpdir):
+def fresh_process_decode(cases, tmpdir, qres_state):
     """Decode portable files in a new python3 process with TF32 and
     cudnn.benchmark on; each file's pixels must equal the ones this process
-    holds for it bitwise. cases: [(label, path, pixels)]."""
+    holds for it bitwise. cases: [(label, model kind 'qarv' or 'qres', path,
+    pixels)]; qres_state: the saved qres34m weights."""
     out = os.path.join(tmpdir, 'fresh.npz')
+    spec = dict(checkpoint=CHECKPOINT, qres_state=qres_state,
+                qres_lanes=QRES_LANES, out=out,
+                files=[(kind, path) for _, kind, path, _ in cases])
     t = time.perf_counter()
     res = subprocess.run(
-        [sys.executable, '-c', _FRESH_DECODE, CHECKPOINT, out]
-        + [path for _, path, _ in cases],
+        [sys.executable, '-c', _FRESH_DECODE, json.dumps(spec)],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=600)
     seconds = time.perf_counter() - t
@@ -1134,7 +1444,7 @@ def fresh_process_decode(cases, tmpdir):
             f'fresh-process decode failed:\n{res.stderr[-3000:]}')
     got = np.load(out)
     files = []
-    for i, (label, _, want) in enumerate(cases):
+    for i, (label, _, _, want) in enumerate(cases):
         same = bool(np.array_equal(got[f'arr_{i}'], want))
         progress(f'fresh-process decode of {label}: bitwise equal {same}')
         require(same, f'{label} decoded in a fresh process (TF32 and '
@@ -1204,11 +1514,15 @@ def main():
                                       if k != 'path'}
                                      for r in legacy + portable])})
         main_lmb = max(LAMBDAS)
-        trunk = check_trunk_kernels(torch, model, [
-            ('photo1', coding.read_png(PHOTO).astype(np.float32)[None] / 255,
-             main_lmb),
-            ('hopper', coding.read_png(HOPPER).astype(np.float32)[None] / 255,
-             512.0)])
+
+        def capture(path, lmb):
+            im = coding.read_png(path).astype(np.float32)[None] / 255
+            return (lambda: model.compress(im, lmb=lmb, portable=True),
+                    model.decompress)
+
+        trunk = check_trunk_kernels(torch, QARV_TRUNK, [
+            ('photo1', *capture(PHOTO, main_lmb)),
+            ('hopper', *capture(HOPPER, 512.0))])
         emit({'trunk': trunk})
         batch, batch_launches, fresh_batch = run_batch(torch, model, tmpdir)
         emit({'batch': batch})
@@ -1217,9 +1531,13 @@ def main():
         _, rec512 = model.compress_check(
             coding.read_png(PHOTO).astype(np.float32)[None] / 255.0,
             lmb=512.0, portable=True)
+        qres, qres_launches, qres_kernels, fresh_qres, qres_state = \
+            run_qres(torch, tmpdir)
+        emit({'qres': qres})
+        emit({'qres_trunk': qres_kernels})
         emit({'fresh_process': fresh_process_decode(
-            [('photo1 file, lambda 512', photo512['path'], rec512),
-             fresh_batch], tmpdir)})
+            [('photo1 file, lambda 512', 'qarv', photo512['path'], rec512),
+             fresh_batch, fresh_qres], tmpdir, qres_state)})
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),
@@ -1233,6 +1551,9 @@ def main():
     for name in ('rans_encode_all_multi', 'rans_decode_block_multi'):
         require(launches[name] == 0, f'the file path launched {name}')
         launches[name] = batch_launches[name]
+    for name in QRES_TRUNK:
+        require(launches[name] == 0, f'the qarv file path launched {name}')
+        launches[name] = qres_launches[name]
     require(all(v > 0 for v in launches.values()),
             f'a kernel was not launched on its main path: {launches}')
     rans_sources = {
@@ -1247,7 +1568,13 @@ def main():
         'dense': 'lvae_tpu/ops/pallas/trunk.py:257',
         'prior_head': 'lvae_tpu/ops/pallas/trunk.py:302',
         'fuse_zproj': 'lvae_tpu/ops/pallas/trunk.py:343',
-        'finish_image': 'lvae_tpu/ops/pallas/trunk.py:382'}
+        'finish_image': 'lvae_tpu/ops/pallas/trunk.py:382',
+        'dw_ln_affine': 'lvae_tpu/ops/pallas/trunk.py:462',
+        'dense_act': 'lvae_tpu/ops/pallas/trunk.py:520',
+        'conv_kxk_act': 'lvae_tpu/ops/pallas/trunk.py:563',
+        'zadd_dense': 'lvae_tpu/ops/pallas/trunk.py:609',
+        'zadd': 'lvae_tpu/ops/pallas/trunk.py:636',
+        'res_dense_act': 'lvae_tpu/ops/pallas/trunk.py:663'}
     unit = f'one photo1 image (lambda {main_lmb:g}), compress_file + ' \
            f'decompress_file'
     entries = []
@@ -1292,14 +1619,21 @@ def main():
                 f'the serial chain of T dependent rows of one image'),
             library_ms=None,
             by_case=by_case))
+    qres_unit = (f'one photo1 image, qres34m (random weights, N = '
+                 f'{QRES_LANES}), compress_file + decompress_file')
     for name in TRUNK_NAMES:
-        r = trunk[name]
+        qres_row = name in QRES_TRUNK
+        r = (qres_kernels if qres_row else trunk)[name]
+        enc, dec = ((qres['file_encode_launches'],
+                     qres['file_decode_launches']) if qres_row
+                    else (main_row['encode_launches'],
+                          main_row['decode_launches']))
         entries.append(dict(
             name=name, route='cuda', source='lvae_tpu_torch/csrc/trunk.cu',
             replaces=trunk_sources[name], launches=launches[name],
-            launches_encode=main_row['encode_launches'][name],
-            launches_decode=main_row['decode_launches'][name],
-            launches_unit=unit, max_abs_err=r['max_abs_err'],
+            launches_encode=enc[name], launches_decode=dec[name],
+            launches_unit=qres_unit if qres_row else unit,
+            max_abs_err=r['max_abs_err'],
             index_flips=r['index_flips'] if name == 'prior_head' else None,
             tolerance=f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}',
             ms=r['ms'], encode_ms=r['encode_ms'], decode_ms=r['decode_ms'],
@@ -1311,8 +1645,9 @@ def main():
                 'over the launches of one image (each input read once, '
                 'each output written once)'),
             library_ms=r['library_ms'],
-            library_call=('torch.addmm(b, x, w), TF32 off' if name == 'dense'
-                          else None)))
+            library_call=LIBRARY_CALLS.get(name),
+            library_launches=r['library_launches'],
+            kernel_ms_where_library=r['kernel_ms_where_library']))
     print(smi, flush=True)
     emit({'kernels': entries})
     print(json.dumps({'ok': True, 'device': {

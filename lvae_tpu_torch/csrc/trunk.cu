@@ -1,6 +1,8 @@
 // Portable-trunk kernels for Hopper (sm_90a): every float between the rANS
 // stream's integer junctions (lambda embedding, ConvNeXt-AdaLN blocks, priors
-// and scale indexes, fuses, 1x1 convs, pixel finish).
+// and scale indexes, fuses, 1x1 convs, pixel finish; for QRes-VAE the plain
+// ConvNeXt blocks, the pre-activated 1x1 and K x K convs of the VDBlock
+// prior, and the z-projection junction).
 //
 // What they must guarantee: a stream decodes bit-exactly in any process, so
 // each kernel's output bits depend only on its inputs and the weights' shapes.
@@ -170,6 +172,23 @@ struct LoadSymsPlusPm {      // float(syms[m, k]) + pm[m, k]: fuse_zproj
     }
 };
 
+template <bool ACT>
+struct LoadTaps {            // conv_kxk_act: x[b, h+di-p, w+dj-p, ci] (0 off
+    const float* x;          // the image), k = (di*K + dj)*Ci + ci
+    int H, W, Ci, K;
+    __device__ float operator()(int m, int k) const {
+        const int tap = k / Ci, ci = k - tap * Ci;
+        const int w = m % W, t = m / W;
+        const int h = t % H, b = t / H;
+        const int p = (K - 1) / 2;
+        const int hh = h + tap / K - p, ww = w + tap % K - p;
+        if (hh < 0 || hh >= H || ww < 0 || ww >= W) return 0.f;
+        const float v = __ldg(x + (((long long)b * H + hh) * W + ww) * Ci + ci);
+        // gelu(0) == 0, so the skipped taps equal GELU of the zero padding
+        return ACT ? gelu_as(v) : v;
+    }
+};
+
 // epilogues: acc -> outputs
 struct StoreBias {           // dense: acc + b
     float* out; const float* b; int N;
@@ -195,6 +214,14 @@ struct StoreResidual {       // fuse: feature + (acc + b)
     __device__ void operator()(int m, int n, float acc) const {
         const long long e = (long long)m * N + n;
         out[e] = f[e] + (acc + b[n]);
+    }
+};
+struct StoreResidualBias {   // res_dense_act: (feature + acc) + b, the
+    float* out; const float* b;  // JAX kernel's order (not StoreResidual's)
+    const float* f; int N;
+    __device__ void operator()(int m, int n, float acc) const {
+        const long long e = (long long)m * N + n;
+        out[e] = (f[e] + acc) + b[n];
     }
 };
 struct StorePrior {          // columns [0, Z): pm; [Z, 2Z): scale index
@@ -270,17 +297,20 @@ emb_mlp_kernel(const float* __restrict__ lmb, const float* __restrict__ freqs,
 }
 
 // ---------------------------------------------------------------------------
-// dw_ln_mod. Replaces lvae_tpu/ops/pallas/trunk.py:166 dw_ln_mod.
-// Phase 1 (small kernel, once per launch): the AdaLN modulation
-// gemb @ ew + eb for each batch row, a warp per output (warp_dot), and the
-// depthwise weights turned tap-major (K*K, C) so that phase 2 reads them
-// coalesced.
+// dw_ln_mod and dw_ln_affine. Replace lvae_tpu/ops/pallas/trunk.py:166
+// dw_ln_mod and :462 dw_ln_affine (the plain ConvNeXt block's LayerNorm,
+// whose affine scale and bias take the place of the AdaLN modulation).
+// Phase 1 (dw_ln_mod only; small kernel, once per launch): the AdaLN
+// modulation gemb @ ew + eb for each batch row, a warp per output
+// (warp_dot), and the depthwise weights turned tap-major (K*K, C) so that
+// phase 2 reads them coalesced (dw_ln_affine's caller passes them so).
 // Phase 2: one warp per pixel, lane l holding channels l, l+32, ...: the
 // K x K stencil read straight from the NHWC feature with the 'same' zero
 // padding done by skipping out-of-image taps (no padded copy, no window
 // stack), then LayerNorm over C with a fixed reduction order (each lane sums
 // its channels in order, then a xor-shuffle tree, which leaves every lane
-// with the same bits), then y * (1 + scale) + shift.
+// with the same bits), then y * (1 + scale) + shift (dw_ln_mod) or
+// y * scale + bias (dw_ln_affine: no phase-1 modulation).
 // Bound: bytes at K <= 5 (one read of x, one write), operations at K = 7
 // (2*49 flops per element); the stencil re-reads each input K*K times from
 // L1/L2, which is the largest cost at (128, 192, 128, 7).
@@ -306,12 +336,27 @@ __global__ void dw_prep_kernel(const float* __restrict__ gemb,
     }
 }
 
-template <int CPL>
+// what follows the LayerNorm: the AdaLN modulation of the batch row
+// (dw_ln_mod), or the LayerNorm's own affine (dw_ln_affine)
+struct NormAdaLN {
+    const float* mod; int C;     // (B, 2C): shift, then scale
+    __device__ float operator()(int b, int c, float y) const {
+        const float* shift = mod + (long long)b * 2 * C;
+        return y * (1.0f + shift[C + c]) + shift[c];
+    }
+};
+struct NormAffine {
+    const float* scale; const float* bias;
+    __device__ float operator()(int, int c, float y) const {
+        return y * __ldg(scale + c) + __ldg(bias + c);
+    }
+};
+
+template <int CPL, class Norm>
 __global__ void __launch_bounds__(256)
-dw_ln_mod_kernel(const float* __restrict__ x, int B, int H, int W, int C,
-                 int K, const float* __restrict__ dwk_t,
-                 const float* __restrict__ dwb,
-                 const float* __restrict__ mod, float* __restrict__ out) {
+dw_ln_kernel(const float* __restrict__ x, int B, int H, int W, int C, int K,
+             const float* __restrict__ dwk_t, const float* __restrict__ dwb,
+             Norm norm, float* __restrict__ out) {
     const long long pix = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
     const int lane = threadIdx.x % 32;
     if (pix >= (long long)B * H * W) return;     // whole warps exit together
@@ -355,26 +400,40 @@ dw_ln_mod_kernel(const float* __restrict__ x, int B, int H, int W, int C,
     }
     const float var = warp_sum(v) / (float)C;
     const float rstd = 1.0f / sqrtf(var + 1e-6f);
-    const float* shift = mod + (long long)b * 2 * C;
-    const float* scale = shift + C;
     float* o = out + pix * C;
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        if (c < C) o[c] = ((y[i] - mu) * rstd) * (1.0f + scale[c]) + shift[c];
+        if (c < C) o[c] = norm(b, c, (y[i] - mu) * rstd);
     }
 }
 
-template <int CPL>
+template <int CPL, class Norm>
 cudaError_t launch_dw(const float* x, int B, int H, int W, int C, int K,
-                      const float* dwk_t, const float* dwb, const float* mod,
+                      const float* dwk_t, const float* dwb, Norm norm,
                       float* out, cudaStream_t stream) {
     const long long threads = (long long)B * H * W * 32;
     const long long blocks = (threads + 255) / 256;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    dw_ln_mod_kernel<CPL><<<(unsigned)blocks, 256, 0, stream>>>(
-        x, B, H, W, C, K, dwk_t, dwb, mod, out);
+    dw_ln_kernel<CPL, Norm><<<(unsigned)blocks, 256, 0, stream>>>(
+        x, B, H, W, C, K, dwk_t, dwb, norm, out);
     return cudaGetLastError();
+}
+
+// one warp per pixel holds C <= 512 channels, CPL = ceil(C / 32) a lane
+template <class Norm>
+cudaError_t dispatch_dw(const float* x, int B, int H, int W, int C, int K,
+                        const float* dwk_t, const float* dwb, Norm norm,
+                        float* out, cudaStream_t st) {
+    switch ((C + 31) / 32) {
+#define DW_CASE(n) \
+        case n: return launch_dw<n>(x, B, H, W, C, K, dwk_t, dwb, norm, out, st);
+        DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6)
+        DW_CASE(7) DW_CASE(8) DW_CASE(9) DW_CASE(10) DW_CASE(11) DW_CASE(12)
+        DW_CASE(13) DW_CASE(14) DW_CASE(15) DW_CASE(16)
+#undef DW_CASE
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -390,7 +449,24 @@ __global__ void finish_kernel(const float* __restrict__ x, long long n,
         out[e] = fminf(fmaxf(x[e], -1.0f), 1.0f) * 0.5f + 0.5f;
 }
 
+// ---------------------------------------------------------------------------
+// zadd. Replaces lvae_tpu/ops/pallas/trunk.py:636 zadd: float(syms) + pm,
+// the decoded integers re-entering the QRes trunk before its 3x3 z_proj_0.
+// Bound: bytes (4 + 4 read, 4 written an element); a grid-stride loop of
+// coalesced accesses.
+// ---------------------------------------------------------------------------
+
+__global__ void zadd_kernel(const int* __restrict__ s,
+                            const float* __restrict__ pm, long long n,
+                            float* __restrict__ out) {
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (long long)gridDim.x * blockDim.x)
+        out[e] = (float)s[e] + pm[e];
+}
+
 cudaError_t set_device(int device) { return cudaSetDevice(device); }
+
+const float* x_f(const void* p) { return (const float*)p; }
 
 }  // namespace
 
@@ -434,18 +510,8 @@ extern "C" int trunk_dw_ln_mod(const void* x, int B, int H, int W, int C,
         (const float*)gemb, (const float*)ewt, (const float*)eb, B, C, E,
         (const float*)dwk, K * K, mod, dwk_t);
     TRY(cudaGetLastError());
-    const float* xf = (const float*)x;
-    const float* bf = (const float*)dwb;
-    float* of = (float*)out;
-    switch ((C + 31) / 32) {
-#define DW_CASE(n) \
-        case n: return (int)launch_dw<n>(xf, B, H, W, C, K, dwk_t, bf, mod, of, st);
-        DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6)
-        DW_CASE(7) DW_CASE(8) DW_CASE(9) DW_CASE(10) DW_CASE(11) DW_CASE(12)
-        DW_CASE(13) DW_CASE(14) DW_CASE(15) DW_CASE(16)
-#undef DW_CASE
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)dispatch_dw(x_f(x), B, H, W, C, K, dwk_t, x_f(dwb),
+                            NormAdaLN{mod, C}, (float*)out, st);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:223 mlp_res: two launches of the
@@ -524,4 +590,111 @@ extern "C" int trunk_finish_image(const void* x, long long n, void* out,
     finish_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
                     (cudaStream_t)stream>>>((const float*)x, n, (float*)out);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// QRes-VAE trunk (lvae_tpu/ops/pallas/trunk.py:446-748). The products run on
+// the core above with new prologues and epilogues; every output's sum over K
+// is still one chain k = 0..K-1.
+// ---------------------------------------------------------------------------
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:462 dw_ln_affine. x/out (B, H, W, C);
+// dwk_t (K, K, C), tap-major, prepared once per module by the caller (no
+// phase 1); scale, bias (C,). Bound: as dw_ln_mod's stencil (bytes at
+// K <= 5, operations at K = 7).
+extern "C" int trunk_dw_ln_affine(const void* x, int B, int H, int W, int C,
+                                  int K, const void* dwk_t, const void* dwb,
+                                  const void* scale, const void* bias,
+                                  void* out, int device, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || C < 1 || C > 32 * 16 || K < 1)
+        return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    return (int)dispatch_dw(x_f(x), B, H, W, C, K, x_f(dwk_t), x_f(dwb),
+                            NormAffine{x_f(scale), x_f(bias)}, (float*)out,
+                            (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:520 dense_act: (gelu(x) or x) @ w +
+// b, the VDBlock 1x1 convs. wt (CO, C). Bound: operations at C = 384
+// (M x 384 x 96), bytes at the 96- and 48-channel convs; the GELU is folded
+// into the A-tile load.
+extern "C" int trunk_dense_act(const void* x, int M, int C, int CO,
+                               const void* wt, const void* b, int act,
+                               void* out, int device, void* stream) {
+    TRY(set_device(device));
+    const StoreBias store{(float*)out, x_f(b), CO};
+    if (act)
+        return (int)launch_gemm(M, CO, C, LoadGeluRows{x_f(x), C}, x_f(wt),
+                                store, (cudaStream_t)stream);
+    return (int)launch_gemm(M, CO, C, LoadRows{x_f(x), C}, x_f(wt), store,
+                            (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:563 conv_kxk_act: a 'same' K x K
+// conv as an implicit product, M = B*H*W output pixels, N = Co, depth
+// K*K*Ci in tap-major order (k = (di*K + dj)*Ci + ci). The A-tile loader
+// reads the shifted input pixel straight from the NHWC feature and returns
+// 0 for a tap off the image, so there is no padded copy and no stack of K*K
+// shifted windows; act applies GELU to each loaded value. x (B, H, W, Ci),
+// wt (Co, K*K*Ci), out (B, H, W, Co). The bias is added after the chain
+// (the JAX kernel adds it before the taps: within float tolerance, and the
+// same on both sides of a stream). Bound: operations (2*M*Co*K*K*Ci) at
+// the 96- and 48-channel convs; bytes for z_proj_0 (Ci = Z <= 16).
+extern "C" int trunk_conv_kxk_act(const void* x, int B, int H, int W, int Ci,
+                                  int K, int Co, const void* wt,
+                                  const void* b, int act, void* out,
+                                  int device, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || Ci < 1 || K < 1 || K % 2 != 1 || Co < 1)
+        return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const int M = B * H * W;
+    const StoreBias store{(float*)out, x_f(b), Co};
+    if (act)
+        return (int)launch_gemm(M, Co, K * K * Ci,
+                                LoadTaps<true>{x_f(x), H, W, Ci, K}, x_f(wt),
+                                store, (cudaStream_t)stream);
+    return (int)launch_gemm(M, Co, K * K * Ci,
+                            LoadTaps<false>{x_f(x), H, W, Ci, K}, x_f(wt),
+                            store, (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:609 zadd_dense: (syms + pm) @ w + b,
+// the 1x1 z_proj_0 of a kernel-size-1 block. syms int32 (M, Z); wt (CO, Z).
+// Bound: bytes (K = Z); the int32 + pm prologue is folded into the A-tile
+// load, as in fuse_zproj.
+extern "C" int trunk_zadd_dense(const void* syms, const void* pm, int M,
+                                int Z, int CO, const void* wt, const void* b,
+                                void* out, int device, void* stream) {
+    TRY(set_device(device));
+    return (int)launch_gemm(M, CO, Z,
+                            LoadSymsPlusPm{(const int*)syms, x_f(pm), Z},
+                            x_f(wt), StoreBias{(float*)out, x_f(b), CO},
+                            (cudaStream_t)stream);
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:636 zadd.
+extern "C" int trunk_zadd(const void* syms, const void* pm, long long n,
+                          void* out, int device, void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const long long blocks = (n + 255) / 256;
+    zadd_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                  (cudaStream_t)stream>>>((const int*)syms, x_f(pm), n,
+                                          (float*)out);
+    return (int)cudaGetLastError();
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:663 res_dense_act: feature +
+// gelu(t) @ w + b, added in the JAX kernel's order ((feature + acc) + b),
+// the z_proj_1 residual join. t (M, Ci); wt (C, Ci). Bound: bytes (K = Ci
+// = 48 or 24; the feature is read and written once).
+extern "C" int trunk_res_dense_act(const void* feature, const void* t, int M,
+                                   int Ci, int C, const void* wt,
+                                   const void* b, void* out, int device,
+                                   void* stream) {
+    TRY(set_device(device));
+    return (int)launch_gemm(
+        M, C, Ci, LoadGeluRows{x_f(t), Ci}, x_f(wt),
+        StoreResidualBias{(float*)out, x_f(b), x_f(feature), C},
+        (cudaStream_t)stream);
 }

@@ -1,6 +1,9 @@
 """Shared infrastructure for the port's model handles, counterpart of
 ``lvae_tpu/models/base.py``: a handle pairs an ``nn.Module`` network with
-its device and loads the JAX package's weight files."""
+its device, loads the JAX package's weight files, and keeps the fused codecs
+of a model family (models/fused_base.py)."""
+import struct
+
 import numpy as np
 import torch
 
@@ -33,7 +36,11 @@ def to_nchw_batch(im, device) -> torch.Tensor:
 
 
 class VAEModelBase:
-    """Owns the network and the device it runs on."""
+    """Owns the network, the device it runs on and its fused codecs. A
+    family sets `_coder` (models/entropy_coding.DiscretizedGaussian of its
+    scale table) and `codec_classes` (legacy codec, portable codec)."""
+
+    codec_classes = None
 
     def __init__(self, net, device):
         self.device = resolve_device(device)
@@ -51,3 +58,98 @@ class VAEModelBase:
         float16 or float32; the port computes in float32)."""
         sd = params_from_flax(read_flax_msgpack(path))
         self.net.load_state_dict(sd, strict=True)
+
+    # ---- the fused codecs ------------------------------------------------
+
+    def compress_mode(self, mode=True, coder='fused', num_lanes=128,
+                      esc_cap=8192, word_cap=None, portable=False,
+                      max_program_batch=None):
+        """Prepare entropy coding through the fused codec (coder='fused',
+        the only one the port has). portable=True codes on the portable
+        trunk (ops/trunk.py kernels): its streams decode in any process.
+        num_lanes: 16/32/64/128 (QARV also 'auto': by lambda).
+        word_cap caps the coded stream length in 16-bit words; streams that
+        overflow it (or esc_cap escapes) raise OverflowError.
+        max_program_batch caps the images coded at once: larger
+        compress_batch requests run as balanced chunks. Codecs stay cached
+        across calls, keyed by their whole configuration."""
+        if coder != 'fused':
+            raise NotImplementedError(
+                f'coder={coder!r}: the port has only the fused codec')
+        if mode:
+            self._coder.update()
+            self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap,
+                                   portable=bool(portable),
+                                   max_program_batch=max_program_batch)
+            self._fused_codecs = getattr(self, '_fused_codecs', {})
+            self.num_lanes = num_lanes
+            self._fused = self._get_fused(
+                num_lanes if num_lanes != 'auto' else 128)
+        self.compressing = mode
+
+    def _get_fused(self, n_lanes: int, portable=None):
+        """Codec for (lane count, current cfg); `portable` overrides the
+        cfg's trunk kind: decode routes by the stream's marker bit, and
+        compress_file writes portable streams by default."""
+        cfg = dict(self._fused_cfg)
+        if portable is not None:
+            cfg['portable'] = bool(portable)
+        key = (n_lanes,) + tuple(sorted(cfg.items()))
+        codec = self._fused_codecs.get(key)
+        if codec is None:
+            legacy, portable_kind = self.codec_classes
+            kind = portable_kind if cfg.pop('portable') else legacy
+            codec = kind(self.net, self._coder.cdf_table, num_lanes=n_lanes,
+                         **cfg)
+            self._fused_codecs[key] = codec
+        return codec
+
+    def _stream_codec(self, bodies):
+        """The codec of the streams' lane count and trunk kind (the lane
+        field's high bit marks a portable stream), whatever compress_mode
+        chose: a portable file decodes in any process. All bodies must
+        share the field."""
+        fields = {struct.unpack('<H', b[8:10])[0] for b in bodies}
+        if len(fields) != 1:
+            raise ValueError(f'mixed lane counts / trunk kinds in batch: '
+                             f'{sorted(fields)}')
+        lanes_field, = fields
+        return self._get_fused(lanes_field & 0x7FFF,
+                               portable=bool(lanes_field & 0x8000))
+
+    # ---- batch serving: a family defines the async dispatch, its finish
+    # (the container) and decompress_batch_to_device ------------------------
+
+    def compress_batch(self, ims, *args, **kwargs):
+        """Batch encode: B same-shape images (B, H, W, 3) in [0, 1] -> B
+        single-image streams in the family's container (the extra arguments
+        are compress_batch_async's). The trunk runs the B images at once;
+        rANS codes them in one multi-image launch. Portable streams decode
+        anywhere, alone or in any batch; legacy ones in this process,
+        through decompress_batch at the same max_program_batch."""
+        return self.compress_batch_finish(
+            self.compress_batch_async(ims, *args, **kwargs))
+
+    def decompress_batch(self, objs):
+        """decompress_batch_to_device -> (B, H, W, 3) float32 numpy."""
+        return self.decompress_batch_to_device(objs).float().cpu().numpy()
+
+    def _to_input(self, im, batch=False):
+        """Image(s) -> NCHW float32 batch on the device, checked as the JAX
+        package's _check_input checks them: the stride, one image unless
+        `batch`, and values in [0, 1] for host (numpy) input; device tensors
+        are not range-checked."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        if isinstance(im, np.ndarray) and im.size and not (
+                im.min() >= 0.0 and im.max() <= 1.0):
+            raise ValueError('input values must be in [0, 1]')
+        im = to_nchw_batch(im, self.device)
+        s = self.net.max_stride
+        if im.shape[0] != 1 and not batch:
+            raise ValueError(f'only a single image is supported, got '
+                             f'{tuple(im.shape)}; use compress_batch')
+        if im.shape[2] % s or im.shape[3] % s:
+            raise ValueError(f'input H/W {tuple(im.shape[2:])} must be '
+                             f'divisible by {s} (use compress_file)')
+        return im

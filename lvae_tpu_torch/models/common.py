@@ -6,6 +6,8 @@ Parameter names mirror the flax modules' so that
 the state dict. Unlike flax, a torch convolution needs its input width, so
 the constructors take it explicitly.
 """
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -13,6 +15,10 @@ import torch.nn.functional as F
 
 def gelu(x):
     return F.gelu(x)  # exact (erf) form, as the JAX package uses
+
+
+def softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))  # jax.nn.softplus form
 
 
 def get_conv(in_ch, out_ch, kernel_size, stride, padding):
@@ -134,3 +140,88 @@ class ConvNeXtBlockAdaLN(nn.Module):
             x = x * self.gamma
         x = x.permute(0, 3, 1, 2)
         return x + shortcut if self.residual else x
+
+
+# ---- the QRes-VAE blocks (lvae_tpu/models/common.py:291-374) ---------------
+
+class MyConvNeXtBlock(nn.Module):
+    """Plain ConvNeXt block: depthwise conv -> LayerNorm (eps 1e-6, with
+    affine) -> MLP (mlp_ratio 2) -> gamma layer scale -> residual."""
+
+    def __init__(self, dim, kernel_size=7, mlp_ratio=2, ls_init_value=1e-6):
+        super().__init__()
+        self.dim, self.kernel_size = dim, kernel_size
+        self.conv_dw = nn.Conv2d(dim, dim, kernel_size,
+                                 padding=(kernel_size - 1) // 2, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(mlp_ratio * dim), dim)
+        self.gamma = nn.Parameter(torch.full((dim,), ls_init_value))
+
+    def forward(self, x):
+        y = self.norm(self.conv_dw(x).permute(0, 2, 3, 1))          # NHWC
+        y = self.mlp(y) * self.gamma
+        return y.permute(0, 3, 1, 2) + x
+
+
+class MyConvNeXtPatchDown(nn.Module):
+    """MyConvNeXtBlock, then a patch downsample to out_ch channels."""
+
+    def __init__(self, dim, out_ch, down_rate=2, kernel_size=7, mlp_ratio=2):
+        super().__init__()
+        self.block = MyConvNeXtBlock(dim, kernel_size=kernel_size,
+                                     mlp_ratio=mlp_ratio)
+        self.downsample = patch_downsample(dim, out_ch, rate=down_rate)
+
+    def forward(self, x):
+        return self.downsample(self.block(x))
+
+
+class VDBlock(nn.Module):
+    """VDVAE-style bottleneck: four convs (1x1, 3x3 or 1x1 twice, 1x1), each
+    after a GELU; residual optional. zero_last zero-initialises the last
+    conv's weight (the QRes prior), rescale_last scales its init."""
+
+    def __init__(self, in_ch, hidden_ch, out_ch, residual=True, use_3x3=True,
+                 zero_last=False, rescale_last=1.0):
+        super().__init__()
+        self.residual = residual
+        c = conv_k3s1 if use_3x3 else conv_k1s1
+        self.c1 = conv_k1s1(in_ch, hidden_ch)
+        self.c2 = c(hidden_ch, hidden_ch)
+        self.c3 = c(hidden_ch, hidden_ch)
+        self.c4 = conv_k1s1(hidden_ch, out_ch)
+        self.c4.init_scale = 0.0 if zero_last else rescale_last  # flax_init_
+
+    def forward(self, x):
+        xhat = self.c1(gelu(x))
+        xhat = self.c2(gelu(xhat))
+        xhat = self.c3(gelu(xhat))
+        xhat = self.c4(gelu(xhat))
+        return x + xhat if self.residual else xhat
+
+
+def lecun_normal_(weight, generator=None, scale=1.0):
+    """flax's default kernel init (lecun_normal: a normal truncated at two
+    standard deviations, variance 1 / fan_in) times `scale`, drawn on the
+    CPU from `generator` and copied into `weight` (any device)."""
+    std = 1.0 / math.sqrt(weight[0].numel()) / .87962566103423978
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    with torch.no_grad():
+        weight.copy_(w * scale)
+
+
+def flax_init_(net, generator=None):
+    """Initialise a network of these blocks as the JAX package's flax
+    modules initialise theirs: lecun-normal conv and dense kernels, scaled
+    by the module's `init_scale` attribute where it has one (a VDBlock's
+    zero_last / rescale_last, QRes's z projection), zero biases, unit
+    LayerNorm scales; the layer scales keep their constant."""
+    for m in net.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, generator, getattr(m, 'init_scale', 1.0))
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)

@@ -1,8 +1,11 @@
-"""Tiny development model for the tests, counterpart of qarv_tiny in
-``lvae_tpu/models/dev_zoo.py``: qarv_base's topology at 16 channels."""
+"""Tiny development models for the tests, counterparts of qarv_tiny and
+qres_tiny (MSE head) in ``lvae_tpu/models/dev_zoo.py``: the production
+topologies at 16 channels."""
 from lvae_tpu_torch.registry import register_model
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models.qarv import model as qarv
+from lvae_tpu_torch.models.qresvae import model as qres
+from lvae_tpu_torch.models.qresvae import zoo as qres_zoo
 
 
 @register_model
@@ -40,3 +43,29 @@ def qarv_tiny(lmb_range=(16, 2048), device=None):
         lmb_range=(float(lmb_range[0]), float(lmb_range[1])),
         lmb_embed_dim=(ed, ed), sin_period=64)
     return qarv.QarvModel(net, device=device)
+
+
+@register_model
+def qres_tiny(lmb=32, device=None):
+    ch = 16
+    z = [4, 4, 4]
+    enc_blocks = [
+        common.patch_downsample(3, ch, rate=4),                  # 1/4
+        common.MyConvNeXtBlock(ch, kernel_size=7),
+        common.MyConvNeXtPatchDown(ch, ch, down_rate=4),         # 1/16
+        common.MyConvNeXtBlock(ch, kernel_size=3),
+        common.MyConvNeXtPatchDown(ch, ch, down_rate=4),         # 1/64
+        common.MyConvNeXtBlock(ch, kernel_size=1),
+    ]
+    dec_blocks = [
+        qres.QLatentBlock(ch, z[0], kernel_size=1),              # 1/64
+        common.patch_upsample(ch, ch, rate=4),
+        qres.QLatentBlock(ch, z[1], kernel_size=3),              # 1/16
+        common.patch_upsample(ch, ch, rate=4),
+        qres.QLatentBlock(ch, z[2], kernel_size=7),              # 1/4
+        common.patch_upsample(ch, 3, rate=4),
+    ]
+    net = qres.HierarchicalVAENet(
+        enc_blocks, dec_blocks, qres.MSEOutputNet(lmb), im_shift=-0.45,
+        im_scale=3.67, max_stride=64)
+    return qres_zoo.build(net, False, device)

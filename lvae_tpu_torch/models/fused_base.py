@@ -1,5 +1,29 @@
-"""Payload layout, escape handling and stream parsing of the fused codec,
-for single images and batches: ``lvae_tpu/models/fused_base.py``.
+"""The family-independent half of the fused codec, for single images and
+batches (``lvae_tpu/models/fused_base.py``): the trunk loop that both
+directions run, payload layout, escape handling and stream parsing.
+
+Bit-exactness: an arithmetic-coded stream desyncs when the decoder's
+recomputed prior floats differ from the encoder's by a single scale-index
+flip. Both directions therefore run ONE trunk function (`_trunk`) and differ
+only in where the integer symbols come from: the rounded posterior on
+encode, the rANS decode kernel on decode. A model family fills the trunk's
+stages (`_context`, `_prior`, `_fuse`, `_plain`, and on encode `_backbone`
+and `_posterior`), on one of two trunks:
+
+* legacy (the family's codec class): the modules' cuDNN convolutions and
+  cuBLAS products, NCHW, in exact float32 whatever the process's flags
+  (`_exact_f32`); a legacy stream decodes bit-exactly in the process (and on
+  the card type) that wrote it.
+* portable (`PortableTrunk` mixed into the family's codec): every float
+  between the integer junctions comes from the hand-written kernels of
+  ``ops/trunk.py``, on NHWC features as the JAX kernels take them; outside
+  them only data movement (pad, reshape, pixel shuffle, concatenation). The
+  kernels' results depend on nothing but their inputs, so a portable stream
+  decodes in any process: it is the file format.
+
+On both trunks the encoder backbone and the posterior stay library
+convolutions (NCHW), because their outputs only choose which symbols are
+written (lvae_tpu/models/qarv/fused.py:36-41).
 
 Wire format of the fused payload (little-endian), identical to the JAX
 package's:
@@ -15,15 +39,59 @@ device-to-host copy. A batch stream is a single-image stream: each row of
 a chunk's (B, P) payload holds exactly the bytes `pack_payload` gives that
 image alone.
 """
+import contextlib
 import struct
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lvae_tpu_torch.models import common
 from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
+from lvae_tpu_torch.ops import trunk
 from lvae_tpu_torch.utils import coding
+
+
+@contextlib.contextmanager
+def _exact_f32():
+    """Exact float32, deterministic library convolutions and products for
+    the duration, whatever the process's flags; restores them after."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def pixel_shuffle_nhwc(x, rate):
+    """Depth-to-space on NHWC with torch.nn.PixelShuffle's channel order
+    (lvae_tpu/models/common.py pixel_shuffle)."""
+    B, H, W, CRR = x.shape
+    C = CRR // (rate * rate)
+    x = x.reshape(B, H, W, C, rate, rate).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H * rate, W * rate, C)
+
+
+def patch_escapes(z, esc_pos, esc_val, start):
+    """Write the true values of escape-coded positions into one block's
+    symbols, per image: z (B, n), esc_pos/esc_val (B, E) in the image's
+    symbol numbering, which starts the block at `start`. Out-of-block and
+    padding (-1) entries go to a spare slot past the end, which is
+    dropped."""
+    n = z.shape[1]
+    rel = esc_pos.to(torch.int64) - start
+    valid = (rel >= 0) & (rel < n) & (esc_pos >= 0)
+    out = torch.cat([z, z.new_zeros(z.shape[0], 1)], 1)
+    out.scatter_(1, torch.where(valid, rel, n), esc_val.to(z.dtype))
+    return out[:, :n]
+
+
+_PERMS = {('NCHW', 'NHWC'): (0, 2, 3, 1), ('NHWC', 'NCHW'): (0, 3, 1, 2),
+          ('NCHW', 'NCHW'): (0, 1, 2, 3), ('NHWC', 'NHWC'): (0, 1, 2, 3)}
 
 
 def _extract_escapes_scatter(esc_mask, values, esc_cap):
@@ -55,13 +123,28 @@ def _place_escapes(packed, n_words, esc_pairs):
 
 
 class FusedCodecBase:
-    """Family-independent half of a fused codec; subclasses provide the
-    encode and decode trunks."""
+    """Family-independent half of a fused codec on the legacy trunk. A
+    family's subclass provides the trunk's stages and sets `stop` (the
+    blocks before it run in both directions) and `tail_start` (the first
+    block of the synthesis tail, which only decode and the self-check run).
+
+    The per-image context `ctx` of the entry points (QARV: the lambdas;
+    QRes: none) is a tuple of (B, ...) tensors, cut with the batch into
+    chunks; `_context(*ctx)` turns it into the trunk's context, which every
+    stage receives."""
 
     # a portable codec's trunk runs in the kernels of ops/trunk.py and its
     # streams carry the marker bit (decode in any process); a legacy one's
     # runs library convolutions (streams decode in the writing process only)
     portable = False
+    layout = 'NCHW'                      # of the trunk's features
+    # Precision policy around the whole trunk (the JAX package's "encode
+    # and decode agree on every trunk float" invariant, held within one
+    # process): the legacy trunk is all library calls, so it runs in exact
+    # float32 - no TF32 in convolutions (cuDNN's default) or matmuls - with
+    # deterministic cuDNN algorithms chosen by shape alone, whatever the
+    # process's flags. GELU is the exact erf form.
+    trunk_scope = staticmethod(_exact_f32)
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
                  word_cap=None, max_program_batch=None, device=None):
@@ -95,6 +178,132 @@ class FusedCodecBase:
         if (np.abs(cdf_table.offsets).max() >= (1 << 15)
                 or cdf_table.cdf_lengths.max() >= (1 << 15)):
             raise ValueError('CDF offsets/lengths must fit 15 bits')
+
+    def _to(self, t, layout):
+        """A feature of this trunk -> a view in `layout`."""
+        return t.permute(_PERMS[self.layout, layout])
+
+    def _from(self, t, layout):
+        """A tensor in `layout` -> this trunk's layout, contiguous."""
+        return t.permute(_PERMS[layout, self.layout]).contiguous()
+
+    # ---- the trunk (legacy stages; a family adds _context, _prior, _fuse,
+    # _plain, _backbone and _posterior) ----------------------------------
+
+    def _start(self, B, nH, nW):
+        return self.net.bias.expand(B, -1, nH, nW)           # NCHW
+
+    def _finish(self, feature):
+        """-> (B, H, W, 3) float16 in [0, 1], NHWC."""
+        im = torch.clamp(feature.float(), -1.0, 1.0) * 0.5 + 0.5
+        return im.to(torch.float16).permute(0, 2, 3, 1)
+
+    def _trunk(self, ctx, B, nH, nW, symbols_for):
+        """The trunk's context, then per latent block prior -> symbols ->
+        fuse, with the plain blocks in between, up to `stop`.
+        symbols_for(block, f_mid, pm, indexes, tctx) -> symbols in this
+        trunk's layout. Returns (feature, tctx, symbols, indexes), the last
+        two per block as (B, nsym) int32 tensors in NHWC order."""
+        tctx = self._context(*ctx)
+        feature = self._start(B, nH, nW)
+        syms_flat, idx_flat = [], []
+        for blk in list(self.net.dec_blocks)[:self.stop]:
+            if getattr(blk, 'is_latent_block', False):
+                f_mid, pm, indexes = self._prior(blk, feature, *tctx)
+                # canonical layout: both directions feed the fuse the same
+                # contiguous int32 tensor
+                syms = symbols_for(blk, f_mid, pm, indexes,
+                                   tctx).to(torch.int32).contiguous()
+                feature = self._fuse(blk, f_mid, pm, syms, *tctx)
+                syms_flat.append(self._to(syms, 'NHWC').reshape(B, -1))
+                idx_flat.append(self._to(indexes, 'NHWC').reshape(B, -1))
+            else:
+                feature = self._plain(blk, feature, *tctx)
+        return feature, tctx, syms_flat, idx_flat
+
+    def _tail(self, feature, tctx):
+        for blk in list(self.net.dec_blocks)[self.tail_start:]:
+            feature = self._plain(blk, feature, *tctx)
+        return self._finish(feature)
+
+    # ---- the two directions -------------------------------------------
+
+    @torch.no_grad()
+    def _encode(self, im, *ctx, want_image, batch=False):
+        """im: (B, 3, H, W) float32 on the device, ctx: the per-image
+        context -> (payload, image|None); a single image's payload (P,)
+        from the single-image rANS kernel, a batch's (B, P) from the
+        multi-image one."""
+        B, _, imH, imW = im.shape
+        ms = self.net.max_stride
+        enc_features = {}
+
+        def posterior_symbols(blk, f_mid, pm, indexes, tctx):
+            with _exact_f32():
+                if not enc_features:   # the backbone, on the trunk's context
+                    enc_features.update(self._backbone(im, *tctx))
+                qm = self._posterior(blk, self._to(f_mid, 'NCHW'),
+                                     enc_features, *tctx)
+            qm = self._from(qm, 'NCHW')
+            return torch.round(qm.float() - pm.float())
+
+        with self.trunk_scope():
+            feature, tctx, syms_flat, idx_flat = self._trunk(
+                ctx, B, imH // ms, imW // ms, posterior_symbols)
+            image = self._tail(feature, tctx) if want_image else None
+        if batch:
+            return self.pack_payload_batch(syms_flat, idx_flat), image
+        return self.pack_payload([s[0] for s in syms_flat],
+                                 [i[0] for i in idx_flat]), image
+
+    def encode(self, im, *ctx):
+        payload, _ = self._encode(im, *ctx, want_image=False)
+        return self._payload_to_bytes(payload)
+
+    def encode_check(self, im, *ctx):
+        """encode() that also returns the image reconstructed from the
+        encode-side symbols (NHWC float16 on the device)."""
+        payload, img = self._encode(im, *ctx, want_image=True)
+        return self._payload_to_bytes(payload), img
+
+    @torch.no_grad()
+    def _decode(self, states, streams, esc_pos, esc_val, nH, nW, *ctx,
+                batch=False):
+        """states (B, N), streams (B, W), esc_pos/esc_val (B, E) and the
+        per-image context on the device -> (B, H, W, 3) float16 images. A
+        single image (batch=False, B = 1) decodes through the single-image
+        rANS kernel, a batch through one multi-image launch per latent
+        block."""
+        N = self.N
+        B = states.shape[0]
+        ptr = torch.zeros((B,) if batch else (), dtype=torch.int32,
+                          device=self.device)
+        carry = {'states': states, 'ptr': ptr, 'start': 0}
+
+        def decoded_symbols(blk, f_mid, pm, indexes, tctx):
+            _, H, W, Z = self._to(pm, 'NHWC').shape
+            flat_idx = self._to(indexes, 'NHWC').reshape(B, -1)
+            nsym = flat_idx.shape[1]
+            T = max((nsym + N - 1) // N, 1)
+            idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(B, T, N)
+            if batch:
+                vals, carry['states'], carry['ptr'] = (
+                    rd.rans_decode_block_multi(
+                        idx_rows, carry['states'], carry['ptr'], streams,
+                        self.cdfs, self.offsets, nsym, num_lanes=N))
+            else:
+                vals, carry['states'], carry['ptr'] = rd.rans_decode_block(
+                    idx_rows[0], carry['states'], carry['ptr'], streams[0],
+                    self.cdfs, self.offsets, nsym, num_lanes=N)
+            z = patch_escapes(vals.reshape(B, -1)[:, :nsym], esc_pos, esc_val,
+                              carry['start'])
+            carry['start'] += nsym
+            return self._from(z.reshape(B, H, W, Z), 'NHWC')
+
+        with self.trunk_scope():
+            feature, tctx, _, _ = self._trunk(ctx, B, nH, nW,
+                                              decoded_symbols)
+            return self._tail(feature, tctx)
 
     # ---- encode side ---------------------------------------------------
 
@@ -245,12 +454,12 @@ class FusedCodecBase:
         edges = np.cumsum([0] + self._chunk_sizes(B, self.max_program_batch))
         return list(zip(edges[:-1].tolist(), edges[1:].tolist()))
 
-    def encode_batch(self, ims, lmb):
-        """B same-shape images (NCHW float32 on the device, lmb (B,)) ->
-        list of B single-image wire-format bodies."""
-        return self.encode_batch_finish(self.encode_batch_async(ims, lmb))
+    def encode_batch(self, ims, *ctx):
+        """B same-shape images (NCHW float32 on the device) and their
+        context -> list of B single-image wire-format bodies."""
+        return self.encode_batch_finish(self.encode_batch_async(ims, *ctx))
 
-    def encode_batch_async(self, ims, lmb):
+    def encode_batch_async(self, ims, *ctx):
         """Dispatch-only half of encode_batch: queues every chunk's encode
         and the device-to-host copy of its payload into pinned memory, and
         returns a handle without synchronising the host. A serving loop
@@ -258,8 +467,8 @@ class FusedCodecBase:
         stream assembly of one batch overlap the next one's compute."""
         handles = []
         for a, b in self._chunks(ims.shape[0]):
-            payload, _ = self._encode(ims[a:b], lmb[a:b], want_image=False,
-                                      batch=True)
+            payload, _ = self._encode(ims[a:b], *(c[a:b] for c in ctx),
+                                      want_image=False, batch=True)
             handles.append(_pull_async(payload))
         return handles
 
@@ -273,15 +482,15 @@ class FusedCodecBase:
                           for row in host.numpy())
         return bodies
 
-    def encode_check_batch(self, ims, lmb):
+    def encode_check_batch(self, ims, *ctx):
         """encode_batch that also returns the images reconstructed from the
         encode-side symbols ((B, H, W, 3) float32 numpy), chunked exactly
         like encode_batch so that the reconstruction comes from the trunk
         runs that wrote the streams."""
         bodies, imgs = [], []
         for a, b in self._chunks(ims.shape[0]):
-            payload, img = self._encode(ims[a:b], lmb[a:b], want_image=True,
-                                        batch=True)
+            payload, img = self._encode(ims[a:b], *(c[a:b] for c in ctx),
+                                        want_image=True, batch=True)
             bodies += self._payloads_to_bytes(payload)
             imgs.append(img.float().cpu().numpy())
         return bodies, np.concatenate(imgs)
@@ -337,21 +546,51 @@ class FusedCodecBase:
         return (st.reshape(B, N), sw.reshape(B, W), ep.reshape(B, E),
                 ev.reshape(B, E))
 
-    def decode_to_device(self, body: bytes, nH, nW, *extra):
+    def decode_to_device(self, body: bytes, nH, nW, *ctx):
         """Parse the body, push it to the device in one blob and run the
         decode trunk (single-image kernels). Returns the (1, H, W, 3)
         image on the device (asynchronous)."""
-        return self._decode(*self._push([body]), nH, nW, *extra)
+        return self._decode(*self._push([body]), nH, nW, *ctx)
 
-    def decode_batch_to_device(self, bodies, nH, nW, lmb):
+    def decode_batch_to_device(self, bodies, nH, nW, *ctx):
         """Decode B same-shape bodies, chunked as encode_batch chunks them,
         each chunk pushed in one blob and decoded by the multi-image
         kernels. Returns the (B, H, W, 3) images on the device
         (asynchronous)."""
-        imgs = [self._decode(*self._push(bodies[a:b]), nH, nW, lmb[a:b],
-                             batch=True)
+        imgs = [self._decode(*self._push(bodies[a:b]), nH, nW,
+                             *(c[a:b] for c in ctx), batch=True)
                 for a, b in self._chunks(len(bodies))]
         return imgs[0] if len(imgs) == 1 else torch.cat(imgs)
+
+
+class PortableTrunk:
+    """Mixed in before a family's codec class: the trunk on the kernels of
+    ops/trunk.py, NHWC, with the stages every family shares (the seed, the
+    resampling blocks, the pixel finish); its streams carry the portable
+    marker and decode in any process."""
+
+    portable = True
+    layout = 'NHWC'
+    # the kernels' results depend on no flag; only the backbone and
+    # posterior (library calls) are scoped, in _encode
+    trunk_scope = staticmethod(contextlib.nullcontext)
+
+    def _start(self, B, nH, nW):
+        bias = self.net.bias.reshape(1, 1, 1, -1)
+        return bias.expand(B, nH, nW, -1).contiguous()
+
+    def _plain(self, blk, feature, *tctx):
+        if isinstance(blk, common.patch_upsample):
+            y = trunk.conv1x1(feature, blk.conv)
+            return pixel_shuffle_nhwc(y, blk.rate).contiguous()
+        if isinstance(blk, common.upsample_nearest):         # data movement
+            r = blk.rate
+            return feature.repeat_interleave(r, 1).repeat_interleave(r, 2)
+        raise NotImplementedError(
+            f'portable trunk: unsupported block {type(blk).__name__}')
+
+    def _finish(self, feature):
+        return trunk.finish_image(feature)
 
 
 def _pull_async(payload):

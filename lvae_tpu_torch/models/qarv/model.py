@@ -14,15 +14,12 @@ import torch.nn as nn
 
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models import entropy_coding as ec
-from lvae_tpu_torch.models.base import VAEModelBase, to_nchw_batch
+from lvae_tpu_torch.models.base import VAEModelBase
+from lvae_tpu_torch.models.qarv import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.utils import coding
 
 MAX_LMB = 8192.0
-
-
-def softplus(x):
-    return torch.logaddexp(x, torch.zeros_like(x))  # jax.nn.softplus form
 
 
 class VRLVBlockBase(nn.Module):
@@ -61,7 +58,7 @@ class VRLVBlockBase(nn.Module):
         """p(z_i | z_<i) -> (feature_mid, pm, pv, coding indexes int32)."""
         feature = self.resnet_front(feature, emb)
         pm, plogv = self.prior(feature).float().chunk(2, dim=1)
-        pv = torch.exp(softplus(plogv + 2.3) - 2.3)
+        pv = torch.exp(common.softplus(plogv + 2.3) - 2.3)
         indexes = ec.build_indexes(pv, self.scale_table)
         return feature, pm, pv, indexes
 
@@ -87,20 +84,6 @@ class VRLVBlockSmall(VRLVBlockBase):
     def posterior_qm(self, feature, enc_feature, emb):
         merged = self.post_merge(torch.cat([feature, enc_feature], dim=1))
         return self.posterior(self.posterior2(merged, emb))
-
-
-def patch_escapes(z, esc_pos, esc_val, start):
-    """Write the true values of escape-coded positions into one block's
-    symbols, per image: z (B, n), esc_pos/esc_val (B, E) in the image's
-    symbol numbering, which starts the block at `start`. Out-of-block and
-    padding (-1) entries go to a spare slot past the end, which is
-    dropped."""
-    n = z.shape[1]
-    rel = esc_pos.to(torch.int64) - start
-    valid = (rel >= 0) & (rel < n) & (esc_pos >= 0)
-    out = torch.cat([z, z.new_zeros(z.shape[0], 1)], 1)
-    out.scatter_(1, torch.where(valid, rel, n), esc_val.to(z.dtype))
-    return out[:, :n]
 
 
 class VariableRateLossyVAENet(nn.Module):
@@ -150,56 +133,14 @@ class QarvModel(VAEModelBase):
     """User-facing QARV handle: single-image and batch compression through
     the fused codec (models/qarv/fused.py)."""
 
+    codec_classes = (fused.FusedQarvCodec, fused.PortableQarvCodec)
+
     def __init__(self, net, device=None):
         super().__init__(net, device)
         self.lmb_range = tuple(float(v) for v in net.lmb_range)
         self.default_lmb = self.lmb_range[1]
         self._coder = ec.DiscretizedGaussian()
         self.compressing = False
-
-    def compress_mode(self, mode=True, coder='fused', num_lanes=128,
-                      esc_cap=8192, word_cap=None, portable=False,
-                      max_program_batch=None):
-        """Prepare entropy coding through the fused codec (coder='fused',
-        the only one the port has). portable=True codes on the portable
-        trunk (ops/trunk.py kernels): its streams decode in any process.
-        num_lanes: 16/32/64/128, or 'auto' (by lambda, _auto_lanes).
-        word_cap caps the coded stream length in 16-bit words; streams that
-        overflow it (or esc_cap escapes) raise OverflowError.
-        max_program_batch caps the images coded at once: larger
-        compress_batch requests run as balanced chunks. Codecs stay cached
-        across calls, keyed by their whole configuration."""
-        if coder != 'fused':
-            raise NotImplementedError(
-                f'coder={coder!r}: the port has only the fused codec')
-        if mode:
-            self._coder.update()
-            self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap,
-                                   portable=bool(portable),
-                                   max_program_batch=max_program_batch)
-            self._fused_codecs = getattr(self, '_fused_codecs', {})
-            self.num_lanes = num_lanes
-            self._fused = self._get_fused(
-                num_lanes if num_lanes != 'auto' else 128)
-        self.compressing = mode
-
-    def _get_fused(self, n_lanes: int, portable=None):
-        """Codec for (lane count, current cfg); `portable` overrides the
-        cfg's trunk kind: decode routes by the stream's marker bit, and
-        compress_file writes portable streams by default."""
-        cfg = dict(self._fused_cfg)
-        if portable is not None:
-            cfg['portable'] = bool(portable)
-        key = (n_lanes,) + tuple(sorted(cfg.items()))
-        codec = self._fused_codecs.get(key)
-        if codec is None:
-            from lvae_tpu_torch.models.qarv import fused
-            kind = (fused.PortableQarvCodec if cfg.pop('portable')
-                    else fused.FusedQarvCodec)
-            codec = kind(self.net, self._coder.cdf_table, num_lanes=n_lanes,
-                         **cfg)
-            self._fused_codecs[key] = codec
-        return codec
 
     @staticmethod
     def _auto_lanes(lmb: float) -> int:
@@ -212,26 +153,6 @@ class QarvModel(VAEModelBase):
         if lmb <= 1536:
             return 64
         return 128
-
-    def _to_input(self, im, batch=False):
-        """Image(s) -> NCHW float32 batch on the device, checked as
-        lvae_tpu/models/qarv/model.py:440-451 checks them: the stride, one
-        image unless `batch`, and values in [0, 1] for host (numpy) input;
-        device tensors are not range-checked."""
-        if not self.compressing:
-            raise RuntimeError('call compress_mode() first')
-        if isinstance(im, np.ndarray) and im.size and not (
-                im.min() >= 0.0 and im.max() <= 1.0):
-            raise ValueError('input values must be in [0, 1]')
-        im = to_nchw_batch(im, self.device)
-        s = self.net.max_stride
-        if im.shape[0] != 1 and not batch:
-            raise ValueError(f'only a single image is supported, got '
-                             f'{tuple(im.shape)}; use compress_batch')
-        if im.shape[2] % s or im.shape[3] % s:
-            raise ValueError(f'input H/W {tuple(im.shape[2:])} must be '
-                             f'divisible by {s} (use compress_file)')
-        return im
 
     @staticmethod
     def _round_lmb(lmb):
@@ -303,17 +224,6 @@ class QarvModel(VAEModelBase):
         handle = fused.encode_batch_async(ims, self._lmb_tensor(lmbs))
         return fused, handle, lmbs, self._grid(ims)
 
-    def compress_batch(self, ims, lmb=None):
-        """Batch encode: B same-shape images (B, H, W, 3) in [0, 1] -> list
-        of B streams, each a standard single-image stream
-        ([f lmb][3H 1 nH nW][body]). lmb: a scalar or one per image. The
-        trunk runs the B images at once; rANS codes them in one multi-image
-        launch. Portable streams decode anywhere, alone or in any batch;
-        legacy ones in this process, through decompress_batch at the same
-        max_program_batch."""
-        return self.compress_batch_finish(
-            self.compress_batch_async(ims, lmb=lmb))
-
     def compress_batch_finish(self, handle):
         """Wait for a compress_batch_async dispatch and return its B
         streams. A serving loop dispatches batch k+1 before finishing batch
@@ -321,6 +231,7 @@ class QarvModel(VAEModelBase):
         compute."""
         fused, fhandle, lmbs, (nH, nW) = handle
         bodies = fused.encode_batch_finish(fhandle)
+        # standard single-image streams: [f lmb][3H 1 nH nW][body]
         return [self._header(v, nH, nW) + b for v, b in zip(lmbs, bodies)]
 
     def decompress_batch_to_device(self, strings):
@@ -329,32 +240,21 @@ class QarvModel(VAEModelBase):
         of them must share."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
-        lmbs, bodies, shapes, fields = [], [], set(), set()
+        lmbs, bodies, shapes = [], [], set()
         for s in strings:
             lmb_v, = struct.unpack('f', s[:4])
             nB, nH, nW = struct.unpack('3H', s[4:10])
             if nB != 1:
                 raise ValueError(f'stream holds {nB} images; expected 1')
             shapes.add((nH, nW))
-            fields.add(struct.unpack('<H', s[18:20])[0])
             lmbs.append(lmb_v)
             bodies.append(s[10:])
         if len(shapes) != 1:
             raise ValueError(f'batch streams must share one image shape, '
                              f'got latent grids {sorted(shapes)}')
-        if len(fields) != 1:
-            raise ValueError(f'mixed lane counts / trunk kinds in batch: '
-                             f'{sorted(fields)}')
         (nH, nW), = shapes
-        lanes_field, = fields
-        fused = self._get_fused(lanes_field & 0x7FFF,
-                                portable=bool(lanes_field & 0x8000))
-        return fused.decode_batch_to_device(bodies, nH, nW,
-                                            self._lmb_tensor(lmbs))
-
-    def decompress_batch(self, strings):
-        """decompress_batch_to_device -> (B, H, W, 3) float32 numpy."""
-        return self.decompress_batch_to_device(strings).float().cpu().numpy()
+        return self._stream_codec(bodies).decode_batch_to_device(
+            bodies, nH, nW, self._lmb_tensor(lmbs))
 
     # ---- decode ---------------------------------------------------------
 
@@ -377,13 +277,8 @@ class QarvModel(VAEModelBase):
                             'decompress_to_device(lmb, nB, nH, nW, body)')
         if nB != 1:
             raise ValueError(f'stream holds {nB} images; expected 1')
-        # route by the stream's lane count and trunk kind (the lane field's
-        # high bit marks a portable stream), whatever compress_mode chose:
-        # a portable file decodes in any process
-        lanes_field, = struct.unpack('<H', body[8:10])
-        fused = self._get_fused(lanes_field & 0x7FFF,
-                                portable=bool(lanes_field & 0x8000))
-        return fused.decode_to_device(body, nH, nW, self._lmb_tensor([lmb]))
+        return self._stream_codec([body]).decode_to_device(
+            body, nH, nW, self._lmb_tensor([lmb]))
 
     def decompress(self, string):
         """Decode -> (1, H, W, 3) float32 numpy image in [0,1]."""

@@ -1,0 +1,230 @@
+"""QRes-VAE (fixed-rate hierarchical VAE): the codec-facing subset of
+``lvae_tpu/models/qresvae/model.py`` in PyTorch, with the MSE output head.
+
+Containers (the JAX package's, so that a file of either package opens in
+the other):
+    compress()        -> [body, (1, nH, nW, width)]
+    compress_file()   -> pickle of [body, (1, nH, nW, width), (h, w)]
+    body              =  the fused payload (models/fused_base.py)
+"""
+import io
+import pickle
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models import entropy_coding as ec
+from lvae_tpu_torch.models.base import VAEModelBase
+from lvae_tpu_torch.models.qresvae import fused
+from lvae_tpu_torch.ops import cdf as cdf_ops
+from lvae_tpu_torch.utils import coding
+
+
+class MSEOutputNet(nn.Module):
+    """The lambda * MSE output head (lvae_tpu/models/qresvae/model.py:34):
+    the decoder's last feature is the image; it has no weights. Its loss is
+    the training slice's."""
+
+    loss_name = 'mse'
+
+    def __init__(self, mse_lmb):
+        super().__init__()
+        self.mse_lmb = float(mse_lmb)
+
+
+class QLatentBlock(nn.Module):
+    """Fixed-rate latent block (lvae_tpu/models/qresvae/model.py:117):
+    ConvNeXt front and end, VDBlock posterior and zero-initialised VDBlock
+    prior, softplus log-scale floor -2.3, a two-conv z projection."""
+
+    is_latent_block = True
+
+    def __init__(self, width, zdim, enc_width=None, kernel_size=7,
+                 rescale_z=1.0):
+        super().__init__()
+        enc_width = enc_width or width
+        self.width, self.zdim, self.kernel_size = width, zdim, kernel_size
+        hidden = int(max(width, enc_width) * 0.25)
+        use_3x3 = kernel_size >= 3
+        self.resnet_front = common.MyConvNeXtBlock(width, kernel_size)
+        self.resnet_end = common.MyConvNeXtBlock(width, kernel_size)
+        self.posterior = common.VDBlock(width + enc_width, hidden, zdim,
+                                        residual=False, use_3x3=use_3x3)
+        self.prior = common.VDBlock(width, hidden, zdim * 2, residual=False,
+                                    use_3x3=use_3x3, zero_last=True)
+        zc = common.conv_k3s1 if use_3x3 else common.conv_k1s1
+        self.z_proj_0 = zc(zdim, hidden // 2)
+        self.z_proj_1 = common.conv_k1s1(hidden // 2, width)
+        self.z_proj_1.init_scale = rescale_z          # common.flax_init_
+        # kept on the module's device, so that the scale-index lookup copies
+        # nothing from the host
+        self.register_buffer('scale_table', torch.as_tensor(
+            cdf_ops.qres_latent_scale_table(), dtype=torch.float32),
+            persistent=False)
+
+    def prior_stage(self, feature):
+        """p(z_i | z_<i) -> (feature_mid, pm, pv, coding indexes int32)."""
+        feature = self.resnet_front(feature)
+        pm, plogv = self.prior(feature).float().chunk(2, dim=1)
+        pv = torch.exp(common.softplus(plogv + 2.3) - 2.3)
+        indexes = ec.build_indexes(pv, self.scale_table)
+        return feature, pm, pv, indexes
+
+    def posterior_qm(self, feature, enc_feature):
+        return self.posterior(torch.cat([feature, enc_feature], dim=1))
+
+    def fuse_stage(self, feature, pm, symbols):
+        z = symbols.float() + pm.float()
+        z = self.z_proj_1(common.gelu(self.z_proj_0(z)))
+        return self.resnet_end(feature + z)
+
+
+class HierarchicalVAENet(nn.Module):
+    """The QRes-VAE network (lvae_tpu/models/qresvae/model.py:248): encoder
+    blocks, decoder blocks, the output head and the decoder's seed bias."""
+
+    def __init__(self, enc_blocks, dec_blocks, out_net, im_shift, im_scale,
+                 max_stride=64):
+        super().__init__()
+        self.enc_blocks = nn.ModuleList(enc_blocks)
+        self.dec_blocks = nn.ModuleList(dec_blocks)
+        self.out_net = out_net
+        self.im_shift, self.im_scale = im_shift, im_scale
+        self.max_stride = max_stride
+        self.bias = nn.Parameter(torch.zeros(1, dec_blocks[0].width, 1, 1))
+
+    def preprocess_input(self, im):
+        return (im + self.im_shift) * self.im_scale
+
+    def encode_features(self, im):
+        """Encoder features keyed by their height: the last block at each
+        resolution wins (lvae_tpu/models/qresvae/model.py:102-114)."""
+        x = self.preprocess_input(im)
+        features = {}
+        for block in self.enc_blocks:
+            x = block(x)
+            features[int(x.shape[2])] = x
+        return features
+
+
+class _Container(pickle.Unpickler):
+    """Reads the pickled container of compress_file: lists, tuples, bytes
+    and ints only; any class or callable in the file is refused."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(
+            f'{module}.{name} in a compressed file: refused')
+
+
+class QresModel(VAEModelBase):
+    """User-facing QRes-VAE handle: single-image and batch compression
+    through the fused codec (models/qresvae/fused.py)."""
+
+    codec_classes = (fused.FusedQresCodec, fused.PortableQresCodec)
+
+    def __init__(self, net, device=None):
+        super().__init__(net, device)
+        self._coder = ec.DiscretizedGaussian(
+            cdf_ops.qres_latent_scale_table())
+        self.compressing = False
+
+    def compress_mode(self, mode=True, coder='fused', num_lanes=128, **cfg):
+        """See VAEModelBase.compress_mode; num_lanes is 16, 32, 64 or 128
+        (the JAX package's default 128): a fixed-rate model has no lambda
+        to choose it by."""
+        if num_lanes not in (16, 32, 64, 128):
+            raise ValueError(f'num_lanes={num_lanes!r}: 16, 32, 64 or 128')
+        super().compress_mode(mode, coder, num_lanes, **cfg)
+
+    def _shape(self, im):
+        """(1, nH, nW, width) of an NCHW input: the object's second entry."""
+        s = self.net.max_stride
+        return (1, im.shape[2] // s, im.shape[3] // s,
+                int(self.net.bias.shape[1]))
+
+    def compress(self, im, portable=None):
+        """Compress one image (NHWC in [0, 1]) -> [body, (1, nH, nW,
+        width)]. `portable` overrides the compress_mode trunk kind for this
+        stream."""
+        im = self._to_input(im)
+        body = self._get_fused(self.num_lanes, portable=portable).encode(im)
+        return [body, self._shape(im)]
+
+    def compress_check(self, im, portable=None):
+        """compress() that also returns the image reconstructed from the
+        encode-side symbols (NHWC float32 numpy): decompress() must
+        reproduce it bitwise."""
+        im = self._to_input(im)
+        body, img = self._get_fused(self.num_lanes,
+                                    portable=portable).encode_check(im)
+        return [body, self._shape(im)], img.float().cpu().numpy()
+
+    def decompress_to_device(self, body, fH, fW):
+        """Decode one body -> (1, H, W, 3) float16 image on the device
+        (asynchronous), routed by the stream's lane field."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        return self._stream_codec([body]).decode_to_device(body, fH, fW)
+
+    def decompress(self, obj):
+        """[body, (1, nH, nW, width)] -> (1, H, W, 3) float32 numpy image."""
+        nB, fH, fW, _ = obj[-1]
+        if nB != 1:
+            raise ValueError(f'stream holds {nB} images; expected 1')
+        return self.decompress_to_device(obj[0], fH, fW).float().cpu().numpy()
+
+    # ---- batch serving (lvae_tpu/models/qresvae/model.py:859-913) -------
+
+    def compress_batch_async(self, ims):
+        """Dispatch-only half of compress_batch: queues the encode of B
+        same-shape images and returns a handle without synchronising the
+        host."""
+        ims = self._to_input(ims, batch=True)
+        codec = self._get_fused(self.num_lanes)
+        return codec, codec.encode_batch_async(ims), self._shape(ims)
+
+    def compress_batch_finish(self, handle):
+        """Wait for a compress_batch_async dispatch -> its B objects. A
+        serving loop dispatches batch k+1 before finishing batch k."""
+        codec, fhandle, shape = handle
+        return [[body, shape] for body in codec.encode_batch_finish(fhandle)]
+
+    def decompress_batch_to_device(self, objs):
+        """Decode B same-shape objects -> (B, H, W, 3) float16 images on the
+        device (asynchronous)."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        shapes = {tuple(o[-1]) for o in objs}
+        if len(shapes) != 1:
+            raise ValueError(f'batch streams must share one image shape, '
+                             f'got {sorted(shapes)}')
+        nB, fH, fW, _ = shapes.pop()
+        if nB != 1:
+            raise ValueError(f'stream holds {nB} images; expected 1')
+        bodies = [o[0] for o in objs]
+        return self._stream_codec(bodies).decode_batch_to_device(bodies, fH,
+                                                                 fW)
+
+    # ---- files ----------------------------------------------------------
+
+    def compress_file(self, img_path, output_path, portable=None):
+        """Compress a PNG (converted to RGB, edge-padded to the stride) into
+        the JAX package's pickled container. Files are portable streams by
+        default, so that they decode in any process; portable=False writes
+        a legacy stream, bound to the writing process."""
+        img = coding.read_png(img_path)
+        padded = coding.pad_divisible_by(img, div=self.net.max_stride)
+        obj = self.compress(padded.astype(np.float32) / 255.0,
+                            portable=True if portable is None else portable)
+        obj.append((int(img.shape[0]), int(img.shape[1])))
+        with open(output_path, 'wb') as f:
+            pickle.dump(obj, file=f)
+
+    def decompress_file(self, bits_path):
+        """-> (1, h, w, 3) float32 numpy image, cropped to the stored size."""
+        with open(bits_path, 'rb') as f:
+            obj = _Container(io.BytesIO(f.read())).load()
+        img_h, img_w = obj.pop()
+        return self.decompress(obj)[:, :img_h, :img_w, :]

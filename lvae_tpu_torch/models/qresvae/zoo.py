@@ -1,0 +1,80 @@
+"""QRes-VAE model zoo, counterpart of ``lvae_tpu/models/qresvae/zoo.py``:
+qres34m with the MSE head. The lossless and qres17m variants are later
+slices of the port."""
+import math
+
+from lvae_tpu_torch.registry import register_model
+from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models.qresvae.model import (
+    HierarchicalVAENet, MSEOutputNet, QLatentBlock, QresModel)
+
+# ImageNet pixel stats
+IMAGENET_SHIFT = -0.4546259594901961
+IMAGENET_SCALE = 3.67572653978347
+
+
+def _check_pretrained(pretrained):
+    if pretrained is True:
+        raise RuntimeError(
+            'no QRes-VAE weights are bundled and nothing can be downloaded; '
+            'pass pretrained=<local path> to a flax .msgpack weight file')
+
+
+def build(net, pretrained, device):
+    """A QresModel of `net`, its weights initialised as the JAX package's
+    flax modules initialise theirs (random) or read from a flax msgpack
+    file of the JAX package (`pretrained`: a local path)."""
+    _check_pretrained(pretrained)
+    common.flax_init_(net)
+    model = QresModel(net, device=device)
+    if pretrained:
+        model.load_weights(pretrained)
+    return model
+
+
+@register_model
+def qres34m(lmb=32, pretrained=False, device=None):
+    """Fixed-rate QRes-VAE, ~34M parameters (lvae_tpu/models/qresvae/
+    zoo.py:37-92): ch 96, 12 latent blocks at 1/64 .. 1/4 resolution with z
+    dims 16/14/12/10/8, max stride 64."""
+    _check_pretrained(pretrained)
+    enc_nums = [6, 6, 6, 4, 2]
+    dec_nums = [1, 2, 3, 3, 3]
+    z_dims = [16, 14, 12, 10, 8]
+    ch = 96
+    B, D = common.MyConvNeXtBlock, common.MyConvNeXtPatchDown
+    enc_blocks = [
+        common.patch_downsample(3, ch * 2, rate=4),
+        *[B(ch * 2, kernel_size=7) for _ in range(enc_nums[0])],
+        D(ch * 2, ch * 4),
+        *[B(ch * 4, kernel_size=7) for _ in range(enc_nums[1])],
+        D(ch * 4, ch * 4),
+        *[B(ch * 4, kernel_size=5) for _ in range(enc_nums[2])],
+        D(ch * 4, ch * 4),
+        *[B(ch * 4, kernel_size=3) for _ in range(enc_nums[3])],
+        D(ch * 4, ch * 4),
+        *[B(ch * 4, kernel_size=1) for _ in range(enc_nums[4])],
+    ]
+    # z_proj's last-conv init scaling: sqrt(N / 3), N the latent blocks
+    rs = math.sqrt(sum(dec_nums) / 3)
+
+    def latent(width, stage, ks):
+        return [QLatentBlock(width, z_dims[stage], kernel_size=ks,
+                             rescale_z=rs) for _ in range(dec_nums[stage])]
+
+    dec_blocks = [
+        *latent(ch * 4, 0, 1),
+        common.patch_upsample(ch * 4, ch * 4, rate=2),
+        *latent(ch * 4, 1, 3),
+        common.patch_upsample(ch * 4, ch * 4, rate=2),
+        *latent(ch * 4, 2, 5),
+        common.patch_upsample(ch * 4, ch * 4, rate=2),
+        *latent(ch * 4, 3, 7),
+        common.patch_upsample(ch * 4, ch * 2, rate=2),
+        *latent(ch * 2, 4, 7),
+        common.patch_upsample(ch * 2, 3, rate=4),
+    ]
+    net = HierarchicalVAENet(enc_blocks, dec_blocks, MSEOutputNet(lmb),
+                             im_shift=IMAGENET_SHIFT, im_scale=IMAGENET_SCALE,
+                             max_stride=64)
+    return build(net, pretrained, device)

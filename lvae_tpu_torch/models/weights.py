@@ -127,9 +127,10 @@ def params_from_flax(tree):
     """Flax parameter tree (numpy leaves) -> the port's state dict, as
     float32 tensors (the committed checkpoints store float16).
 
-    conv kernel (kh, kw, in, out) -> (out, in, kh, kw); depthwise
-    (K, K, 1, C) -> (C, 1, K, K) by the same transpose; dense (in, out) ->
-    (out, in); the decoder's NHWC seed bias (1, 1, 1, C) -> (1, C, 1, 1)."""
+    conv kernel (kh, kw, in, out) -> (out, in, kh, kw), 1x1 and 3x3 alike;
+    depthwise (K, K, 1, C) -> (C, 1, K, K) by the same transpose; dense
+    (in, out) -> (out, in); a LayerNorm's scale -> its weight; the
+    decoder's NHWC seed bias (1, 1, 1, C) -> (1, C, 1, 1)."""
     sd = {}
     for path, leaf in flatten(tree).items():
         a = np.asarray(leaf)

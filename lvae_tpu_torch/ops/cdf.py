@@ -62,6 +62,12 @@ def default_gaussian_scale_table(n=64, lo=0.11, hi=20.0):
     return np.exp(np.linspace(math.log(lo), math.log(hi), n))
 
 
+def qres_latent_scale_table(n=64, lo=0.1, hi=20.0):
+    """The QRes-VAE latent blocks' table: min scale 0.1, not the default
+    0.11 (lvae_tpu/ops/cdf.py:100)."""
+    return np.exp(np.linspace(math.log(lo), math.log(hi), n))
+
+
 def pmf_to_quantized_cdf(pmf, precision=PRECISION):
     """Quantize a PMF into an integer CDF with total 2**precision.
 

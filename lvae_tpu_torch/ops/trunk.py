@@ -2,10 +2,11 @@
 junctions, computed by hand-written CUDA kernels whose results do not depend
 on the process, the batch size or any library's algorithm choice.
 
-Counterpart of ``lvae_tpu/ops/pallas/trunk.py`` (rows 5-11 of the kernel
-table in PERF.md). A rANS stream desyncs when the decoder's recomputed prior
-floats differ from the encoder's by one scale-index flip, so a stream that is
-to decode in another process (a file) must see bitwise the same trunk floats
+Counterpart of ``lvae_tpu/ops/pallas/trunk.py`` (rows 5-17 of the kernel
+table in PERF.md: the QARV trunk, then the QRes-VAE trunk). A rANS stream
+desyncs when the decoder's recomputed prior floats differ from the
+encoder's by one scale-index flip, so a stream that is to decode in another
+process (a file) must see bitwise the same trunk floats
 there. cuDNN and cuBLAS choose algorithms by shape, batch and global flags;
 the kernels of ``csrc/trunk.cu`` do not: each output element's sum over K runs
 in one fixed order (0..K-1, one fused multiply-add chain) that depends only on
@@ -68,18 +69,28 @@ def emb_freqs(embed_dim, sin_period):
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def _mm(x, w):
+    """x (B, M, K) @ w (K, N), one image at a time (torch.bmm), so that an
+    image's rows get the bits they get alone, whatever B: ATen's CPU matmul
+    of the folded (B*M, K) operand picks its kernel by B*M (one row takes
+    the matrix-vector path), and a stream must decode alike alone or in a
+    batch on the plain path too."""
+    return torch.bmm(x, w.expand(x.shape[0], -1, -1))
+
+
 def emb_mlp_plain(lmb, freqs, w0, b0, w1, b1, sin_period):
     scale = float(sin_period) / math.log(8192.0)
     args = (torch.log(lmb.reshape(-1, 1).float()) * scale) * freqs
-    x = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
-    x = _gelu(x @ w0 + b0)
-    emb = x @ w1 + b1
+    x = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)[:, None]
+    x = _gelu(_mm(x, w0) + b0)
+    emb = (_mm(x, w1) + b1)[:, 0]
     return emb, _gelu(emb)
 
 
-def dw_ln_mod_plain(x, dwk, dwb, ew, eb, gemb, kernel_size):
+def _dw_ln_plain(x, dwk, dwb, K):
+    """K x K depthwise conv ('same') + bias, then LayerNorm over C (eps
+    1e-6) without affine."""
     B, H, W, C = x.shape
-    K = kernel_size
     p = (K - 1) // 2
     xp = F.pad(x, (0, 0, p, p, p, p))
     y = torch.zeros_like(x) + dwb
@@ -88,26 +99,31 @@ def dw_ln_mod_plain(x, dwk, dwb, ew, eb, gemb, kernel_size):
             y = y + xp[:, di:di + H, dj:dj + W, :] * dwk[di, dj]
     mu = y.mean(-1, keepdim=True)
     var = torch.square(y - mu).mean(-1, keepdim=True)
-    y = (y - mu) * (1.0 / torch.sqrt(var + 1e-6))
-    e = gemb @ ew + eb
+    return (y - mu) * (1.0 / torch.sqrt(var + 1e-6))
+
+
+def dw_ln_mod_plain(x, dwk, dwb, ew, eb, gemb, kernel_size):
+    C = x.shape[-1]
+    y = _dw_ln_plain(x, dwk, dwb, kernel_size)
+    e = _mm(gemb[:, None], ew)[:, 0] + eb
     shift, scale = e[:, None, None, :C], e[:, None, None, C:]
     return y * (1.0 + scale) + shift
 
 
 def mlp_res_plain(t, w1, b1, w2, b2, gamma, shortcut):
-    o = _gelu(t @ w1 + b1) @ w2 + b2
+    o = _mm(_gelu(_mm(t, w1) + b1), w2) + b2
     return shortcut + o * gamma
 
 
 def dense_plain(x, w, b):
-    return x @ w + b
+    return _mm(x, w) + b
 
 
 def prior_scales_plain(x, w, b, table, act=False):
     """-> (pm, the clamped scales, scale indexes): prior_head's plain version
     with the scales it compares against the table."""
     Z = w.shape[1] // 2
-    p = (_gelu(x) if act else x) @ w + b
+    p = _mm(_gelu(x) if act else x, w) + b
     pm, plogv = p[..., :Z], p[..., Z:]
     pv = torch.exp(_softplus(plogv + 2.3) - 2.3)
     pv = torch.maximum(pv, table[0])
@@ -121,11 +137,49 @@ def prior_head_plain(x, w, b, table, act=False):
 
 
 def fuse_zproj_plain(feature, syms, pm, w, b):
-    return feature + ((syms.to(torch.float32) + pm) @ w + b)
+    return feature + (_mm(syms.to(torch.float32) + pm, w) + b)
 
 
 def finish_image_plain(x):
     return torch.clamp(x, -1.0, 1.0) * 0.5 + 0.5
+
+
+def dw_ln_affine_plain(x, dwk, dwb, scale, bias, kernel_size):
+    return _dw_ln_plain(x, dwk, dwb, kernel_size) * scale + bias
+
+
+def dense_act_plain(x, w, b, act=True):
+    return _mm(_gelu(x) if act else x, w) + b
+
+
+def conv_kxk_act_plain(x, wk, b, act=True):
+    """As the JAX kernel accumulates: the first tap's product plus the
+    bias, then each further tap's product added in (di, dj) order. GELU
+    before the zero padding equals GELU of the padded window (gelu(0) is
+    exactly 0)."""
+    B, H, W, Ci = x.shape
+    K = wk.shape[0]
+    p = (K - 1) // 2
+    xp = F.pad(_gelu(x) if act else x, (0, 0, p, p, p, p))
+    out = None
+    for di in range(K):
+        for dj in range(K):
+            y = _mm(xp[:, di:di + H, dj:dj + W, :].reshape(B, H * W, Ci),
+                    wk[di, dj])
+            out = y + b if out is None else out + y
+    return out.reshape(B, H, W, wk.shape[-1])
+
+
+def zadd_dense_plain(syms, pm, w, b):
+    return _mm(syms.to(torch.float32) + pm, w) + b
+
+
+def zadd_plain(syms, pm):
+    return syms.to(torch.float32) + pm
+
+
+def res_dense_act_plain(f, t, w, b):
+    return (f + _mm(_gelu(t), w)) + b
 
 
 # ---------------------------------------------------------------------------
@@ -312,20 +366,156 @@ def finish_image(x):
     return out.to(torch.float16)
 
 
+# ---- the QRes-VAE trunk (lvae_tpu/ops/pallas/trunk.py:446-748) -----------
+
+def dw_ln_affine(x, dwk, dwb, scale, bias, kernel_size):
+    """K x K depthwise conv ('same', zero padding) + bias -> LayerNorm over C
+    (eps 1e-6) -> y * scale + bias, the plain ConvNeXt block's norm. x (B, H,
+    W, C); dwk (K, K, C); scale, bias (C,)."""
+    if not _on_card('dw_ln_affine', x, dwk, dwb, scale, bias):
+        return dw_ln_affine_plain(x, dwk, dwb, scale, bias, kernel_size)
+    B, H, W, C = x.shape
+    K = int(kernel_size)
+    if dwk.shape != (K, K, C) or scale.shape != (C,) or K % 2 != 1:
+        raise ValueError('dw_ln_affine: bad weight shapes')
+    # the kernel reads (K, K, C) tap-major: free when dwk is contiguous, as
+    # convnext_plain's cached weight is
+    x, dwk, dwb, scale, bias = _f32('dw_ln_affine', x, dwk, dwb, scale, bias)
+    out = torch.empty_like(x)
+    _launch('dw_ln_affine', build.library().trunk_dw_ln_affine, x.data_ptr(),
+            B, H, W, C, K, dwk.data_ptr(), dwb.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), device=x.device)
+    dw_ln_affine.launches += 1
+    return out
+
+
+def dense_act(x, w, b, act=True):
+    """x (B, HW, C) -> (gelu(x) or x) @ w (C, CO) + b."""
+    if not _on_card('dense_act', x, w, b):
+        return dense_act_plain(x, w, b, act)
+    B, HW, C = x.shape
+    if w.shape[0] != C:
+        raise ValueError('dense_act: bad weight shape')
+    x, b = _f32('dense_act', x, b)
+    wt, = _f32('dense_act', _out_major(w))
+    CO = wt.shape[0]
+    out = torch.empty((B, HW, CO), dtype=torch.float32, device=x.device)
+    _launch('dense_act', build.library().trunk_dense_act, x.data_ptr(),
+            B * HW, C, CO, wt.data_ptr(), b.data_ptr(), int(bool(act)),
+            out.data_ptr(), device=x.device)
+    dense_act.launches += 1
+    return out
+
+
+def conv_kxk_act(x, wk, b, act=True):
+    """'same' K x K conv (zero padding) with an optional GELU on the input:
+    x (B, H, W, Ci), wk (K, K, Ci, Co) (the flax layout) -> (B, H, W, Co)."""
+    if not _on_card('conv_kxk_act', x, wk, b):
+        return conv_kxk_act_plain(x, wk, b, act)
+    B, H, W, Ci = x.shape
+    K, Co = wk.shape[0], wk.shape[-1]
+    if wk.shape != (K, K, Ci, Co) or K % 2 != 1:
+        raise ValueError('conv_kxk_act: bad weight shape')
+    x, b = _f32('conv_kxk_act', x, b)
+    # (Co, K*K*Ci), k = (di*K + dj)*Ci + ci: the kernel's tap-major depth;
+    # free when wk is a view of a contiguous (Co, K, K, Ci), as _kxk_w's is
+    wt, = _f32('conv_kxk_act', wk.permute(3, 0, 1, 2).reshape(Co, -1))
+    out = torch.empty((B, H, W, Co), dtype=torch.float32, device=x.device)
+    _launch('conv_kxk_act', build.library().trunk_conv_kxk_act, x.data_ptr(),
+            B, H, W, Ci, K, Co, wt.data_ptr(), b.data_ptr(), int(bool(act)),
+            out.data_ptr(), device=x.device)
+    conv_kxk_act.launches += 1
+    return out
+
+
+def zadd_dense(syms, pm, w, b):
+    """(syms + pm) @ w + b; syms int32 (B, HW, Z), w (Z, CO): the integer
+    junction of a kernel-size-1 QRes block."""
+    if not _on_card('zadd_dense', syms, pm, w, b):
+        return zadd_dense_plain(syms, pm, w, b)
+    B, HW, Z = syms.shape
+    if (syms.dtype != torch.int32 or pm.shape != (B, HW, Z)
+            or w.shape[0] != Z):
+        raise ValueError('zadd_dense: bad symbols/prior/weight shapes')
+    pm, b = _f32('zadd_dense', pm, b)
+    wt, = _f32('zadd_dense', _out_major(w))
+    syms = syms.contiguous()
+    CO = wt.shape[0]
+    out = torch.empty((B, HW, CO), dtype=torch.float32, device=pm.device)
+    _launch('zadd_dense', build.library().trunk_zadd_dense, syms.data_ptr(),
+            pm.data_ptr(), B * HW, Z, CO, wt.data_ptr(), b.data_ptr(),
+            out.data_ptr(), device=pm.device)
+    zadd_dense.launches += 1
+    return out
+
+
+def zadd(syms, pm):
+    """syms (int32) + pm as float32, (B, HW, Z): feeds the 3x3 z_proj_0."""
+    if not _on_card('zadd', syms, pm):
+        return zadd_plain(syms, pm)
+    if syms.dtype != torch.int32 or syms.shape != pm.shape:
+        raise ValueError('zadd: bad symbols/prior shapes')
+    pm, = _f32('zadd', pm)
+    syms = syms.contiguous()
+    out = torch.empty_like(pm)
+    _launch('zadd', build.library().trunk_zadd, syms.data_ptr(),
+            pm.data_ptr(), pm.numel(), out.data_ptr(), device=pm.device)
+    zadd.launches += 1
+    return out
+
+
+def res_dense_act(f, t, w, b):
+    """f + gelu(t) @ w + b, added as (f + product) + b; f (B, HW, C), t
+    (B, HW, Ci), w (Ci, C): the z_proj_1 residual join."""
+    if not _on_card('res_dense_act', f, t, w, b):
+        return res_dense_act_plain(f, t, w, b)
+    B, HW, C = f.shape
+    Ci = t.shape[2]
+    if t.shape != (B, HW, Ci) or w.shape != (Ci, C):
+        raise ValueError('res_dense_act: bad input/weight shapes')
+    f, t, b = _f32('res_dense_act', f, t, b)
+    wt, = _f32('res_dense_act', _out_major(w))
+    out = torch.empty_like(f)
+    _launch('res_dense_act', build.library().trunk_res_dense_act,
+            f.data_ptr(), t.data_ptr(), B * HW, Ci, C, wt.data_ptr(),
+            b.data_ptr(), out.data_ptr(), device=f.device)
+    res_dense_act.launches += 1
+    return out
+
+
 KERNELS = (emb_mlp, dw_ln_mod, mlp_res, dense, prior_head, fuse_zproj,
-           finish_image)
+           finish_image, dw_ln_affine, dense_act, conv_kxk_act, zadd_dense,
+           zadd, res_dense_act)
 PLAIN = {emb_mlp: emb_mlp_plain, dw_ln_mod: dw_ln_mod_plain,
          mlp_res: mlp_res_plain, dense: dense_plain,
          prior_head: prior_head_plain, fuse_zproj: fuse_zproj_plain,
-         finish_image: lambda x: finish_image_plain(x).to(torch.float16)}
+         finish_image: lambda x: finish_image_plain(x).to(torch.float16),
+         dw_ln_affine: dw_ln_affine_plain, dense_act: dense_act_plain,
+         conv_kxk_act: conv_kxk_act_plain, zadd_dense: zadd_dense_plain,
+         zadd: zadd_plain, res_dense_act: res_dense_act_plain}
 for _k in KERNELS:
     _k.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# module adapters (lvae_tpu/ops/pallas/trunk.py:407-432): the port's
-# nn.Module weights -> kernel calls; the weight views cost no copy
+# module adapters (lvae_tpu/ops/pallas/trunk.py:407-432, 493, 690, 720): the
+# port's nn.Module weights -> kernel calls; the weight views cost no copy,
+# and the two layouts that need one are made once per weight (_prepared)
 # ---------------------------------------------------------------------------
+
+def _prepared(param, make):
+    """make(param) kept on the parameter until it changes in place (an
+    in-place op or load_state_dict bumps its version) or its storage moves
+    (.to()). A write through `param.data` bypasses the version counter and
+    is not seen."""
+    key = (param._version, param.data_ptr())
+    hit = getattr(param, '_trunk_layout', None)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, make(param.detach()))
+        param._trunk_layout = hit
+    return hit[1]
+
 
 def convnext_adaln(x, block, gemb):
     """ConvNeXtBlockAdaLN (models/common.py) on an NHWC feature through
@@ -349,3 +539,78 @@ def conv1x1(x, conv):
     w = conv.weight.reshape(conv.out_channels, C).t()
     y = dense(x.reshape(B, H * W, C), w, conv.bias)
     return y.reshape(B, H, W, w.shape[1])
+
+
+# the adapters pass every argument by position, as chip_smoke.py records
+# and replays the wrappers' calls
+
+def _dense_w(conv):
+    """1x1 nn.Conv2d weight (Co, Ci, 1, 1) -> a (Ci, Co) view."""
+    return conv.weight.reshape(conv.out_channels, -1).t()
+
+
+def _kxk_w(conv):
+    """K x K nn.Conv2d weight (Co, Ci, K, K) -> (K, K, Ci, Co), the flax
+    layout conv_kxk_act takes, as a view of a contiguous (Co, K, K, Ci): the
+    kernel's tap-major operand without a copy at each call."""
+    return _prepared(conv.weight,
+                     lambda w: w.permute(0, 2, 3, 1).contiguous()
+                     ).permute(1, 2, 3, 0)
+
+
+def _dw_w(block):
+    """Depthwise nn.Conv2d weight (C, 1, K, K) -> contiguous (K, K, C), the
+    tap-major layout dw_ln_affine's kernel reads."""
+    C, K = block.conv_dw.out_channels, block.kernel_size
+    return _prepared(block.conv_dw.weight,
+                     lambda w: w.reshape(C, K, K).permute(1, 2, 0).contiguous())
+
+
+def convnext_plain(x, block):
+    """MyConvNeXtBlock (models/common.py) on an NHWC feature through
+    dw_ln_affine + mlp_res."""
+    B, H, W, C = x.shape
+    t = dw_ln_affine(x, _dw_w(block), block.conv_dw.bias, block.norm.weight,
+                     block.norm.bias, block.kernel_size)
+    mlp = block.mlp
+    y = mlp_res(t.reshape(B, H * W, C), mlp.fc1.weight.t(), mlp.fc1.bias,
+                mlp.fc2.weight.t(), mlp.fc2.bias, block.gamma,
+                x.reshape(B, H * W, C))
+    return y.reshape(B, H, W, C)
+
+
+def qres_prior_head(f_mid, vd, use_3x3, table):
+    """The QRes prior, a VDBlock with pre-activation GELUs and no residual
+    (models/common.py), then the scale indexes: f_mid (B, H, W, C) -> (pm,
+    indexes int32), each (B, H, W, Z)."""
+    B, H, W, C = f_mid.shape
+    hid = vd.c1.out_channels
+    t = dense_act(f_mid.reshape(B, H * W, C), _dense_w(vd.c1), vd.c1.bias)
+    if use_3x3:
+        t = conv_kxk_act(t.reshape(B, H, W, hid), _kxk_w(vd.c2), vd.c2.bias)
+        t = conv_kxk_act(t, _kxk_w(vd.c3), vd.c3.bias).reshape(B, H * W, hid)
+    else:
+        t = dense_act(t, _dense_w(vd.c2), vd.c2.bias)
+        t = dense_act(t, _dense_w(vd.c3), vd.c3.bias)
+    Z = vd.c4.out_channels // 2
+    pm, idx = prior_head(t, _dense_w(vd.c4), vd.c4.bias, table, True)
+    return pm.reshape(B, H, W, Z), idx.reshape(B, H, W, Z)
+
+
+def qres_fuse(feature, syms, pm, blk):
+    """QLatentBlock.fuse_stage (models/qresvae/model.py): z = syms + pm ->
+    z_proj_0 (3x3 or 1x1) -> GELU -> z_proj_1 -> + feature -> resnet_end;
+    feature (B, H, W, C), syms int32 and pm (B, H, W, Z)."""
+    B, H, W, C = feature.shape
+    Z = syms.shape[-1]
+    s2, pm2 = syms.reshape(B, H * W, Z), pm.reshape(B, H * W, Z)
+    z0 = blk.z_proj_0
+    if blk.kernel_size >= 3:
+        z = zadd(s2, pm2).reshape(B, H, W, Z)
+        t = conv_kxk_act(z, _kxk_w(z0), z0.bias, False)     # no GELU
+        t = t.reshape(B, H * W, z0.out_channels)
+    else:
+        t = zadd_dense(s2, pm2, _dense_w(z0), z0.bias)
+    o = res_dense_act(feature.reshape(B, H * W, C), t,
+                      _dense_w(blk.z_proj_1), blk.z_proj_1.bias)
+    return convnext_plain(o.reshape(B, H, W, C), blk.resnet_end)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: the rANS kernels against their plain
 versions at every lane count the codec uses, the trunk kernels against
-theirs at qarv_tiny shapes, and qarv_tiny round trips (legacy and portable)
-through them.
+theirs at qarv_tiny and qres_tiny shapes, and qarv_tiny and qres_tiny round
+trips (legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -177,8 +177,9 @@ def test_portable_qarv_tiny_roundtrip_on_card(card, tmp_path):
     # compress_check and once in decompress
     per_image = {'emb_mlp': 1, 'dw_ln_mod': 6, 'mlp_res': 6, 'dense': 3,
                  'prior_head': 2, 'fuse_zproj': 2, 'finish_image': 1}
-    for k in trunk.KERNELS:
-        assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
+    for k in trunk.KERNELS:                  # the QRes kernels: none
+        assert (k.launches - counts[k.__name__]
+                == 2 * per_image.get(k.__name__, 0))
 
 
 # ---- the multi-image rANS kernels and batch serving ------------------------
@@ -268,3 +269,90 @@ def test_portable_qarv_tiny_batch_roundtrip_on_card(card):
     assert np.array_equal(dec, recon)
     for b, body in enumerate(bodies):
         assert np.array_equal(model.decompress(body)[0], dec[b])
+
+
+# ---- the QRes-VAE trunk kernels ---------------------------------------------
+
+def _qres_cases(rng, card):
+    """(name, kernel args) at qres_tiny shapes (C = 16, hidden 4, Z = 4; 1x1,
+    4x4 and 16x16 latents) and at one qres34m shape each, ragged row counts
+    and the 3x3 conv's edges included."""
+    from lvae_tpu_torch.ops import trunk
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(
+            np.float32), device=card)
+
+    syms = torch.as_tensor(rng.integers(-900, 900, (1, 63, 4)).astype(
+        np.int32), device=card)
+    return [
+        ('dw_ln_affine', trunk.dw_ln_affine,
+         (f(1, 16, 16, 16), f(7, 7, 16, scale=0.2), f(16), f(16), f(16), 7)),
+        ('dw_ln_affine', trunk.dw_ln_affine,
+         (f(2, 8, 12, 384), f(1, 1, 384), f(384), f(384), f(384), 1)),
+        ('dense_act', trunk.dense_act,
+         (f(1, 16, 16), f(16, 4, scale=0.25), f(4))),
+        ('dense_act', trunk.dense_act,
+         (f(1, 96, 384), f(384, 96, scale=0.05), f(96), False)),
+        ('conv_kxk_act', trunk.conv_kxk_act,
+         (f(1, 9, 7, 4), f(3, 3, 4, 4, scale=0.3), f(4))),
+        ('conv_kxk_act', trunk.conv_kxk_act,
+         (f(2, 16, 24, 96), f(3, 3, 96, 96, scale=0.03), f(96))),
+        ('conv_kxk_act', trunk.conv_kxk_act,
+         (f(1, 9, 7, 4), f(3, 3, 4, 2, scale=0.3), f(2), False)),
+        ('zadd_dense', trunk.zadd_dense,
+         (syms, f(1, 63, 4), f(4, 48, scale=0.01), f(48))),
+        ('zadd', trunk.zadd, (syms, f(1, 63, 4))),
+        ('res_dense_act', trunk.res_dense_act,
+         (f(1, 63, 16), f(1, 63, 2), f(2, 16, scale=0.5), f(16))),
+        ('res_dense_act', trunk.res_dense_act,
+         (f(1, 384, 384), f(1, 384, 48), f(48, 384, scale=0.1), f(384))),
+    ]
+
+
+def test_qres_trunk_kernels_match_plain(card):
+    """Each QRes trunk kernel against its plain version (atol 1e-5, rtol
+    1e-4), one launch counted per call, the same bits on a repeat, and the
+    first image of a batch of two getting the bits it gets alone."""
+    from lvae_tpu_torch.ops import trunk
+    per_image = {'dw_ln_affine': (0,), 'dense_act': (0,),
+                 'conv_kxk_act': (0,), 'zadd_dense': (0, 1), 'zadd': (0, 1),
+                 'res_dense_act': (0, 1)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, fn, args in _qres_cases(np.random.default_rng(1), card):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1, name
+        want = trunk.PLAIN[fn](*args)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        assert torch.equal(fn(*args), got), name
+        two = [torch.cat([a, a.flip(-1)]) if i in per_image[name] else a
+               for i, a in enumerate(args)]
+        assert torch.equal(fn(*two)[:got.shape[0]], got), name
+
+
+def test_portable_qres_tiny_roundtrip_on_card(card):
+    """qres_tiny at 128x192 on the portable trunk: bit-exact, and the QRes
+    kernels launched as the block list says (3 latent blocks: 1x1, 3x3 and
+    7x7; 2 upsamples in the trunk, 1 in the tail) once in compress_check and
+    once in decompress."""
+    from lvae_tpu_torch.ops import trunk
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model('qres_tiny')
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            if name.endswith('posterior.c4.weight'):
+                p.mul_(300.0)                        # make escapes occur
+    model.compress_mode(portable=True, esc_cap=1 << 16)
+    im = np.random.default_rng(0).uniform(0, 1, (1, 128, 192, 3))
+    counts = {k.__name__: k.launches for k in trunk.KERNELS}
+    obj, recon = model.compress_check(im)
+    assert np.array_equal(model.decompress(obj), recon)
+    per_image = {'dw_ln_affine': 6, 'mlp_res': 6, 'dense_act': 5,
+                 'conv_kxk_act': 6, 'prior_head': 3, 'zadd': 2,
+                 'zadd_dense': 1, 'res_dense_act': 3, 'dense': 3,
+                 'finish_image': 1, 'emb_mlp': 0, 'dw_ln_mod': 0,
+                 'fuse_zproj': 0}
+    for k in trunk.KERNELS:
+        assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]

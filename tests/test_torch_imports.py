@@ -1,5 +1,6 @@
-"""The port stands alone: it imports and codes with jax, flax, msgpack and
-PIL all blocked, and no file of it imports them or the JAX package."""
+"""The port stands alone: it imports and codes (qarv_tiny and qres_tiny)
+with jax, flax, msgpack and PIL all blocked, and no file of it imports
+them or the JAX package."""
 import ast
 import os
 import subprocess
@@ -27,6 +28,11 @@ model = lvae_tpu_torch.get_model('qarv_tiny', device='cpu')
 model.compress_mode(num_lanes='auto')
 model.compress_file('images/collie64.png', sys.argv[2], lmb=512.0)
 rec = model.decompress_file(sys.argv[2])
+assert rec.shape == (1, 64, 64, 3) and np.isfinite(rec).all()
+qres = lvae_tpu_torch.get_model('qres_tiny', device='cpu')
+qres.compress_mode(num_lanes=16)
+qres.compress_file('images/collie64.png', sys.argv[2] + '.qres')
+rec = qres.decompress_file(sys.argv[2] + '.qres')
 assert rec.shape == (1, 64, 64, 3) and np.isfinite(rec).all()
 if not torch.cuda.is_available():
     try:

@@ -175,7 +175,7 @@ def test_conv1x1_adapter_matches_jax():
 
 
 def test_pixel_shuffle_nhwc_matches_jax():
-    from lvae_tpu_torch.models.qarv.fused import pixel_shuffle_nhwc
+    from lvae_tpu_torch.models.fused_base import pixel_shuffle_nhwc
     x = np.arange(2 * 3 * 4 * 12, dtype=np.float32).reshape(2, 3, 4, 12)
     want = jcommon.pixel_shuffle(jnp.asarray(x), 2)
     assert np.array_equal(pixel_shuffle_nhwc(_t(x), 2).numpy(),
