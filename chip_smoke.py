@@ -55,14 +55,31 @@
    times); bench.py's qres34m enc_ms / dec_ms on both trunks; then, with
    one channel of the last latent block's posterior scaled x3000 so that
    escapes occur, a portable, a legacy and a B = 2 round trip bitwise;
-8. decodes photo1's qarv portable file, one qarv batch stream as a file and
-   the qres34m file (its weights saved to the temporary directory) in a
-   fresh python3 process with TF32 and cudnn.benchmark on, and checks the
-   pixels bitwise.
+8. runs qres34m_lossless at full width (random weights as in 7, N = 128,
+   esc_cap 1 << 21, more than an image's symbols) on photo1:
+   compress_file / decompress_file on the portable trunk, the PNG's pixels
+   back exactly; compress / decompress bitwise against compress_check; a
+   legacy round trip; the B = 2 request as in 7; every call's launches
+   against the block list (the head: two 1x1 convs, nll_head, and on
+   decode nll_recon and a 13th rANS decode launch); nll_head, nll_recon
+   and the head's dense convs held against their plain versions at every
+   shape of one encode and decode, nll_head and nll_recon bitwise (also on
+   photo1-sized synthetic inputs covering the head's table and the pixel
+   grid's half-points), B = 1 against B = 2 bitwise, with their times; the
+   head block's rANS decode time beside the latent blocks'; enc_ms /
+   dec_ms on both trunks; and a 256x256 crop with the head's scales spread
+   over its table (conv_scale re-drawn from the measured spread of its raw
+   outputs), exact, with escapes and at least 64 distinct head indexes;
+9. decodes photo1's qarv portable file, one qarv batch stream as a file,
+   the qres34m file and the qres34m_lossless file (their weights saved to
+   the temporary directory) in a fresh python3 process with TF32 and
+   cudnn.benchmark on, and checks the pixels bitwise (the lossless file's
+   against the PNG's).
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-codec, trunk, batch, qres, qres_trunk, fresh_process), the card line of
-nvidia-smi, the kernels line, then the result line.
+codec, trunk, batch, qres, qres_trunk, lossless, lossless_trunk,
+fresh_process), the card line of nvidia-smi, the kernels line, then the
+result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
@@ -112,6 +129,10 @@ QRES_TRUNK = ('dw_ln_affine', 'dense_act', 'conv_kxk_act', 'zadd_dense',
 TRUNK_NAMES = QARV_TRUNK + QRES_TRUNK
 QRES_PATH_TRUNK = QRES_TRUNK + ('mlp_res', 'dense', 'prior_head',
                                 'finish_image')
+# the lossless pixel head's kernels, held bitwise against their plain
+# versions (they decide on which grid value each pixel lands)
+LOSSLESS_TRUNK = ('nll_head', 'nll_recon')
+TRUNK_NAMES = TRUNK_NAMES + LOSSLESS_TRUNK
 RANS_NAMES = ('rans_encode_all', 'rans_decode_block',
               'rans_encode_all_multi', 'rans_decode_block_multi')
 _NONE = dict.fromkeys(RANS_NAMES + TRUNK_NAMES, 0)
@@ -138,6 +159,18 @@ EXPECTED_QRES_LAUNCHES = (
 QRES_SEED = 0
 QRES_LANES, QRES_ESC_CAP = 128, 1 << 18     # bench.py:511-518: random init
 QRES_PHOTOS = PHOTOS[:2]                     # the B = 2 batch
+# qres34m_lossless (lvae_tpu/models/qresvae/zoo.py:95-107): qres34m's blocks
+# without the tail's upsample; the head adds its two 1x1 convs (dense) a
+# direction and nll_head, on decode nll_recon and one more rANS decode launch
+# (the H*W*3 pixel symbols)
+_LOSSLESS = dict(_QRES, dense=6, nll_head=1)
+EXPECTED_LOSSLESS_LAUNCHES = (
+    dict(_LOSSLESS, rans_encode_all=1),
+    dict(_LOSSLESS, rans_decode_block=13, nll_recon=1))
+# random weights predict no pixel: most pixel symbols may escape, so the
+# cap holds every symbol of a photo1 image (1,179,648 head + 840,960 latent)
+LOSSLESS_ESC_CAP = 1 << 21
+SPREAD_CROP, MIN_HEAD_INDEXES = 256, 64
 # a batch chunk launches the portable trunk's kernels as often as one image
 # does (on (B, ...) tensors), and the multi-image rANS kernels in place of
 # the single-image ones: 1 encode launch and 9 decode launches
@@ -827,7 +860,8 @@ PER_IMAGE_ARGS = {'emb_mlp': (0,), 'dw_ln_mod': (0, 5), 'mlp_res': (0, 6),
                   'finish_image': (0,), 'dw_ln_affine': (0,),
                   'dense_act': (0,), 'conv_kxk_act': (0,),
                   'zadd_dense': (0, 1), 'zadd': (0, 1),
-                  'res_dense_act': (0, 1)}
+                  'res_dense_act': (0, 1), 'nll_head': (0, 1),
+                  'nll_recon': (0, 1)}
 
 
 def _signature(args):
@@ -893,8 +927,12 @@ def compare_trunk_kernel(torch, name, args):
             if flips:
                 # a flip is allowed only where the plain scale lies within
                 # the float tolerance of a table entry
-                _, pv, _ = trunk.prior_scales_plain(*args)
-                table = args[3]
+                if name == 'nll_head':
+                    _, pv, _ = trunk.nll_scales_plain(*args)
+                    table = args[2]
+                else:
+                    _, pv, _ = trunk.prior_scales_plain(*args)
+                    table = args[3]
                 near = ((pv[flip][:, None] - table[None]).abs()
                         <= TRUNK_ATOL + TRUNK_RTOL * table[None])
                 flips_ok = bool(near.any(1).all())
@@ -909,6 +947,16 @@ def compare_trunk_kernel(torch, name, args):
 def require_trunk_match(what, worst, flips_ok):
     require(worst <= 1.0, f'{what}: disagrees with its plain version')
     require(flips_ok, f'{what}: scale-index flip away from a table entry')
+
+
+def require_bitwise(name, rows):
+    """nll_head and nll_recon must equal their plain versions bitwise at
+    every shape: pm, the scale indexes and the pixels."""
+    for r in rows:
+        require(r['max_abs_err'] == 0.0 and r['index_flips'] == 0,
+                f'{name} at {r.get("shapes")}: not bitwise equal to its '
+                f'plain version (max abs err {r["max_abs_err"]:.3g}, '
+                f'{r["index_flips"]} index flips)')
 
 
 def check_trunk_batch_shapes(torch, model, ims, lmbs):
@@ -1041,6 +1089,15 @@ def work(name, args):
         M = f.shape[0] * f.shape[1]
         return (4 * (2 * n(f) + n(t) + n(w) + n(b)),
                 2 * M * n(w) + GELU_OPS * n(t) + 2 * n(f))
+    if name == 'nll_head':
+        # ~18 operations an element (softplus, the grid rounding, exp, the
+        # clamp) and ~log2(S) compares for the index in the ascending table
+        m, r, table = args[:3]
+        return (4 * (4 * n(m) + n(table)),
+                n(m) * (18 + math.ceil(math.log2(n(table)))))
+    if name == 'nll_recon':
+        syms, pm = args[:2]
+        return 4 * 3 * n(pm), 8 * n(pm)
     raise KeyError(name)
 
 
@@ -1212,16 +1269,17 @@ def check_trunk_kernels(torch, names, cases):
 
 # ---- QRes-VAE (qres34m) ----------------------------------------------------
 
-def build_qres34m(torch):
-    """qres34m at full width on the card, its weights drawn as the JAX
-    package's flax init draws them (lecun-normal kernels, zero biases) from
-    a seeded generator; then each latent block's prior.c4 re-drawn at the
-    same scale: flax zero-initialises it, and with it the prior would give
-    pm = 0 and one scale index everywhere, so that its check would prove
-    nothing. No trained QRes checkpoint exists (bench.py:507-510)."""
+def build_qres34m(torch, name='qres34m'):
+    """qres34m (or qres34m_lossless) at full width on the card, its weights
+    drawn as the JAX package's flax init draws them (lecun-normal kernels,
+    zero biases) from a seeded generator; then each latent block's prior.c4
+    re-drawn at the same scale: flax zero-initialises it, and with it the
+    prior would give pm = 0 and one scale index everywhere, so that its
+    check would prove nothing. No trained QRes checkpoint exists
+    (bench.py:507-510)."""
     import lvae_tpu_torch
     from lvae_tpu_torch.models import common
-    model = lvae_tpu_torch.get_model('qres34m')
+    model = lvae_tpu_torch.get_model(name)
     g = torch.Generator().manual_seed(QRES_SEED)
     common.flax_init_(model.net, g)
     for blk in model.net.dec_blocks:
@@ -1393,6 +1451,305 @@ def run_qres(torch, tmpdir):
             ('qres34m photo1 file', 'qres', path, recon), state)
 
 
+# ---- the lossless pixel head (qres34m_lossless) ---------------------------
+
+def record_calls(module, name, out):
+    """Replace module.name by a wrapper that appends each call's cloned
+    positional arguments, its keyword arguments and its result to `out`;
+    -> a function that restores it. The wrapper carries `.launches`, which
+    the kernel wrapper counts through its module-level name."""
+    fn = getattr(module, name)
+
+    def call(*args, **kwargs):
+        kept = tuple(a.detach().clone() if hasattr(a, 'clone') else a
+                     for a in args)
+        res = fn(*args, **kwargs)
+        out.append((kept, kwargs, res))
+        return res
+    call.launches = 0
+    setattr(module, name, call)
+    return lambda: setattr(module, name, fn)
+
+
+def nll_synthetic(torch, shape, device):
+    """photo1-sized inputs of nll_head and nll_recon: means on the pixel
+    grid's half-points moved by up to 3 ulps (a fifth random in [-3, 3]),
+    raw scales on the head table's entries moved by up to 4 ulps (a tenth
+    random in [-12, 3]), symbols in [-300, 300]."""
+    from lvae_tpu_torch.ops import cdf
+    rng = np.random.default_rng(QRES_SEED)
+    n = int(np.prod(shape))
+    table = cdf.lossless_head_scale_table().astype(np.float32)
+    m = ((rng.integers(-3, 259, n) + 0.5) / 127.5 - 1).astype(np.float32)
+    r = (np.log(table[rng.integers(0, 128, n)].astype(np.float64))
+         + math.log(1 / 127.5)).astype(np.float32)
+    for x, k in ((m, 3), (r, 4)):
+        x += rng.integers(-k, k + 1, n) * np.spacing(x)
+    wild = rng.random(n) < 0.2
+    m[wild] = rng.uniform(-3, 3, int(wild.sum()))
+    wild &= rng.random(n) < 0.5
+    r[wild] = rng.uniform(-12, 3, int(wild.sum()))
+    syms = rng.integers(-300, 301, n).astype(np.int32)
+    return [torch.as_tensor(a.reshape(shape), device=device)
+            for a in (m, r, syms)] + [torch.as_tensor(table, device=device)]
+
+
+def check_nll_synthetic(torch, H, W, device):
+    """nll_head and nll_recon bitwise against their plain versions on the
+    synthetic inputs at (1, H, W, 3) and (2, H, W, 3), the first image of
+    the batch bitwise as alone; -> summary."""
+    from lvae_tpu_torch.ops import trunk
+    both = nll_synthetic(torch, (2, H, W, 3), device)
+    out, alone = {}, None
+    for B in (1, 2):
+        m, r, syms = (a[:B].contiguous() for a in both[:3])
+        table = both[3]
+        pm, idx = trunk.nll_head(m, r, table, 1 / 127.5)
+        want_pm, want_idx = trunk.nll_head_plain(m, r, table, 1 / 127.5)
+        rec = trunk.nll_recon(syms, pm, 1 / 127.5)
+        want_rec = trunk.nll_recon_plain(syms, pm, 1 / 127.5)
+        out[f'B{B}'] = dict(
+            pm_bitwise=bool(torch.equal(pm, want_pm)),
+            index_flips=int((idx != want_idx).sum()),
+            recon_bitwise=bool(torch.equal(rec, want_rec)),
+            distinct_indexes=int(idx.unique().numel()),
+            pixels_min_max=[float(rec.min()), float(rec.max())])
+        if alone is None:
+            alone = (pm, idx, rec)
+        else:
+            out['B2_image0_as_alone'] = all(
+                torch.equal(a[:1], b) for a, b in zip((pm, idx, rec), alone))
+    progress(f'nll kernels on synthetic {H}x{W} inputs: {out}')
+    for B in ('B1', 'B2'):
+        o = out[B]
+        require(o['pm_bitwise'] and o['index_flips'] == 0
+                and o['recon_bitwise'],
+                f'nll kernels at {B} {H}x{W}: not bitwise equal to their '
+                f'plain versions ({o})')
+        require(o['distinct_indexes'] == 128,
+                'synthetic nll inputs do not cover the head table')
+    require(out['B2_image0_as_alone'], 'nll kernels: a batch of two '
+                                       'changes the first image\'s bits')
+    return out
+
+
+def rans_block_times(torch, decode):
+    """Run decode() with rd.rans_decode_block recorded, then time each
+    recorded launch again (CUDA events, median of 5): -> (latent blocks'
+    ms summed, the head block's ms, the head's rows)."""
+    from lvae_tpu_torch.ops import rans_decode as rd
+    calls = []
+    restore = record_calls(rd, 'rans_decode_block', calls)
+    try:
+        decode()
+    finally:
+        restore()
+    ms = [cuda_ms(torch, lambda a=args, k=kw: rd.rans_decode_block(*a, **k),
+                  KERNEL_REPEATS) for args, kw, _ in calls]
+    return sum(ms[:-1]), ms[-1], int(calls[-1][0][0].shape[0])
+
+
+def spread_head_scales(torch, model, crop):
+    """Re-draw conv_scale of the head so that its scales spread over the
+    table: its raw outputs on `crop` at the current weights, measured, are
+    rescaled to unit spread per channel and shifted by a per-channel bias
+    drawn in [-7, -2] (the log-scales of table entries 0.11 .. 20 in bin
+    units lie in [-7.06, -1.85]). -> the old (weight, bias) to restore."""
+    from lvae_tpu_torch.ops import trunk
+    calls = []
+    restore = record_calls(trunk, 'nll_head', calls)
+    try:
+        model.compress(crop)
+    finally:
+        restore()
+    raw = calls[0][0][1].reshape(-1, 3)                     # (pixels, 3)
+    conv = model.net.out_net.conv_scale.conv
+    kept = conv.weight.detach().clone(), conv.bias.detach().clone()
+    g = torch.Generator().manual_seed(QRES_SEED)
+    # conv channel c*16 + (di*4 + dj) feeds pixel channel c (pixel shuffle)
+    std = raw.std(0).repeat_interleave(16)
+    with torch.no_grad():
+        conv.weight.div_(std.reshape(-1, 1, 1, 1).clamp(min=1e-12))
+        conv.bias.copy_(torch.empty(conv.bias.shape).uniform_(
+            -7.0, -2.0, generator=g))
+    return kept
+
+
+def run_lossless(torch, tmpdir):
+    """The lossless phase (module docstring, 8). -> (result dict, {kernel:
+    launches of the photo1 file's compress_file + decompress_file}, kernel
+    check results, fresh-process case, path of the saved weights)."""
+    from lvae_tpu_torch.ops import trunk
+    from lvae_tpu_torch.utils import coding
+    t = time.perf_counter()
+    model = build_qres34m(torch, 'qres34m_lossless')
+    load_s = time.perf_counter() - t
+    state = os.path.join(tmpdir, 'qres34m_lossless_state.pt')
+    torch.save(model.net.state_dict(), state)
+    progress(f'qres34m_lossless built ({model.num_params()} params) in '
+             f'{load_s:.1f} s')
+    u8 = np.stack([coding.read_png(p) for p in QRES_PHOTOS])
+    ims = u8.astype(np.float32) / 255.0
+    im = ims[:1]
+    cfg = dict(num_lanes=QRES_LANES, esc_cap=LOSSLESS_ESC_CAP)
+    model.compress_mode(portable=True, **cfg)
+
+    # 1. the file path (portable): the PNG's pixels back exactly; compress
+    # -> decompress and compress_check's reconstruction, bitwise
+    path = os.path.join(tmpdir, 'photo1.qres34m_lossless.bits')
+    _, enc_l = counted_call(lambda: model.compress_file(QRES_PHOTOS[0],
+                                                         path))
+    rec, dec_l = counted_call(lambda: model.decompress_file(path))
+    obj_chk, recon = model.compress_check(im)
+    obj, c_enc_l = counted_call(lambda: model.compress(im))
+    dec, c_dec_l = counted_call(lambda: model.decompress(obj))
+    with open(path, 'rb') as f:
+        file_body = pickle.loads(f.read())[0]
+    exact = bool(np.array_equal(rec, im))
+    bit_exact = bool(obj == obj_chk and file_body == obj[0]
+                     and np.array_equal(dec, recon)
+                     and np.array_equal(recon, im))
+    n_words, n_esc, lanes_field = struct.unpack('<IIH', obj[0][:10])
+    bpp = os.path.getsize(path) * 8 / (im.shape[1] * im.shape[2])
+    progress(f'qres34m_lossless photo1 portable: {bpp:.4f} bpp, {n_esc} '
+             f'escapes, {n_words} words, exact={exact} '
+             f'bit_exact={bit_exact}')
+
+    # 2. the legacy trunk
+    model.compress_mode(portable=False, **cfg)
+    lobj, lrecon = model.compress_check(im)
+    legacy_ok = bool(np.array_equal(model.decompress(lobj), im)
+                     and np.array_equal(lrecon, im)
+                     and struct.unpack('<H', lobj[0][8:10])[0] == QRES_LANES)
+
+    # 3. a B = 2 request (photo1, photo2), as in the qres phase
+    model.compress_mode(portable=True, **cfg)
+    objs, b_enc_l = counted_call(lambda: model.compress_batch(ims))
+    bdec, b_dec_l = counted_call(lambda: model.decompress_batch(objs))
+    ims_t = torch.as_tensor(ims, device=model.device).permute(0, 3, 1, 2)
+    bodies, brecon = model._fused.encode_check_batch(ims_t.contiguous())
+    batch_ok = bool([o[0] for o in objs] == bodies
+                    and np.array_equal(bdec, brecon)
+                    and np.array_equal(bdec, ims))
+    alone_ok = all(bool(np.array_equal(model.decompress(o)[0], ims[b]))
+                   for b, o in enumerate(objs))
+    singles = [obj, model.compress(ims[1:2])]
+    singles_ok = bool(np.array_equal(model.decompress_batch(singles), ims))
+
+    # 4. the head's kernels at every shape of one photo1 encode + decode
+    # (nll_head, nll_recon bitwise; the head's dense convs as in the qres
+    # phase) and on photo1-sized synthetic inputs
+    kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + ('dense',), [
+        ('photo1', lambda: model.compress(im), model.decompress)])
+    for name in LOSSLESS_TRUNK:
+        require_bitwise(name, kernels[name]['by_shape'])
+    synthetic = check_nll_synthetic(torch, *im.shape[1:3], model.device)
+
+    # 5. the head block's rANS decode apart from the latent blocks'; then
+    # bench.py's qres34m workload on both trunks, as in the qres phase
+    latent_ms, head_ms, head_rows = rans_block_times(
+        torch, lambda: model.decompress(obj))
+    progress(f'rANS decode: latent blocks {latent_ms:.3f} ms, the head '
+             f'block {head_ms:.3f} ms ({head_rows} rows)')
+    im_dev = torch.as_tensor(im, device=model.device)
+    times = {}
+    for portable in (True, False):
+        model.compress_mode(portable=portable, **cfg)
+        enc_ms, o = _host_ms(torch, lambda: model.compress(im_dev), 5)
+        _, fH, fW, _ = o[1]
+        dec_ms, _ = _host_ms(torch, lambda: model.decompress_to_device(
+            o[0], fH, fW), 5)
+        # the decode's host share: parsing the body and pushing it
+        push_ms, _ = _host_ms(torch, lambda: model._fused._push([o[0]]), 5)
+        times['portable' if portable else 'legacy'] = dict(
+            enc_ms=enc_ms, dec_ms=dec_ms, parse_push_ms=push_ms)
+    model.compress_mode(portable=True, **cfg)
+    progress(f'qres34m_lossless times: {times}')
+
+    # 6. spread head scales on a crop (restored after): escapes, and the
+    # head's index math across its table, on both trunks
+    crop = np.ascontiguousarray(im[:, :SPREAD_CROP, :SPREAD_CROP])
+    kept = spread_head_scales(torch, model, crop)
+    spread = {}
+    for portable in (True, False):
+        model.compress_mode(portable=portable, **cfg)
+        heads = []
+        restore = record_calls(trunk, 'nll_head', heads) if portable else (
+            lambda: None)
+        try:
+            sobj, srecon = model.compress_check(crop)
+        finally:
+            restore()
+        sdec = model.decompress(sobj)
+        spread['portable' if portable else 'legacy'] = dict(
+            escapes=struct.unpack('<IIH', sobj[0][:10])[1],
+            bytes=len(sobj[0]),
+            exact=bool(np.array_equal(sdec, crop)
+                       and np.array_equal(srecon, crop)),
+            **({'distinct_head_indexes': int(heads[0][2][1].unique().numel())}
+               if portable else {}))
+    conv = model.net.out_net.conv_scale.conv
+    with torch.no_grad():
+        conv.weight.copy_(kept[0])
+        conv.bias.copy_(kept[1])
+    model.compress_mode(portable=True, **cfg)
+    progress(f'qres34m_lossless spread scales on a {SPREAD_CROP}x'
+             f'{SPREAD_CROP} crop: {spread}')
+
+    want_enc, want_dec = EXPECTED_LOSSLESS_LAUNCHES
+    want_benc = dict(want_enc, rans_encode_all=0, rans_encode_all_multi=1)
+    want_bdec = dict(want_dec, rans_decode_block=0,
+                     rans_decode_block_multi=want_dec['rans_decode_block'])
+    result = dict(
+        model='qres34m_lossless',
+        weights=f'random, flax-style init, seed {QRES_SEED}, prior.c4 '
+                'redrawn', params=model.num_params(), load_s=load_s,
+        image=os.path.relpath(QRES_PHOTOS[0], ROOT), lanes=QRES_LANES,
+        esc_cap=LOSSLESS_ESC_CAP, portable_marker=bool(lanes_field & 0x8000),
+        bytes=os.path.getsize(path), bpp=bpp, escapes=n_esc,
+        n_words=n_words, file_pixels_exact=exact, bit_exact=bit_exact,
+        legacy_exact=legacy_ok,
+        batch_images=[os.path.relpath(p, ROOT) for p in QRES_PHOTOS],
+        batch_exact=batch_ok, batch_stream_alone_exact=alone_ok,
+        single_streams_as_batch_exact=singles_ok,
+        file_encode_launches=enc_l, file_decode_launches=dec_l,
+        compress_launches=c_enc_l, decompress_launches=c_dec_l,
+        batch_encode_launches=b_enc_l, batch_decode_launches=b_dec_l,
+        nll_synthetic=synthetic, rans_decode_latent_ms=latent_ms,
+        rans_decode_head_ms=head_ms, head_rows=head_rows, times=times,
+        trunk_device_ms={d: sum(r[f'{d}_ms'] for r in kernels.values())
+                         for d in ('encode', 'decode')},
+        spread_crop=SPREAD_CROP, spread=spread)
+    require(result['portable_marker'], 'qres34m_lossless: file without the '
+                                       'marker')
+    require(exact, 'qres34m_lossless: the file does not give the PNG\'s '
+                   'pixels back')
+    require(bit_exact, 'qres34m_lossless: portable round trip not exact')
+    require(legacy_ok, 'qres34m_lossless: legacy round trip not exact')
+    require(batch_ok, 'qres34m_lossless: batch round trip not exact')
+    require(alone_ok, 'qres34m_lossless: a batch stream decoded alone '
+                      'differs')
+    require(singles_ok, 'qres34m_lossless: single streams decoded as a '
+                        'batch differ')
+    for what, r in spread.items():
+        require(r['exact'], f'qres34m_lossless spread {what}: not exact')
+        require(r['escapes'] > 0, f'qres34m_lossless spread {what}: no '
+                                  f'escape')
+    require(spread['portable']['distinct_head_indexes'] >= MIN_HEAD_INDEXES,
+            'qres34m_lossless spread: too few distinct head indexes')
+    for got, want, what in ((enc_l, want_enc, 'compress_file'),
+                            (dec_l, want_dec, 'decompress_file'),
+                            (c_enc_l, want_enc, 'compress'),
+                            (c_dec_l, want_dec, 'decompress'),
+                            (b_enc_l, want_benc, 'compress_batch'),
+                            (b_dec_l, want_bdec, 'decompress_batch')):
+        require(got == want, f'qres34m_lossless {what}: launches {got}, '
+                             f'expected {want}')
+    launches = {n: enc_l[n] + dec_l[n] for n in enc_l}
+    return (result, launches, kernels,
+            ('qres34m_lossless photo1 file', 'lossless', path, im), state)
+
+
 _FRESH_DECODE = r'''
 import json
 import sys
@@ -1410,13 +1767,15 @@ if any(kind == 'qarv' for kind, _ in spec['files']):
     models['qarv'] = lvae_tpu_torch.get_model('qarv_base',
                                               pretrained=spec['checkpoint'])
     models['qarv'].compress_mode(num_lanes='auto', portable=True)
-if any(kind == 'qres' for kind, _ in spec['files']):
-    # random weights: the writing process saved them
-    models['qres'] = lvae_tpu_torch.get_model('qres34m')
-    models['qres'].net.load_state_dict(torch.load(
-        spec['qres_state'], map_location='cuda', weights_only=True))
-    models['qres'].compress_mode(num_lanes=spec['qres_lanes'],
-                                 portable=True)
+for kind, name in (('qres', 'qres34m'), ('lossless', 'qres34m_lossless')):
+    if any(k == kind for k, _ in spec['files']):
+        # random weights: the writing process saved them
+        models[kind] = lvae_tpu_torch.get_model(name)
+        models[kind].net.load_state_dict(torch.load(
+            spec['states'][kind], map_location='cuda', weights_only=True))
+        models[kind].compress_mode(num_lanes=spec['qres_lanes'],
+                                   portable=True,
+                                   esc_cap=spec['esc_caps'][kind])
 np.savez(spec['out'], *[models[kind].decompress_file(path)
                         for kind, path in spec['files']])
 assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
@@ -1425,13 +1784,15 @@ print('decoded in a fresh process')
 '''
 
 
-def fresh_process_decode(cases, tmpdir, qres_state):
+def fresh_process_decode(cases, tmpdir, states):
     """Decode portable files in a new python3 process with TF32 and
     cudnn.benchmark on; each file's pixels must equal the ones this process
-    holds for it bitwise. cases: [(label, model kind 'qarv' or 'qres', path,
-    pixels)]; qres_state: the saved qres34m weights."""
+    holds for it bitwise. cases: [(label, model kind 'qarv', 'qres' or
+    'lossless', path, pixels)]; states: {kind: saved weights} of the
+    randomly initialised models."""
     out = os.path.join(tmpdir, 'fresh.npz')
-    spec = dict(checkpoint=CHECKPOINT, qres_state=qres_state,
+    spec = dict(checkpoint=CHECKPOINT, states=states,
+                esc_caps=dict(qres=QRES_ESC_CAP, lossless=LOSSLESS_ESC_CAP),
                 qres_lanes=QRES_LANES, out=out,
                 files=[(kind, path) for _, kind, path, _ in cases])
     t = time.perf_counter()
@@ -1535,9 +1896,14 @@ def main():
             run_qres(torch, tmpdir)
         emit({'qres': qres})
         emit({'qres_trunk': qres_kernels})
+        (lossless, lossless_launches, lossless_kernels, fresh_lossless,
+         lossless_state) = run_lossless(torch, tmpdir)
+        emit({'lossless': lossless})
+        emit({'lossless_trunk': lossless_kernels})
         emit({'fresh_process': fresh_process_decode(
             [('photo1 file, lambda 512', 'qarv', photo512['path'], rec512),
-             fresh_batch, fresh_qres], tmpdir, qres_state)})
+             fresh_batch, fresh_qres, fresh_lossless], tmpdir,
+            dict(qres=qres_state, lossless=lossless_state))})
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),
@@ -1554,6 +1920,10 @@ def main():
     for name in QRES_TRUNK:
         require(launches[name] == 0, f'the qarv file path launched {name}')
         launches[name] = qres_launches[name]
+    for name in LOSSLESS_TRUNK:
+        require(launches[name] == 0 and qres_launches[name] == 0,
+                f'a lossy file path launched {name}')
+        launches[name] = lossless_launches[name]
     require(all(v > 0 for v in launches.values()),
             f'a kernel was not launched on its main path: {launches}')
     rans_sources = {
@@ -1574,7 +1944,9 @@ def main():
         'conv_kxk_act': 'lvae_tpu/ops/pallas/trunk.py:563',
         'zadd_dense': 'lvae_tpu/ops/pallas/trunk.py:609',
         'zadd': 'lvae_tpu/ops/pallas/trunk.py:636',
-        'res_dense_act': 'lvae_tpu/ops/pallas/trunk.py:663'}
+        'res_dense_act': 'lvae_tpu/ops/pallas/trunk.py:663',
+        'nll_head': 'lvae_tpu/ops/pallas/trunk.py:767',
+        'nll_recon': 'lvae_tpu/ops/pallas/trunk.py:807'}
     unit = f'one photo1 image (lambda {main_lmb:g}), compress_file + ' \
            f'decompress_file'
     entries = []
@@ -1621,21 +1993,29 @@ def main():
             by_case=by_case))
     qres_unit = (f'one photo1 image, qres34m (random weights, N = '
                  f'{QRES_LANES}), compress_file + decompress_file')
+    lossless_unit = qres_unit.replace('qres34m', 'qres34m_lossless')
     for name in TRUNK_NAMES:
-        qres_row = name in QRES_TRUNK
-        r = (qres_kernels if qres_row else trunk)[name]
-        enc, dec = ((qres['file_encode_launches'],
-                     qres['file_decode_launches']) if qres_row
+        if name in QRES_TRUNK:
+            r, res, row_unit = qres_kernels[name], qres, qres_unit
+        elif name in LOSSLESS_TRUNK:
+            r, res, row_unit = (lossless_kernels[name], lossless,
+                                lossless_unit)
+        else:
+            r, res, row_unit = trunk[name], None, unit
+        enc, dec = ((res['file_encode_launches'],
+                     res['file_decode_launches']) if res
                     else (main_row['encode_launches'],
                           main_row['decode_launches']))
         entries.append(dict(
             name=name, route='cuda', source='lvae_tpu_torch/csrc/trunk.cu',
             replaces=trunk_sources[name], launches=launches[name],
             launches_encode=enc[name], launches_decode=dec[name],
-            launches_unit=qres_unit if qres_row else unit,
+            launches_unit=row_unit,
             max_abs_err=r['max_abs_err'],
-            index_flips=r['index_flips'] if name == 'prior_head' else None,
-            tolerance=f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}',
+            index_flips=(r['index_flips'] if name in ('prior_head',
+                                                      'nll_head') else None),
+            tolerance=('bitwise' if name in LOSSLESS_TRUNK
+                       else f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}'),
             ms=r['ms'], encode_ms=r['encode_ms'], decode_ms=r['decode_ms'],
             eager_ms=r['eager_ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],

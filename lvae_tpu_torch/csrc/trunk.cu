@@ -2,7 +2,8 @@
 // stream's integer junctions (lambda embedding, ConvNeXt-AdaLN blocks, priors
 // and scale indexes, fuses, 1x1 convs, pixel finish; for QRes-VAE the plain
 // ConvNeXt blocks, the pre-activated 1x1 and K x K convs of the VDBlock
-// prior, and the z-projection junction).
+// prior, the z-projection junction, and the lossless pixel head's grid
+// rounding and exact reconstruction).
 //
 // What they must guarantee: a stream decodes bit-exactly in any process, so
 // each kernel's output bits depend only on its inputs and the weights' shapes.
@@ -464,6 +465,67 @@ __global__ void zadd_kernel(const int* __restrict__ s,
         out[e] = (float)s[e] + pm[e];
 }
 
+// ---------------------------------------------------------------------------
+// The lossless pixel head: the two chains that decide on which grid value a
+// pixel lands. One thread per element, grid-stride, outputs in the inputs'
+// (B, H, W, 3) layout; the Pallas (B, R, 128) row blocking was for the TPU.
+// Every step is one IEEE float32 operation in the plain version's order
+// (lvae_tpu_torch/ops/trunk.py): -fmad=false keeps each a * b + c at two
+// roundings, the two divisions are true divisions (nvcc's default -prec-div;
+// no multiplication by a reciprocal), rintf rounds half to even as
+// jnp.round and torch.round do (roundf would round x.5 away from zero), and
+// expf / logf are the accurate versions.
+// ---------------------------------------------------------------------------
+
+// nll_head. Replaces lvae_tpu/ops/pallas/trunk.py:767 nll_head: logscale
+// floor softplus(r + 16) - 16, the predicted mean rounded to the 255-level
+// pixel grid and expressed in bin units, the scale index as #(table <
+// max(exp(logscale - log bin), table[0])), capped at S - 1. The table sits
+// in shared memory; every thread compares against all S entries in a fixed
+// loop (the same reads, broadcast). Bound: bytes (4 + 4 read, 4 + 4 written
+// an element; the compares are ~log2(S) operations' worth of information).
+__global__ void nll_head_kernel(const float* __restrict__ m,
+                                const float* __restrict__ r, long long n,
+                                const float* __restrict__ table, int S,
+                                float bin_size, float log_bin,
+                                float* __restrict__ pm, int* __restrict__ idx) {
+    extern __shared__ float tb[];
+    for (int i = threadIdx.x; i < S; i += blockDim.x) tb[i] = table[i];
+    __syncthreads();
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (long long)gridDim.x * blockDim.x) {
+        const float ls = softplus_ref(r[e] + 16.0f) - 16.0f;
+        const float grid = rintf(m[e] * 127.5f + 127.5f);
+        pm[e] = (grid / 127.5f - 1.0f) / bin_size;
+        const float pv = fmaxf(expf(ls - log_bin), tb[0]);
+        int count = 0;
+#pragma unroll 8
+        for (int i = 0; i < S; ++i) count += tb[i] < pv ? 1 : 0;
+        idx[e] = min(count, S - 1);
+    }
+}
+
+// nll_recon. Replaces lvae_tpu/ops/pallas/trunk.py:807 nll_recon: the exact
+// pixel round(255 * (clip((float(s) + pm) * bin, -1, 1) * 0.5 + 0.5)), an
+// integer-valued float (the uint8 cast stays outside). Bound: bytes (4 + 4
+// read, 4 written an element).
+__global__ void nll_recon_kernel(const int* __restrict__ s,
+                                 const float* __restrict__ pm, long long n,
+                                 float bin_size, float* __restrict__ out) {
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (long long)gridDim.x * blockDim.x) {
+        const float x = ((float)s[e] + pm[e]) * bin_size;
+        out[e] = rintf((fminf(fmaxf(x, -1.0f), 1.0f) * 0.5f + 0.5f) * 255.0f);
+    }
+}
+
+// Grid of the elementwise kernels: 256 threads a block, at most 4096 blocks
+// (grid-stride beyond).
+unsigned elementwise_blocks(long long n) {
+    const long long blocks = (n + 255) / 256;
+    return (unsigned)(blocks < 4096 ? blocks : 4096);
+}
+
 cudaError_t set_device(int device) { return cudaSetDevice(device); }
 
 const float* x_f(const void* p) { return (const float*)p; }
@@ -586,9 +648,8 @@ extern "C" int trunk_finish_image(const void* x, long long n, void* out,
                                   int device, void* stream) {
     if (n < 1) return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
-    const long long blocks = (n + 255) / 256;
-    finish_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                    (cudaStream_t)stream>>>((const float*)x, n, (float*)out);
+    finish_kernel<<<elementwise_blocks(n), 256, 0, (cudaStream_t)stream>>>(
+        (const float*)x, n, (float*)out);
     return (int)cudaGetLastError();
 }
 
@@ -677,10 +738,8 @@ extern "C" int trunk_zadd(const void* syms, const void* pm, long long n,
                           void* out, int device, void* stream) {
     if (n < 1) return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
-    const long long blocks = (n + 255) / 256;
-    zadd_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                  (cudaStream_t)stream>>>((const int*)syms, x_f(pm), n,
-                                          (float*)out);
+    zadd_kernel<<<elementwise_blocks(n), 256, 0, (cudaStream_t)stream>>>(
+        (const int*)syms, x_f(pm), n, (float*)out);
     return (int)cudaGetLastError();
 }
 
@@ -697,4 +756,38 @@ extern "C" int trunk_res_dense_act(const void* feature, const void* t, int M,
         M, C, Ci, LoadGeluRows{x_f(t), Ci}, x_f(wt),
         StoreResidualBias{(float*)out, x_f(b), x_f(feature), C},
         (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The lossless pixel head (lvae_tpu/ops/pallas/trunk.py:740-822).
+// ---------------------------------------------------------------------------
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:767 nll_head. p_mean, p_scale_raw,
+// pm (float32) and idx (int32) hold n elements each; table (S,) ascending,
+// S <= 1024. bin_size and log_bin are float32(1/127.5) and
+// float32(log(1/127.5)), rounded once from double as JAX's weakly typed
+// Python floats are.
+extern "C" int trunk_nll_head(const void* p_mean, const void* p_scale_raw,
+                              long long n, const void* table, int S,
+                              float bin_size, float log_bin, void* pm,
+                              void* idx, int device, void* stream) {
+    if (n < 1 || S < 1 || S > 1024) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    nll_head_kernel<<<elementwise_blocks(n), 256, S * sizeof(float),
+                      (cudaStream_t)stream>>>(
+        x_f(p_mean), x_f(p_scale_raw), n, x_f(table), S, bin_size, log_bin,
+        (float*)pm, (int*)idx);
+    return (int)cudaGetLastError();
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:807 nll_recon. syms int32, pm and
+// out float32, n elements each.
+extern "C" int trunk_nll_recon(const void* syms, const void* pm, long long n,
+                               float bin_size, void* out, int device,
+                               void* stream) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    nll_recon_kernel<<<elementwise_blocks(n), 256, 0, (cudaStream_t)stream>>>(
+        (const int*)syms, x_f(pm), n, bin_size, (float*)out);
+    return (int)cudaGetLastError();
 }

@@ -35,6 +35,16 @@ def to_nchw_batch(im, device) -> torch.Tensor:
     return t.contiguous()
 
 
+def host_image(img):
+    """(B, H, W, 3) decoded image on the device -> float32 numpy; a uint8
+    image (the lossless head's exact pixels) as u8 / 255, as the JAX package
+    returns it."""
+    a = img.cpu().numpy()
+    if a.dtype == np.uint8:
+        return a.astype(np.float32) / 255.0
+    return a.astype(np.float32)
+
+
 class VAEModelBase:
     """Owns the network, the device it runs on and its fused codecs. A
     family sets `_coder` (models/entropy_coding.DiscretizedGaussian of its
@@ -100,9 +110,13 @@ class VAEModelBase:
             legacy, portable_kind = self.codec_classes
             kind = portable_kind if cfg.pop('portable') else legacy
             codec = kind(self.net, self._coder.cdf_table, num_lanes=n_lanes,
-                         **cfg)
+                         **cfg, **self._codec_tables())
             self._fused_codecs[key] = codec
         return codec
+
+    def _codec_tables(self):
+        """Extra CDF tables a family's codec takes (QRes's lossless head)."""
+        return {}
 
     def _stream_codec(self, bodies):
         """The codec of the streams' lane count and trunk kind (the lane
@@ -132,7 +146,7 @@ class VAEModelBase:
 
     def decompress_batch(self, objs):
         """decompress_batch_to_device -> (B, H, W, 3) float32 numpy."""
-        return self.decompress_batch_to_device(objs).float().cpu().numpy()
+        return host_image(self.decompress_batch_to_device(objs))
 
     def _to_input(self, im, batch=False):
         """Image(s) -> NCHW float32 batch on the device, checked as the JAX

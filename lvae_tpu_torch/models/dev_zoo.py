@@ -1,6 +1,6 @@
-"""Tiny development models for the tests, counterparts of qarv_tiny and
-qres_tiny (MSE head) in ``lvae_tpu/models/dev_zoo.py``: the production
-topologies at 16 channels."""
+"""Tiny development models for the tests, counterparts of qarv_tiny,
+qres_tiny and qres_tiny_lossless in ``lvae_tpu/models/dev_zoo.py``: the
+production topologies at 16 channels."""
 from lvae_tpu_torch.registry import register_model
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models.qarv import model as qarv
@@ -46,7 +46,7 @@ def qarv_tiny(lmb_range=(16, 2048), device=None):
 
 
 @register_model
-def qres_tiny(lmb=32, device=None):
+def qres_tiny(lmb=32, lossless=False, device=None):
     ch = 16
     z = [4, 4, 4]
     enc_blocks = [
@@ -63,9 +63,20 @@ def qres_tiny(lmb=32, device=None):
         qres.QLatentBlock(ch, z[1], kernel_size=3),              # 1/16
         common.patch_upsample(ch, ch, rate=4),
         qres.QLatentBlock(ch, z[2], kernel_size=7),              # 1/4
-        common.patch_upsample(ch, 3, rate=4),
     ]
+    if lossless:
+        out_net = qres.GaussianNLLOutputNet(
+            conv_mean=common.patch_upsample(ch, 3, rate=4),
+            conv_scale=common.patch_upsample(ch, 3, rate=4))
+    else:
+        dec_blocks.append(common.patch_upsample(ch, 3, rate=4))
+        out_net = qres.MSEOutputNet(lmb)
     net = qres.HierarchicalVAENet(
-        enc_blocks, dec_blocks, qres.MSEOutputNet(lmb), im_shift=-0.45,
-        im_scale=3.67, max_stride=64)
+        enc_blocks, dec_blocks, out_net, im_shift=-0.45, im_scale=3.67,
+        max_stride=64)
     return qres_zoo.build(net, False, device)
+
+
+@register_model
+def qres_tiny_lossless(device=None):
+    return qres_tiny(lossless=True, device=device)

@@ -25,6 +25,17 @@ On both trunks the encoder backbone and the posterior stay library
 convolutions (NCHW), because their outputs only choose which symbols are
 written (lvae_tpu/models/qarv/fused.py:36-41).
 
+A lossless pixel head (QRes's GaussianNLL head, given by `head_cdf_table`)
+is coded as one more block after the latent ones, in the same stream
+(lvae_tpu/models/fused_base.py:117-145, qresvae/fused.py:1-16): the whole
+decoder chain is trunk, and the head's means and scale indexes (the
+family's `_head_tensors`) are trunk floats too. Its H*W*3 symbols come from
+the image on encode (`_head_symbols`) and from one more rANS decode launch
+on decode, and the image is `_head_recon` of them: exact uint8 pixels. The
+encode kernel takes one table, so the head's CDF rows follow the latent
+rows in the encode-side table (head indexes biased by `head_index_base`);
+the decode kernel gets the head's own table and unbiased indexes.
+
 Wire format of the fused payload (little-endian), identical to the JAX
 package's:
     [I n_words][I n_esc][H num_lanes]
@@ -47,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models.base import host_image
 from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
 from lvae_tpu_torch.ops import trunk
@@ -147,16 +159,38 @@ class FusedCodecBase:
     trunk_scope = staticmethod(_exact_f32)
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
-                 word_cap=None, max_program_batch=None, device=None):
+                 word_cap=None, max_program_batch=None, device=None,
+                 head_cdf_table=None):
         self.net = net
         self.device = (torch.device(device) if device is not None
                        else net.bias.device)
         self._check_table(cdf_table)
         cdfs_np, offs_np = rd.prepare_device_cdf(cdf_table)
-        self.cdfs = torch.as_tensor(cdfs_np, device=self.device)
-        self.offsets = torch.as_tensor(offs_np, device=self.device)
-        self.lengths = torch.as_tensor(cdf_table.cdf_lengths.astype(np.int32),
-                                       device=self.device)
+        lengths_np = cdf_table.cdf_lengths.astype(np.int32)
+        dev = self.device
+        self.cdfs = torch.as_tensor(cdfs_np, device=dev)
+        self.offsets = torch.as_tensor(offs_np, device=dev)
+        self.head_index_base = None
+        if head_cdf_table is not None:
+            # the encode side codes all blocks against one table: the head's
+            # rows after the latent rows, both padded to one row length
+            self._check_table(head_cdf_table)
+            h_np, h_offs = rd.prepare_device_cdf(head_cdf_table)
+            L = max(cdfs_np.shape[1], h_np.shape[1])
+
+            def pad(a):
+                return np.pad(a, ((0, 0), (0, L - a.shape[1])),
+                              constant_values=rd._SENTINEL)
+            self.head_index_base = cdfs_np.shape[0]
+            self.head_cdfs = torch.as_tensor(h_np, device=dev)
+            self.head_offsets = torch.as_tensor(h_offs, device=dev)
+            cdfs_np = np.concatenate([pad(cdfs_np), pad(h_np)])
+            offs_np = np.concatenate([offs_np, h_offs])
+            lengths_np = np.concatenate(
+                [lengths_np, head_cdf_table.cdf_lengths.astype(np.int32)])
+        self.enc_cdfs = torch.as_tensor(cdfs_np, device=dev)
+        self.enc_offsets = torch.as_tensor(offs_np, device=dev)
+        self.enc_lengths = torch.as_tensor(lengths_np, device=dev)
         self.N = int(num_lanes)
         self.esc_cap = int(esc_cap)
         # optional cap on the coded stream length in 16-bit words: every
@@ -250,7 +284,14 @@ class FusedCodecBase:
         with self.trunk_scope():
             feature, tctx, syms_flat, idx_flat = self._trunk(
                 ctx, B, imH // ms, imW // ms, posterior_symbols)
-            image = self._tail(feature, tctx) if want_image else None
+            if self.head_index_base is None:
+                image = self._tail(feature, tctx) if want_image else None
+            else:                              # the lossless head's block
+                pm, idx = self._head_tensors(feature)
+                xs = self._head_symbols(im, pm)
+                syms_flat.append(xs.reshape(B, -1))
+                idx_flat.append((idx + self.head_index_base).reshape(B, -1))
+                image = self._head_recon(xs, pm) if want_image else None
         if batch:
             return self.pack_payload_batch(syms_flat, idx_flat), image
         return self.pack_payload([s[0] for s in syms_flat],
@@ -270,19 +311,19 @@ class FusedCodecBase:
     def _decode(self, states, streams, esc_pos, esc_val, nH, nW, *ctx,
                 batch=False):
         """states (B, N), streams (B, W), esc_pos/esc_val (B, E) and the
-        per-image context on the device -> (B, H, W, 3) float16 images. A
-        single image (batch=False, B = 1) decodes through the single-image
-        rANS kernel, a batch through one multi-image launch per latent
-        block."""
+        per-image context on the device -> (B, H, W, 3) images: float16, or
+        uint8 from a lossless head. A single image (batch=False, B = 1)
+        decodes through the single-image rANS kernel, a batch through one
+        multi-image launch per block."""
         N = self.N
         B = states.shape[0]
         ptr = torch.zeros((B,) if batch else (), dtype=torch.int32,
                           device=self.device)
         carry = {'states': states, 'ptr': ptr, 'start': 0}
 
-        def decoded_symbols(blk, f_mid, pm, indexes, tctx):
-            _, H, W, Z = self._to(pm, 'NHWC').shape
-            flat_idx = self._to(indexes, 'NHWC').reshape(B, -1)
+        def decode_block(flat_idx, cdfs, offsets):
+            """The next block's symbols (B, nsym), its escapes patched in,
+            from its indexes (B, nsym) against the table (cdfs, offsets)."""
             nsym = flat_idx.shape[1]
             T = max((nsym + N - 1) // N, 1)
             idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(B, T, N)
@@ -290,20 +331,31 @@ class FusedCodecBase:
                 vals, carry['states'], carry['ptr'] = (
                     rd.rans_decode_block_multi(
                         idx_rows, carry['states'], carry['ptr'], streams,
-                        self.cdfs, self.offsets, nsym, num_lanes=N))
+                        cdfs, offsets, nsym, num_lanes=N))
             else:
                 vals, carry['states'], carry['ptr'] = rd.rans_decode_block(
                     idx_rows[0], carry['states'], carry['ptr'], streams[0],
-                    self.cdfs, self.offsets, nsym, num_lanes=N)
+                    cdfs, offsets, nsym, num_lanes=N)
             z = patch_escapes(vals.reshape(B, -1)[:, :nsym], esc_pos, esc_val,
                               carry['start'])
             carry['start'] += nsym
-            return self._from(z.reshape(B, H, W, Z), 'NHWC')
+            return z
+
+        def decoded_symbols(blk, f_mid, pm, indexes, tctx):
+            shape = self._to(pm, 'NHWC').shape
+            z = decode_block(self._to(indexes, 'NHWC').reshape(B, -1),
+                             self.cdfs, self.offsets)
+            return self._from(z.reshape(shape), 'NHWC')
 
         with self.trunk_scope():
             feature, tctx, _, _ = self._trunk(ctx, B, nH, nW,
                                               decoded_symbols)
-            return self._tail(feature, tctx)
+            if self.head_index_base is None:
+                return self._tail(feature, tctx)
+            pm, idx = self._head_tensors(feature)      # the lossless head
+            xs = decode_block(idx.reshape(B, -1), self.head_cdfs,
+                              self.head_offsets)
+            return self._head_recon(xs.reshape(pm.shape), pm)
 
     # ---- encode side ---------------------------------------------------
 
@@ -314,15 +366,16 @@ class FusedCodecBase:
         N, esc_cap = self.N, self.esc_cap
         values = torch.cat(syms_flat)
         idx_all = torch.cat(idx_flat)
-        inband, esc_mask = re_.prepare_inband(values, idx_all, self.offsets,
-                                              self.lengths)
+        inband, esc_mask = re_.prepare_inband(values, idx_all,
+                                              self.enc_offsets,
+                                              self.enc_lengths)
         n_esc_true = esc_mask.sum()
         esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values, esc_cap)
 
         sym_cat, idx_cat, row_n, w_cap = self._row_layout(
             inband[None], idx_all[None], [v.shape[0] for v in syms_flat])
         packed, n_words, states = re_.rans_encode_all(
-            sym_cat[0], idx_cat[0], row_n, self.cdfs, num_lanes=N,
+            sym_cat[0], idx_cat[0], row_n, self.enc_cdfs, num_lanes=N,
             w_cap=w_cap)
         head = torch.cat([
             torch.stack([n_words, n_esc_true.to(torch.int32),
@@ -341,14 +394,16 @@ class FusedCodecBase:
         values = torch.cat(syms_flat, 1)                        # (B, total)
         idx_all = torch.cat(idx_flat, 1)
         B = values.shape[0]
-        inband, esc_mask = re_.prepare_inband(values, idx_all, self.offsets,
-                                              self.lengths)
+        inband, esc_mask = re_.prepare_inband(values, idx_all,
+                                              self.enc_offsets,
+                                              self.enc_lengths)
         n_esc_true = esc_mask.sum(1)
         esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values, esc_cap)
         sym_cat, idx_cat, row_n, w_cap = self._row_layout(
             inband, idx_all, [v.shape[1] for v in syms_flat])
         packed, n_words, states = re_.rans_encode_all_multi(
-            sym_cat, idx_cat, row_n, self.cdfs, num_lanes=N, w_cap=w_cap)
+            sym_cat, idx_cat, row_n, self.enc_cdfs, num_lanes=N,
+            w_cap=w_cap)
         head = torch.cat([
             torch.stack([n_words, n_esc_true.to(torch.int32),
                          torch.full_like(n_words, N)], 1),
@@ -484,7 +539,8 @@ class FusedCodecBase:
 
     def encode_check_batch(self, ims, *ctx):
         """encode_batch that also returns the images reconstructed from the
-        encode-side symbols ((B, H, W, 3) float32 numpy), chunked exactly
+        encode-side symbols ((B, H, W, 3) float32 numpy, models/base.py
+        host_image), chunked exactly
         like encode_batch so that the reconstruction comes from the trunk
         runs that wrote the streams."""
         bodies, imgs = [], []
@@ -492,7 +548,7 @@ class FusedCodecBase:
             payload, img = self._encode(ims[a:b], *(c[a:b] for c in ctx),
                                         want_image=True, batch=True)
             bodies += self._payloads_to_bytes(payload)
-            imgs.append(img.float().cpu().numpy())
+            imgs.append(host_image(img))
         return bodies, np.concatenate(imgs)
 
     # ---- decode side ---------------------------------------------------

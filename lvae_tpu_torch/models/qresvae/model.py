@@ -1,5 +1,6 @@
 """QRes-VAE (fixed-rate hierarchical VAE): the codec-facing subset of
-``lvae_tpu/models/qresvae/model.py`` in PyTorch, with the MSE output head.
+``lvae_tpu/models/qresvae/model.py`` in PyTorch, with the MSE output head or
+the lossless (GaussianNLL) pixel head.
 
 Containers (the JAX package's, so that a file of either package opens in
 the other):
@@ -8,6 +9,7 @@ the other):
     body              =  the fused payload (models/fused_base.py)
 """
 import io
+import math
 import pickle
 
 import numpy as np
@@ -16,7 +18,7 @@ import torch.nn as nn
 
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models import entropy_coding as ec
-from lvae_tpu_torch.models.base import VAEModelBase
+from lvae_tpu_torch.models.base import VAEModelBase, host_image
 from lvae_tpu_torch.models.qresvae import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.utils import coding
@@ -32,6 +34,32 @@ class MSEOutputNet(nn.Module):
     def __init__(self, mse_lmb):
         super().__init__()
         self.mse_lmb = float(mse_lmb)
+
+
+class GaussianNLLOutputNet(nn.Module):
+    """The per-pixel discretized-Gaussian head of the lossless models
+    (lvae_tpu/models/qresvae/model.py:53-99): two patch_upsample convs give
+    each pixel's mean and log-scale; a pixel is coded as the integer distance
+    of its value from the mean rounded to the 255-level grid, against a
+    128-entry scale table in bin units, so it decodes exactly."""
+
+    loss_name = 'nll'
+
+    def __init__(self, conv_mean, conv_scale, bin_size=1 / 127.5):
+        super().__init__()
+        self.conv_mean, self.conv_scale = conv_mean, conv_scale
+        self.bin_size = bin_size
+
+    def codec_tensors(self, feature):
+        """The legacy trunk's head: NCHW feature -> (pm, plogv) in bin units,
+        NCHW, through the library convs; softplus in jax.nn.softplus's form,
+        as the JAX module computes it."""
+        feature = feature.float()
+        p_mean = self.conv_mean(feature)
+        p_logscale = common.softplus(self.conv_scale(feature) + 16.0) - 16.0
+        pm = torch.round(p_mean * 127.5 + 127.5) / 127.5 - 1.0
+        pm = pm / self.bin_size
+        return pm, p_logscale - math.log(self.bin_size)
 
 
 class QLatentBlock(nn.Module):
@@ -120,15 +148,26 @@ class _Container(pickle.Unpickler):
 
 class QresModel(VAEModelBase):
     """User-facing QRes-VAE handle: single-image and batch compression
-    through the fused codec (models/qresvae/fused.py)."""
+    through the fused codec (models/qresvae/fused.py). A lossless model's
+    pixels come back exact: decompress returns u8 / 255 as float32, and
+    decompress_to_device the uint8 image."""
 
     codec_classes = (fused.FusedQresCodec, fused.PortableQresCodec)
 
     def __init__(self, net, device=None):
         super().__init__(net, device)
+        self.lossless = isinstance(net.out_net, GaussianNLLOutputNet)
         self._coder = ec.DiscretizedGaussian(
             cdf_ops.qres_latent_scale_table())
+        self._head_coder = (ec.DiscretizedGaussian(
+            cdf_ops.lossless_head_scale_table()) if self.lossless else None)
         self.compressing = False
+
+    def _codec_tables(self):
+        """The lossless head's CDF table, coded after the latent blocks."""
+        if not self.lossless:
+            return {}
+        return dict(head_cdf_table=self._head_coder.update())
 
     def compress_mode(self, mode=True, coder='fused', num_lanes=128, **cfg):
         """See VAEModelBase.compress_mode; num_lanes is 16, 32, 64 or 128
@@ -159,11 +198,12 @@ class QresModel(VAEModelBase):
         im = self._to_input(im)
         body, img = self._get_fused(self.num_lanes,
                                     portable=portable).encode_check(im)
-        return [body, self._shape(im)], img.float().cpu().numpy()
+        return [body, self._shape(im)], host_image(img)
 
     def decompress_to_device(self, body, fH, fW):
-        """Decode one body -> (1, H, W, 3) float16 image on the device
-        (asynchronous), routed by the stream's lane field."""
+        """Decode one body -> (1, H, W, 3) image on the device (asynchronous;
+        float16, or uint8 for a lossless model), routed by the stream's lane
+        field."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
         return self._stream_codec([body]).decode_to_device(body, fH, fW)
@@ -173,7 +213,7 @@ class QresModel(VAEModelBase):
         nB, fH, fW, _ = obj[-1]
         if nB != 1:
             raise ValueError(f'stream holds {nB} images; expected 1')
-        return self.decompress_to_device(obj[0], fH, fW).float().cpu().numpy()
+        return host_image(self.decompress_to_device(obj[0], fH, fW))
 
     # ---- batch serving (lvae_tpu/models/qresvae/model.py:859-913) -------
 
@@ -192,8 +232,8 @@ class QresModel(VAEModelBase):
         return [[body, shape] for body in codec.encode_batch_finish(fhandle)]
 
     def decompress_batch_to_device(self, objs):
-        """Decode B same-shape objects -> (B, H, W, 3) float16 images on the
-        device (asynchronous)."""
+        """Decode B same-shape objects -> (B, H, W, 3) images on the device
+        (asynchronous; float16, or uint8 for a lossless model)."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
         shapes = {tuple(o[-1]) for o in objs}

@@ -1,12 +1,13 @@
 """QRes-VAE model zoo, counterpart of ``lvae_tpu/models/qresvae/zoo.py``:
-qres34m with the MSE head. The lossless and qres17m variants are later
-slices of the port."""
+qres34m with the MSE head and qres34m_lossless with the GaussianNLL pixel
+head. qres17m is a later slice of the port."""
 import math
 
 from lvae_tpu_torch.registry import register_model
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models.qresvae.model import (
-    HierarchicalVAENet, MSEOutputNet, QLatentBlock, QresModel)
+    GaussianNLLOutputNet, HierarchicalVAENet, MSEOutputNet, QLatentBlock,
+    QresModel)
 
 # ImageNet pixel stats
 IMAGENET_SHIFT = -0.4546259594901961
@@ -32,12 +33,11 @@ def build(net, pretrained, device):
     return model
 
 
-@register_model
-def qres34m(lmb=32, pretrained=False, device=None):
-    """Fixed-rate QRes-VAE, ~34M parameters (lvae_tpu/models/qresvae/
+def _qres34m_blocks(lossless):
+    """qres34m's encoder and decoder blocks (lvae_tpu/models/qresvae/
     zoo.py:37-92): ch 96, 12 latent blocks at 1/64 .. 1/4 resolution with z
-    dims 16/14/12/10/8, max stride 64."""
-    _check_pretrained(pretrained)
+    dims 16/14/12/10/8; the MSE model ends in a patch_upsample to the
+    pixels, the lossless one leaves the 1/4 feature to its head."""
     enc_nums = [6, 6, 6, 4, 2]
     dec_nums = [1, 2, 3, 3, 3]
     z_dims = [16, 14, 12, 10, 8]
@@ -72,9 +72,35 @@ def qres34m(lmb=32, pretrained=False, device=None):
         *latent(ch * 4, 3, 7),
         common.patch_upsample(ch * 4, ch * 2, rate=2),
         *latent(ch * 2, 4, 7),
-        common.patch_upsample(ch * 2, 3, rate=4),
     ]
+    if not lossless:
+        dec_blocks.append(common.patch_upsample(ch * 2, 3, rate=4))
+    return enc_blocks, dec_blocks, ch
+
+
+@register_model
+def qres34m(lmb=32, pretrained=False, device=None):
+    """Fixed-rate QRes-VAE, ~34M parameters (lvae_tpu/models/qresvae/
+    zoo.py:37-92), max stride 64."""
+    _check_pretrained(pretrained)
+    enc_blocks, dec_blocks, _ = _qres34m_blocks(lossless=False)
     net = HierarchicalVAENet(enc_blocks, dec_blocks, MSEOutputNet(lmb),
+                             im_shift=IMAGENET_SHIFT, im_scale=IMAGENET_SCALE,
+                             max_stride=64)
+    return build(net, pretrained, device)
+
+
+@register_model
+def qres34m_lossless(pretrained=False, device=None):
+    """Lossless QRes-VAE (lvae_tpu/models/qresvae/zoo.py:95-107): qres34m's
+    blocks without the final upsample, and a GaussianNLL head whose two
+    patch_upsample convs give each pixel's mean and scale."""
+    _check_pretrained(pretrained)
+    enc_blocks, dec_blocks, ch = _qres34m_blocks(lossless=True)
+    out_net = GaussianNLLOutputNet(
+        conv_mean=common.patch_upsample(ch * 2, 3, rate=4),
+        conv_scale=common.patch_upsample(ch * 2, 3, rate=4))
+    net = HierarchicalVAENet(enc_blocks, dec_blocks, out_net,
                              im_shift=IMAGENET_SHIFT, im_scale=IMAGENET_SCALE,
                              max_stride=64)
     return build(net, pretrained, device)

@@ -62,6 +62,8 @@ _SIGNATURES = {
     'trunk_zadd_dense': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_zadd': [_P, _P, _LL, _P, _I, _P],
     'trunk_res_dense_act': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_nll_head': [_P, _P, _LL, _P, _I, _F, _F, _P, _P, _I, _P],
+    'trunk_nll_recon': [_P, _P, _LL, _F, _P, _I, _P],
 }
 
 _loaded = {}

@@ -68,6 +68,12 @@ def qres_latent_scale_table(n=64, lo=0.1, hi=20.0):
     return np.exp(np.linspace(math.log(lo), math.log(hi), n))
 
 
+def lossless_head_scale_table(lo=0.11, hi=20.0, n=128):
+    """The 128-entry table of the lossless pixel head, in bin units
+    (lvae_tpu/ops/cdf.py:105)."""
+    return np.exp(np.linspace(math.log(lo), math.log(hi), n))
+
+
 def pmf_to_quantized_cdf(pmf, precision=PRECISION):
     """Quantize a PMF into an integer CDF with total 2**precision.
 

@@ -2,8 +2,9 @@
 junctions, computed by hand-written CUDA kernels whose results do not depend
 on the process, the batch size or any library's algorithm choice.
 
-Counterpart of ``lvae_tpu/ops/pallas/trunk.py`` (rows 5-17 of the kernel
-table in PERF.md: the QARV trunk, then the QRes-VAE trunk). A rANS stream
+Counterpart of ``lvae_tpu/ops/pallas/trunk.py`` (rows 5-19 of the kernel
+table in PERF.md: the QARV trunk, the QRes-VAE trunk, then the lossless
+pixel head). A rANS stream
 desyncs when the decoder's recomputed prior floats differ from the
 encoder's by one scale-index flip, so a stream that is to decode in another
 process (a file) must see bitwise the same trunk floats
@@ -180,6 +181,35 @@ def zadd_plain(syms, pm):
 
 def res_dense_act_plain(f, t, w, b):
     return (f + _mm(_gelu(t), w)) + b
+
+
+def _divide(x, v):
+    """x / float32(v), a true division: torch computes a division by a
+    Python number on the card as a multiplication by its reciprocal. (The
+    divisor is filled on the device, so a CUDA graph can capture it.)"""
+    return x / torch.full((), v, dtype=torch.float32, device=x.device)
+
+
+def nll_scales_plain(p_mean, p_scale_raw, table, bin_size):
+    """-> (pm, the clamped scales, scale indexes): nll_head's plain version
+    with the scales it compares against the table."""
+    ls = _softplus(p_scale_raw + 16.0) - 16.0
+    grid = torch.round(p_mean * 127.5 + 127.5)
+    pm = _divide(_divide(grid, 127.5) - 1.0, bin_size)
+    pv = torch.exp(ls - math.log(bin_size))
+    pv = torch.maximum(pv, table[0])
+    idx = (table < pv[..., None]).sum(-1, dtype=torch.int32)
+    return pm, pv, torch.clamp(idx, max=table.shape[0] - 1)
+
+
+def nll_head_plain(p_mean, p_scale_raw, table, bin_size):
+    pm, _, idx = nll_scales_plain(p_mean, p_scale_raw, table, bin_size)
+    return pm, idx
+
+
+def nll_recon_plain(syms, pm, bin_size):
+    x = (syms.to(torch.float32) + pm) * bin_size
+    return torch.round((torch.clamp(x, -1.0, 1.0) * 0.5 + 0.5) * 255.0)
 
 
 # ---------------------------------------------------------------------------
@@ -483,16 +513,60 @@ def res_dense_act(f, t, w, b):
     return out
 
 
+# ---- the lossless pixel head (lvae_tpu/ops/pallas/trunk.py:740-822) -------
+
+def nll_head(p_mean, p_scale_raw, table, bin_size):
+    """The head's raw 1x1-conv outputs p_mean, p_scale_raw (B, H, W, 3) ->
+    (pm float32 in bin units, scale indexes int32), each (B, H, W, 3):
+    logscale softplus(r + 16) - 16, the mean rounded to the 255-level pixel
+    grid (round(m * 127.5 + 127.5) / 127.5 - 1) / bin_size, the index
+    #(table < max(exp(logscale - log bin_size), table[0])), capped at the
+    last entry. Every step one float32 operation (csrc/trunk.cu): these
+    chains decide on which grid value each pixel lands."""
+    if not _on_card('nll_head', p_mean, p_scale_raw, table):
+        return nll_head_plain(p_mean, p_scale_raw, table, bin_size)
+    if p_scale_raw.shape != p_mean.shape or table.ndim != 1:
+        raise ValueError('nll_head: bad scale/table shapes')
+    p_mean, p_scale_raw, table = _f32('nll_head', p_mean, p_scale_raw, table)
+    pm = torch.empty_like(p_mean)
+    idx = torch.empty(p_mean.shape, dtype=torch.int32, device=p_mean.device)
+    _launch('nll_head', build.library().trunk_nll_head, p_mean.data_ptr(),
+            p_scale_raw.data_ptr(), p_mean.numel(), table.data_ptr(),
+            table.numel(), bin_size, math.log(bin_size), pm.data_ptr(),
+            idx.data_ptr(), device=p_mean.device)
+    nll_head.launches += 1
+    return pm, idx
+
+
+def nll_recon(syms, pm, bin_size):
+    """The exact lossless pixels: round(255 * (clip((syms + pm) * bin_size,
+    -1, 1) * 0.5 + 0.5)) as integer-valued float32, (B, H, W, 3); the caller
+    casts them to uint8."""
+    if not _on_card('nll_recon', syms, pm):
+        return nll_recon_plain(syms, pm, bin_size)
+    if syms.dtype != torch.int32 or syms.shape != pm.shape:
+        raise ValueError('nll_recon: bad symbols/mean shapes')
+    pm, = _f32('nll_recon', pm)
+    syms = syms.contiguous()
+    out = torch.empty_like(pm)
+    _launch('nll_recon', build.library().trunk_nll_recon, syms.data_ptr(),
+            pm.data_ptr(), pm.numel(), bin_size, out.data_ptr(),
+            device=pm.device)
+    nll_recon.launches += 1
+    return out
+
+
 KERNELS = (emb_mlp, dw_ln_mod, mlp_res, dense, prior_head, fuse_zproj,
            finish_image, dw_ln_affine, dense_act, conv_kxk_act, zadd_dense,
-           zadd, res_dense_act)
+           zadd, res_dense_act, nll_head, nll_recon)
 PLAIN = {emb_mlp: emb_mlp_plain, dw_ln_mod: dw_ln_mod_plain,
          mlp_res: mlp_res_plain, dense: dense_plain,
          prior_head: prior_head_plain, fuse_zproj: fuse_zproj_plain,
          finish_image: lambda x: finish_image_plain(x).to(torch.float16),
          dw_ln_affine: dw_ln_affine_plain, dense_act: dense_act_plain,
          conv_kxk_act: conv_kxk_act_plain, zadd_dense: zadd_dense_plain,
-         zadd: zadd_plain, res_dense_act: res_dense_act_plain}
+         zadd: zadd_plain, res_dense_act: res_dense_act_plain,
+         nll_head: nll_head_plain, nll_recon: nll_recon_plain}
 for _k in KERNELS:
     _k.launches = 0
 

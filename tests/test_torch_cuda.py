@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: the rANS kernels against their plain
 versions at every lane count the codec uses, the trunk kernels against
-theirs at qarv_tiny and qres_tiny shapes, and qarv_tiny and qres_tiny round
-trips (legacy and portable) through them.
+theirs at qarv_tiny and qres_tiny shapes, the lossless head's two kernels
+against theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless
+round trips (legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -353,6 +354,89 @@ def test_portable_qres_tiny_roundtrip_on_card(card):
                  'conv_kxk_act': 6, 'prior_head': 3, 'zadd': 2,
                  'zadd_dense': 1, 'res_dense_act': 3, 'dense': 3,
                  'finish_image': 1, 'emb_mlp': 0, 'dw_ln_mod': 0,
-                 'fuse_zproj': 0}
+                 'fuse_zproj': 0, 'nll_head': 0, 'nll_recon': 0}
     for k in trunk.KERNELS:
         assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
+
+
+# ---- the lossless pixel head -----------------------------------------------
+
+def _nll_inputs(rng, card, shape=(2, 48, 80, 3)):
+    """Means on the pixel grid's half-points moved by up to 3 ulps (a fifth
+    of them random in [-3, 3]); raw scales on the head table's entries
+    moved by up to 4 ulps (a tenth of them random in [-12, 3])."""
+    from lvae_tpu_torch.ops import cdf
+    n = int(np.prod(shape))
+    table = cdf.lossless_head_scale_table().astype(np.float32)
+    m = ((rng.integers(-3, 259, n) + 0.5) / 127.5 - 1).astype(np.float32)
+    r = (np.log(table[rng.integers(0, 128, n)].astype(np.float64))
+         + np.log(1 / 127.5)).astype(np.float32)
+    for x, k in ((m, 3), (r, 4)):
+        x += rng.integers(-k, k + 1, n) * np.spacing(x)
+    wild = rng.random(n) < 0.2
+    m[wild] = rng.uniform(-3, 3, int(wild.sum()))
+    wild &= rng.random(n) < 0.5
+    r[wild] = rng.uniform(-12, 3, int(wild.sum()))
+    t = [torch.as_tensor(a.reshape(shape), device=card) for a in (m, r)]
+    return t[0], t[1], torch.as_tensor(table, device=card)
+
+
+def test_nll_kernels_match_plain_bitwise(card):
+    """nll_head and nll_recon against their plain versions bitwise (pm,
+    indexes, pixels), one launch counted per call, and one image of a batch
+    of two getting the bits it gets alone."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(0)
+    m, r, table = _nll_inputs(rng, card)
+    before = trunk.nll_head.launches
+    pm, idx = trunk.nll_head(m, r, table, 1 / 127.5)
+    assert trunk.nll_head.launches == before + 1
+    want_pm, want_idx = trunk.nll_head_plain(m, r, table, 1 / 127.5)
+    assert torch.equal(pm, want_pm) and torch.equal(idx, want_idx)
+    assert idx.unique().numel() == 128
+    pm1, idx1 = trunk.nll_head(m[1:].contiguous(), r[1:].contiguous(), table,
+                               1 / 127.5)
+    assert torch.equal(pm1, pm[1:]) and torch.equal(idx1, idx[1:])
+    syms = torch.as_tensor(rng.integers(-300, 301, m.shape).astype(np.int32),
+                           device=card)
+    for mean in (pm, m * 300):
+        before = trunk.nll_recon.launches
+        got = trunk.nll_recon(syms, mean, 1 / 127.5)
+        assert trunk.nll_recon.launches == before + 1
+        want = trunk.nll_recon_plain(syms, mean, 1 / 127.5)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        assert float(got.min()) == 0 and float(got.max()) == 255
+
+
+def test_portable_qres_tiny_lossless_roundtrip_on_card(card):
+    """qres_tiny_lossless at 128x192 on the portable trunk, the head's
+    scales spread over its table and the posteriors x300: the pixels come
+    back exact, single and in a batch of two, and the head's kernels launch
+    once an encode (nll_head) and once each a decode (plus nll_recon in the
+    self-check)."""
+    from lvae_tpu_torch.ops import trunk
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model('qres_tiny_lossless')
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            if name.endswith('posterior.c4.weight'):
+                p.mul_(300.0)
+        conv = model.net.out_net.conv_scale.conv
+        conv.weight.mul_(0.2)
+        conv.bias.uniform_(-7.0, -2.0)
+    model.compress_mode(portable=True, esc_cap=1 << 17)
+    rng = np.random.default_rng(0)
+    u8 = rng.integers(0, 256, (2, 128, 192, 3)).astype(np.uint8)
+    ims = u8.astype(np.float32) / 255.0
+    before = {k: k.launches for k in (trunk.nll_head, trunk.nll_recon)}
+    obj, recon = model.compress_check(ims[:1])
+    dec = model.decompress(obj)
+    assert np.array_equal(dec, ims[:1]) and np.array_equal(recon, ims[:1])
+    assert trunk.nll_head.launches - before[trunk.nll_head] == 2
+    assert trunk.nll_recon.launches - before[trunk.nll_recon] == 2
+    img = model.decompress_to_device(obj[0], *obj[1][1:3])
+    assert img.dtype == torch.uint8
+    assert np.array_equal(img.cpu().numpy(), u8[:1])
+    objs = model.compress_batch(ims)
+    assert np.array_equal(model.decompress_batch(objs), ims)
+    assert objs[0][0] == obj[0]

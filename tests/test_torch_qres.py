@@ -243,7 +243,8 @@ def test_firewall_and_routing(models, images):
 def test_refusals(models, images):
     """What the QRes entry points refuse, as the JAX package does: host
     input outside [0, 1], a shape off the stride, an automatic lane count;
-    a lossless head (the next slice) and pretrained=True."""
+    an output head that is neither the MSE nor the lossless one, and
+    pretrained=True."""
     _, tm = models
     tm.compress_mode(num_lanes=N, portable=True)
     bad = images[:1].copy()
