@@ -10,7 +10,13 @@
    num_lanes='auto' picks for the three lambdas: N = 16, 64 and 128) on
    random symbols at qarv_base 512x768 size (about 617k symbols, with tail
    rows and escapes), and times both, with their inputs in L2 (as after
-   the stage that wrote them) and pushed out of it;
+   the stage that wrote them) and pushed out of it. Then it holds dense
+   and conv_kxk_act, the two kernels on the tiled product core, bitwise
+   (torch.equal) against their oracle on the old core (dense_act; for the
+   conv on im2col_tapmajor's columns) at synthetic ragged shapes: rows 1,
+   95 and 385, widths 24, 48, 96 and 2048, input channels 8, 10, 14, 48
+   and 96 at kernel sizes 1, 3 and 5, act on and off, dense also from
+   unaligned rows;
 3. runs qarv_base with the committed weights on images/photo1_512x768.png
    through compress_file / decompress_file at lambda 16, 512 and 2048, on
    the legacy trunk and on the portable trunk (the main path: files are
@@ -21,9 +27,12 @@
 4. holds the seven portable-trunk kernels against their plain versions on
    the inputs the main path gives them (captured from one encode and
    decode of each image, every distinct shape), checks that a batch of two
-   gives the first image the bits it gets alone, and times each kernel, its
-   plain version and, for dense, torch.addmm (device times from CUDA-graph
-   replays, and the eager wrapper's time beside them);
+   gives the first image the bits it gets alone, holds dense bitwise
+   against the old core (as at every later captured shape, for dense and
+   conv_kxk_act, at B = 1 and B = 2), and times each kernel, its plain
+   version, for dense the old core (old_core_ms) and torch.addmm (device
+   times from CUDA-graph replays, and the eager wrapper's time beside
+   them);
 5. holds the two multi-image rANS kernels against their plain versions and
    against B single-kernel launches at N = 16, 64 and 128 and B = 2, 3 and
    6, on random symbols at qarv_base size (the same block layout for every
@@ -77,7 +86,7 @@
    against the PNG's).
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-codec, trunk, batch, qres, qres_trunk, lossless, lossless_trunk,
+tiled_core, codec, trunk, batch, qres, qres_trunk, lossless, lossless_trunk,
 fresh_process), the card line of nvidia-smi, the kernels line, then the
 result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -188,6 +197,15 @@ QARV_BASE_BLOCKS = (3072, 12288, 12288, 147456, 147456, 147456,
                     49152, 49152, 49152)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
+# the kernels on the tiled product core (csrc/trunk.cu tiled_kernel), held
+# bitwise against their oracle on the old core (core_oracle) at every shape
+CORE_NAMES = ('dense', 'conv_kxk_act')
+# the synthetic ragged shapes of that check: rows M (a B x H x W grid for
+# the conv), widths N, input channels Ci at kernel sizes K (dense: depth
+# K*K*Ci), act on and off
+CORE_M = {1: (1, 1, 1), 95: (1, 5, 19), 385: (1, 11, 35)}
+CORE_N, CORE_CI, CORE_K = (24, 48, 96, 2048), (8, 10, 14, 48, 96), (1, 3, 5)
+CORE_SEED = 9
 # timing: medians of 5 kernel runs; the plain versions are host-bound
 # references taking seconds, so theirs are medians of 3, the first of which
 # is the run whose output the kernel is compared with
@@ -983,12 +1001,18 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
     for name in QARV_TRUNK:
         rows = []
         for sig, args in inputs[name].items():
-            _, err, worst, flips, flips_ok = compare_trunk_kernel(
+            got, err, worst, flips, flips_ok = compare_trunk_kernel(
                 torch, name, args)
+            core_ok = (core_bitwise(torch, name, args, got[0])
+                       if name in CORE_NAMES else None)
             rows.append(dict(images=sig[0][0][0], max_abs_err=err,
-                             err_over_tolerance=worst, index_flips=flips))
+                             err_over_tolerance=worst, index_flips=flips,
+                             core_bitwise=core_ok))
             require_trunk_match(f'{name} at batch shapes {sig} (max abs err '
                                 f'{err:.3g})', worst, flips_ok)
+            require(core_ok is not False, f'{name} at batch shapes {sig}: '
+                                          f'not bitwise equal to the old '
+                                          f'product core')
         # every kernel runs on the whole chunk: its first argument leads
         # with the chunk's image count
         batches = sorted({r['images'] for r in rows})
@@ -1162,6 +1186,72 @@ def graph_ms(torch, fn, inner, repeats=5):
     return cuda_ms(torch, graph.replay, repeats) / inner
 
 
+def core_oracle(torch, name, args):
+    """dense or conv_kxk_act computed by dense_act on the old product core
+    (gemm_kernel): dense as dense_act without its GELU, the conv as
+    dense_act on im2col_tapmajor's columns. Each output's sum is the same
+    fmaf chain on both cores, so the tiled core must match it bitwise."""
+    from lvae_tpu_torch.ops import trunk
+    if name == 'dense':
+        x, w, b = args
+        return trunk.dense_act(x, w, b, False)
+    x, wk, b = args[:3]
+    act = args[3] if len(args) > 3 else True
+    B, H, W, Ci = x.shape
+    K, Co = wk.shape[0], wk.shape[-1]
+    cols = trunk.im2col_tapmajor(x, K)
+    return trunk.dense_act(cols, wk.reshape(K * K * Ci, Co), b,
+                           act).reshape(B, H, W, Co)
+
+
+def core_bitwise(torch, name, args, got=None):
+    """Whether the kernel's output equals core_oracle's, bit for bit."""
+    from lvae_tpu_torch.ops import trunk
+    if got is None:
+        got = getattr(trunk, name)(*args)
+    return bool(torch.equal(got, core_oracle(torch, name, args)))
+
+
+def check_core_synthetic(torch, device):
+    """dense and conv_kxk_act against core_oracle, bitwise, on synthetic
+    ragged shapes: every M of CORE_M, N of CORE_N, Ci of CORE_CI and K of
+    CORE_K; dense at depth K*K*Ci, also from a row pointer 4 bytes off 16
+    (the 4-byte copies); the conv with act on and off (Ci 10 and 14 take
+    the 4-byte copies)."""
+    import itertools
+    rng = np.random.default_rng(CORE_SEED)
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(
+            np.float32), device=device)
+
+    cases, bad = 0, []
+    for M, N, Ci, K in itertools.product(CORE_M, CORE_N, CORE_CI, CORE_K):
+        C = K * K * Ci
+        w, b = f(C, N, scale=C ** -0.5), f(N)
+        x = f(1, M, C)
+        unaligned = f(M * C + 1)[1:].reshape(1, M, C)
+        for what, xd in (('dense', x), ('dense, unaligned rows', unaligned)):
+            cases += 1
+            if not core_bitwise(torch, 'dense', (xd, w, b)):
+                bad.append(dict(kernel=what, M=M, N=N, C=C))
+        wk = f(K, K, Ci, N, scale=C ** -0.5)
+        xi = f(*CORE_M[M], Ci)
+        for act in (True, False):
+            cases += 1
+            if not core_bitwise(torch, 'conv_kxk_act', (xi, wk, b, act)):
+                bad.append(dict(kernel='conv_kxk_act', M=M, N=N, Ci=Ci,
+                                K=K, act=act))
+    progress(f'tiled core, synthetic shapes: {cases} cases, {len(bad)} not '
+             f'bitwise equal to the old core')
+    require(not bad, f'tiled core not bitwise equal to the old core at '
+                     f'{bad[:5]}')
+    return dict(cases=cases, bitwise=True, M=list(CORE_M), N=list(CORE_N),
+                Ci=list(CORE_CI), K=list(CORE_K), acts=[True, False],
+                oracle='dense_act on the old core (conv: on '
+                       'im2col_tapmajor columns)')
+
+
 def check_trunk_kernels(torch, names, cases):
     """Each trunk kernel of `names` against its plain version on the card at
     every main-path shape, the B=1 vs B=2 bitwise check, and the times. The
@@ -1195,9 +1285,14 @@ def check_trunk_kernels(torch, names, cases):
                 torch, name, args)
             # batch independence: the first image of a batch of two gets
             # the bits it gets alone
-            two = fn(*second_image(torch, name, args))
+            args2 = second_image(torch, name, args)
+            two = fn(*args2)
             two = two if isinstance(two, tuple) else (two,)
             batch_ok = all(torch.equal(t[:1], g) for t, g in zip(two, got))
+            # the tiled core against the old one, at B = 1 and B = 2
+            core_ok = (core_bitwise(torch, name, args, got[0])
+                       and core_bitwise(torch, name, args2, two[0])
+                       if name in CORE_NAMES else None)
             # device times from CUDA-graph replays; the eager time (what
             # the codec pays, host launch time included) beside the
             # kernel's
@@ -1205,6 +1300,9 @@ def check_trunk_kernels(torch, names, cases):
             eager_ms = per_call_ms(torch, lambda: fn(*args), TRUNK_INNER)
             plain_ms = graph_ms(torch, lambda: plain(*args),
                                 TRUNK_PLAIN_INNER, repeats=3)
+            # dense on the old core: its oracle's device time
+            old_core_ms = (graph_ms(torch, lambda: core_oracle(
+                torch, name, args), TRUNK_INNER) if name == 'dense' else None)
             library_ms = None
             lib = library_call(torch, name, args)
             if lib is not None:
@@ -1219,7 +1317,8 @@ def check_trunk_kernels(torch, names, cases):
                 decode_calls=n_dec, max_abs_err=err,
                 err_over_tolerance=worst, index_flips=flips,
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
-                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                core_bitwise=core_ok, ms=ms, eager_ms=eager_ms,
+                old_core_ms=old_core_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bytes=nbytes, ops=ops,
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / SCALAR_OPS_PER_S) * 1e3))
@@ -1237,6 +1336,8 @@ def check_trunk_kernels(torch, names, cases):
                                 r['flips_at_table_entries'])
             require(r['batch_independent'],
                     f'{what}: batch of two changes the first image\'s bits')
+            require(r['core_bitwise'] is not False,
+                    f'{what}: not bitwise equal to the old product core')
 
         def per_image(key, enc=1, dec=1, rows=shapes):
             """key summed over one image's launches (encode, decode)."""
@@ -1258,6 +1359,10 @@ def check_trunk_kernels(torch, names, cases):
                                  for r in lib_rows),
             kernel_ms_where_library=per_image('ms', rows=lib_rows)
             if lib_rows else None,
+            **({'old_core_ms': per_image('old_core_ms')}
+               if name == 'dense' else {}),
+            **({'core_bitwise_shapes': len(shapes)}
+               if name in CORE_NAMES else {}),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
             max_abs_err=max(r['max_abs_err'] for r in shapes),
@@ -1850,6 +1955,7 @@ def main():
                                 sorted(set(lanes_of.values())),
                                 (2, 3, SERVING_B))
     emit({'multi_kernels': multi})
+    emit({'tiled_core': check_core_synthetic(torch, device)})
 
     t = time.perf_counter()
     model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
@@ -2018,6 +2124,8 @@ def main():
                        else f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}'),
             ms=r['ms'], encode_ms=r['encode_ms'], decode_ms=r['decode_ms'],
             eager_ms=r['eager_ms'],
+            **({'old_core_ms': r['old_core_ms']} if 'old_core_ms' in r
+               else {}),
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'],
             bound_derivation=(

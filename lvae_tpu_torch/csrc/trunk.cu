@@ -26,10 +26,18 @@
 // that stream without synchronising and returns cudaGetLastError(). Scratch
 // buffers are allocated by the Python wrappers.
 //
-// Simple by design in this slice: the matrix products are a SIMT
-// shared-memory tile (64x64 outputs, 16-deep K steps, 4x4 outputs a thread)
-// in exact float32, no tensor cores (TF32 would break the agreement with the
-// plain versions and the reference); wgmma/TMA tiles are later work.
+// The matrix products run on two exact-float32 SIMT cores, no tensor cores
+// (TF32 keeps ~3 digits, and 3xTF32 or FP64 DMMA would change the bits):
+// - gemm_kernel, one 64x64 shared-memory tile with a single buffer: mlp_res,
+//   prior_head, fuse_zproj, dense_act, zadd_dense and res_dense_act;
+// - tiled_kernel, built for the H100: tile shapes chosen by (M, N) so that
+//   the grid fills the SMs and no column is wasted, a 3-stage cp.async ring,
+//   and an implicit-conv loader without per-element division: dense and
+//   conv_kxk_act.
+// Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
+// (padded steps add fmaf(0, 0, acc)), so they give the same bits; tiling
+// only moves which thread runs a chain, which may follow M (so the batch
+// size) because no chain depends on it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -173,23 +181,6 @@ struct LoadSymsPlusPm {      // float(syms[m, k]) + pm[m, k]: fuse_zproj
     }
 };
 
-template <bool ACT>
-struct LoadTaps {            // conv_kxk_act: x[b, h+di-p, w+dj-p, ci] (0 off
-    const float* x;          // the image), k = (di*K + dj)*Ci + ci
-    int H, W, Ci, K;
-    __device__ float operator()(int m, int k) const {
-        const int tap = k / Ci, ci = k - tap * Ci;
-        const int w = m % W, t = m / W;
-        const int h = t % H, b = t / H;
-        const int p = (K - 1) / 2;
-        const int hh = h + tap / K - p, ww = w + tap % K - p;
-        if (hh < 0 || hh >= H || ww < 0 || ww >= W) return 0.f;
-        const float v = __ldg(x + (((long long)b * H + hh) * W + ww) * Ci + ci);
-        // gelu(0) == 0, so the skipped taps equal GELU of the zero padding
-        return ACT ? gelu_as(v) : v;
-    }
-};
-
 // epilogues: acc -> outputs
 struct StoreBias {           // dense: acc + b
     float* out; const float* b; int N;
@@ -249,6 +240,346 @@ cudaError_t launch_gemm(int M, int N, int K, Load load, const float* w,
     if (grid.y > 65535u) return cudaErrorInvalidValue;
     gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(M, N, K, load, w, store);
     return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The pipelined, shape-tiled product core: out[m, n] = store(sum_k A(m, k) *
+// W[n, k]), each sum the chain of gemm_kernel (k = 0..K-1 from +0 in PK =
+// BK = 16-deep steps, the steps past K adding fmaf(0, 0, acc)), so every
+// output has gemm_kernel's bits. What differs is the schedule:
+// - Tiles by shape. BM x BN outputs a block, TM x TN a thread, with the
+//   thread's rows ty + i*TY and columns tx + j*TX (strided: a warp stores
+//   consecutive columns, and its shared-memory reads of 16-byte k-quads hit
+//   distinct banks). dispatch_tiled picks BN from N's divisors (64, 48,
+//   24: no wasted column at the trunk's widths) and BM from the outputs an
+//   SM holds, so that small products still fill the SMs.
+// - Copies in flight. A STAGES ring of A and W tiles, both k-contiguous
+//   rows of PLD floats, filled by cp.async (16-byte copies where the row
+//   stride and the pointers allow, else 4-byte ones; src-size 0 zero-fills
+//   the taps off the image and the ragged M, N and K edges). Step s + 2's
+//   copies are issued before step s's FMAs, one barrier a step.
+// - Operand sources. DenseSrc reads rows of x; ConvSrc is the implicit K x K
+//   conv: each tile row's pixel (b, h, w) is decoded once before the K loop
+//   and each thread walks its depth k = (di*K + dj)*Ci + ci as a (tap,
+//   channel) cursor advanced by adds, no per-element division.
+// ---------------------------------------------------------------------------
+
+constexpr int PK = BK;          // K step: gemm_kernel's, so the same padding
+constexpr int PLD = PK + 4;     // row stride in floats: 80 bytes, 16-aligned;
+                                // 8 consecutive rows cover the 32 banks once
+constexpr int STAGES = 3;       // K steps in the ring
+
+template <int V>                // V floats: 4 (cp.async.cg, 16 B) or 1
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = valid ? 4 * V : 0;          // 0: fill the copy with +0
+    if constexpr (V == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(s), "l"(src), "r"(n) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(s), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A operand: rows of x (M, K)
+struct DenseSrc {
+    const float* x; int M, K;
+    struct Row { int m; };
+    struct Cursor { int k; };
+    __device__ Row row(int m) const { return {m}; }
+    __device__ Cursor cursor(int k) const { return {k}; }
+    __device__ const float* src(const Row& r, const Cursor& c,
+                                bool& ok) const {
+        ok = r.m < M && c.k < K;
+        return ok ? x + (long long)r.m * K + c.k : x;
+    }
+    __device__ void advance(Cursor& c) const { c.k += PK; }
+};
+
+// A operand of conv_kxk_act: x[b, h+di-p, w+dj-p, ci] (0 off the image) at
+// k = (di*K + dj)*Ci + ci, from the NHWC feature x (B, H, W, Ci)
+struct ConvSrc {
+    const float* x; int M, H, W, Ci, K, Ktot;
+    struct Row { int m, h, w; };       // h out of range for m >= M
+    struct Cursor { int k, ci, di, dj; };
+    __device__ Row row(int m) const {  // the tile row's divisions, once
+        if (m >= M) return {0, -(1 << 24), 0};
+        const int t = m / W;
+        return {m, t % H, m - t * W};
+    }
+    __device__ Cursor cursor(int k) const {
+        const int tap = k / Ci, di = tap / K;
+        return {k, k - tap * Ci, di, tap - di * K};
+    }
+    __device__ const float* src(const Row& r, const Cursor& c,
+                                bool& ok) const {
+        const int p = (K - 1) / 2;
+        const int dh = c.di - p, dw = c.dj - p;
+        ok = c.k < Ktot && (unsigned)(r.h + dh) < (unsigned)H
+             && (unsigned)(r.w + dw) < (unsigned)W;
+        return ok ? x + (long long)(r.m + dh * W + dw) * Ci + c.ci : x;
+    }
+    __device__ void advance(Cursor& c) const {
+        c.k += PK;
+        c.ci += PK;
+        while (c.ci >= Ci) {           // at most PK / Ci + 1 taps a step
+            c.ci -= Ci;
+            if (++c.dj == K) { c.dj = 0; ++c.di; }
+        }
+    }
+};
+
+// A tile shape: BM x BN outputs a block, TM x TN a thread; MINB blocks an
+// SM asked of the register allocator; STREAM_B loads one column's k-quad at
+// a time (a smaller live set) instead of all TN.
+template <int BM_, int BN_, int TM_, int TN_, int MINB_ = 1,
+          bool STREAM_B_ = false>
+struct Tile {
+    static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+    static constexpr int MINB = MINB_;
+    static constexpr bool STREAM_B = STREAM_B_;
+    static constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
+    static constexpr int SMEM = STAGES * (BM + BN) * PLD * (int)sizeof(float);
+};
+
+template <class T, int V, class ASrc, class Store>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
+             Store store) {
+    constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN;
+    constexpr int TX = T::TX, TY = T::TY, THREADS = T::THREADS;
+    constexpr int CPR = PK / V;                  // copies a row and step
+    constexpr int RPP = THREADS / CPR;           // rows a pass
+    constexpr int A_PASSES = (BM + RPP - 1) / RPP;
+    constexpr int W_PASSES = (BN + RPP - 1) / RPP;
+    constexpr int STAGE = (BM + BN) * PLD;       // floats
+    static_assert(THREADS % CPR == 0 && TM * TY == BM && TN * TX == BN, "");
+    extern __shared__ __align__(16) float smem[];
+
+    const int tid = threadIdx.x;
+    const int tx = tid % TX, ty = tid / TX;
+    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+    // this thread's copies: rows r0 + i * RPP, k offset kc within a step
+    const int r0 = tid / CPR, kc = (tid % CPR) * V;
+    typename ASrc::Row arow[A_PASSES];
+#pragma unroll
+    for (int i = 0; i < A_PASSES; ++i) arow[i] = asrc.row(m0 + r0 + i * RPP);
+    typename ASrc::Cursor cur = asrc.cursor(kc);
+    int kw = kc;
+
+    auto load = [&](int slot) {        // the cursor's step into slot
+        float* As = smem + slot * STAGE;
+        float* Ws = As + BM * PLD;
+#pragma unroll
+        for (int i = 0; i < A_PASSES; ++i) {
+            const int r = r0 + i * RPP;
+            if (BM % RPP == 0 || r < BM) {
+                bool ok;
+                const float* s = asrc.src(arow[i], cur, ok);
+                cp_async<V>(As + r * PLD + kc, s, ok);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < W_PASSES; ++i) {
+            const int r = r0 + i * RPP;
+            if (BN % RPP == 0 || r < BN) {
+                const bool ok = n0 + r < N && kw < K;
+                cp_async<V>(Ws + r * PLD + kc,
+                            ok ? w + (long long)(n0 + r) * K + kw : w, ok);
+            }
+        }
+        asrc.advance(cur);
+        kw += PK;
+    };
+
+    const int nk = (K + PK - 1) / PK;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+    }
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<STAGES - 2>();   // step kt's copies have landed
+        __syncthreads();               // ... for every thread, and step
+                                       // kt - 1's slot is free
+        if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES);
+        cp_async_commit();
+        const float* As = smem + (kt % STAGES) * STAGE;
+        const float* Ws = As + BM * PLD;
+#pragma unroll
+        for (int kq = 0; kq < PK; kq += 4) {
+            // k = kq, kq + 1, kq + 2, kq + 3 in turn: each chain in order
+            float4 a[TM];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+                a[i] = *reinterpret_cast<const float4*>(
+                    As + (ty + i * TY) * PLD + kq);
+            if constexpr (T::STREAM_B) {
+#pragma unroll
+                for (int j = 0; j < TN; ++j) {
+                    const float4 b = *reinterpret_cast<const float4*>(
+                        Ws + (tx + j * TX) * PLD + kq);
+#pragma unroll
+                    for (int i = 0; i < TM; ++i)
+                        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+#pragma unroll
+                    for (int i = 0; i < TM; ++i)
+                        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+#pragma unroll
+                    for (int i = 0; i < TM; ++i)
+                        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+#pragma unroll
+                    for (int i = 0; i < TM; ++i)
+                        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+                }
+            } else {
+                float4 b[TN];
+#pragma unroll
+                for (int j = 0; j < TN; ++j)
+                    b[j] = *reinterpret_cast<const float4*>(
+                        Ws + (tx + j * TX) * PLD + kq);
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int j = 0; j < TN; ++j)
+                        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int j = 0; j < TN; ++j)
+                        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int j = 0; j < TN; ++j)
+                        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int j = 0; j < TN; ++j)
+                        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+            }
+        }
+    }
+    cp_async_wait<0>();                // no copy outlives the block
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int gm = m0 + ty + i * TY;
+        if (gm >= M) continue;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            const int gn = n0 + tx + j * TX;
+            if (gn < N) store(gm, gn, acc[i][j]);
+        }
+    }
+}
+
+template <class T, int V, class ASrc, class Store>
+cudaError_t launch_tiled(int M, int N, int K, ASrc a, const float* w,
+                         Store store, cudaStream_t stream) {
+    if (T::SMEM > 48 * 1024) {         // opt in above 48 KB, once a device
+        static bool opted[64];
+        int dev;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return err;
+        if (dev >= 64) return cudaErrorInvalidDevice;
+        if (!opted[dev]) {
+            err = cudaFuncSetAttribute(
+                tiled_kernel<T, V, ASrc, Store>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+            if (err != cudaSuccess) return err;
+            opted[dev] = true;
+        }
+    }
+    const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+    if (grid.y > 65535u) return cudaErrorInvalidValue;
+    tiled_kernel<T, V, ASrc, Store><<<grid, T::THREADS, T::SMEM, stream>>>(
+        M, N, K, a, w, store);
+    return cudaGetLastError();
+}
+
+// Tile shape from (M, N), fitted to the trunk's shapes on the H100 (the
+// per-shape times in PERF.md). BN divides N where the trunk's widths
+// allow (64 for the wide 1x1 convs, 48 or 24 for the 96-, 48- and
+// 24-channel convs; else 32 with a ragged last tile). The outputs an SM
+// holds (M*N / SMs) set the block's size: below ~6k small blocks fill the
+// card, above ~16k the largest tiles, whose 6x8 threads read shared memory
+// least per FMA; 96x128 only where its 256-thread blocks make two whole
+// waves. 4-byte copies (V = 1, unaligned rows) take the small tiles.
+template <int V, class ASrc, class Store>
+cudaError_t dispatch_tiled(int M, int N, int K, ASrc a, const float* w,
+                           Store st, cudaStream_t s) {
+    if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+    int dev, sms;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    const double per_sm = (double)M * N / sms;
+#define TILE(...) \
+    return launch_tiled<Tile<__VA_ARGS__>, V>(M, N, K, a, w, st, s)
+    if (N % 64 == 0) {
+        if (per_sm <= 6000 || V == 1) {
+            if (V == 4 && N % 48 == 0 && per_sm >= 3000) TILE(32, 48, 4, 6);
+            TILE(32, 64, 4, 4);
+        }
+        if constexpr (V == 4) {
+            if (per_sm <= 16000) TILE(64, 64, 4, 8);
+            const long long b128 = (long long)((M + 95) / 96) * (N / 128);
+            if (N % 128 == 0 && b128 <= 2 * sms && 4 * b128 >= 7 * sms)
+                TILE(96, 128, 6, 8, 2, true);
+            TILE(96, 64, 6, 8);
+        }
+    }
+    if (N % 24 == 0) {
+        if (per_sm <= 2000) TILE(16, 24, 2, 6);
+        if (N % 48 == 0) {
+            if (per_sm <= 8000 || V == 1) TILE(32, 48, 4, 6);
+            if constexpr (V == 4) TILE(64, 48, 4, 6);
+        }
+        if constexpr (V == 4) TILE(64, 24, 4, 6);
+        TILE(16, 24, 2, 6);
+    }
+    TILE(32, 32, 4, 4);
+#undef TILE
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// gelu_as once per element: conv_kxk_act's pre-pass (bitwise the value its
+// loader used to compute per tap; gelu_as(+0) == +0 equals an off-image tap)
+// (16-byte accesses, n4 = n / 4 quads; the caller checks the alignment)
+__global__ void gelu_kernel(const float4* __restrict__ x, long long n4,
+                            float4* __restrict__ out) {
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         e < n4; e += (long long)gridDim.x * blockDim.x) {
+        const float4 v = x[e];
+        out[e] = make_float4(gelu_as(v.x), gelu_as(v.y), gelu_as(v.z),
+                             gelu_as(v.w));
+    }
+}
+__global__ void gelu1_kernel(const float* __restrict__ x, long long n,
+                             float* __restrict__ out) {
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (long long)gridDim.x * blockDim.x)
+        out[e] = gelu_as(x[e]);
 }
 
 // ---------------------------------------------------------------------------
@@ -595,16 +926,25 @@ extern "C" int trunk_mlp_res(const void* t, int M, int C, int HID, int CO,
                            (const float*)shortcut, CO}, st);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:257 dense. wt (CO, C). Bound:
-// operations, except bytes for the 48-channel pixel conv.
+// Replaces lvae_tpu/ops/pallas/trunk.py:257 dense, on the tiled core. wt
+// (CO, C). Bound: operations at the wide shapes (C 256-512 into 512-2048
+// outputs: 2*M*C*CO flops against 67 TFLOP/s), bytes for the 48-channel
+// pixel conv (C 128-192 into N = 48). The old 64x64 tile ran 64 blocks at
+// M = 96; the tiled core takes 32x64 tiles there (96 blocks), 32x48 at M =
+// 384, 64x64 at 1536 rows and 6x8-a-thread tiles at 6144, and a 48-wide
+// tile for N = 48. What holds it back is the SIMT core itself: about half
+// the FMA rate at the large shapes, as torch.addmm's own SIMT kernels.
 extern "C" int trunk_dense(const void* x, int M, int C, int CO,
                            const void* wt, const void* b, void* out,
                            int device, void* stream) {
     TRY(set_device(device));
-    return (int)launch_gemm(M, CO, C, LoadRows{(const float*)x, C},
-                            (const float*)wt,
-                            StoreBias{(float*)out, (const float*)b, CO},
-                            (cudaStream_t)stream);
+    const DenseSrc src{x_f(x), M, C};
+    const StoreBias store{(float*)out, x_f(b), CO};
+    if (C % 4 == 0 && aligned16(x) && aligned16(wt))
+        return (int)dispatch_tiled<4>(M, CO, C, src, x_f(wt), store,
+                                      (cudaStream_t)stream);
+    return (int)dispatch_tiled<1>(M, CO, C, src, x_f(wt), store,
+                                  (cudaStream_t)stream);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:302 prior_head. wt (2Z, C); table
@@ -655,8 +995,8 @@ extern "C" int trunk_finish_image(const void* x, long long n, void* out,
 
 // ---------------------------------------------------------------------------
 // QRes-VAE trunk (lvae_tpu/ops/pallas/trunk.py:446-748). The products run on
-// the core above with new prologues and epilogues; every output's sum over K
-// is still one chain k = 0..K-1.
+// the two cores above with new prologues and epilogues; every output's sum
+// over K is still one chain k = 0..K-1.
 // ---------------------------------------------------------------------------
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:462 dw_ln_affine. x/out (B, H, W, C);
@@ -691,32 +1031,51 @@ extern "C" int trunk_dense_act(const void* x, int M, int C, int CO,
                             (cudaStream_t)stream);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:563 conv_kxk_act: a 'same' K x K
-// conv as an implicit product, M = B*H*W output pixels, N = Co, depth
-// K*K*Ci in tap-major order (k = (di*K + dj)*Ci + ci). The A-tile loader
-// reads the shifted input pixel straight from the NHWC feature and returns
-// 0 for a tap off the image, so there is no padded copy and no stack of K*K
-// shifted windows; act applies GELU to each loaded value. x (B, H, W, Ci),
-// wt (Co, K*K*Ci), out (B, H, W, Co). The bias is added after the chain
-// (the JAX kernel adds it before the taps: within float tolerance, and the
-// same on both sides of a stream). Bound: operations (2*M*Co*K*K*Ci) at
-// the 96- and 48-channel convs; bytes for z_proj_0 (Ci = Z <= 16).
+// Replaces lvae_tpu/ops/pallas/trunk.py:563 conv_kxk_act, on the tiled
+// core: a 'same' K x K conv as an implicit product, M = B*H*W output
+// pixels, N = Co, depth K*K*Ci in tap-major order (k = (di*K + dj)*Ci +
+// ci), read straight from the NHWC feature (ConvSrc: no padded copy, no
+// stack of K*K shifted windows; a tap off the image is a zero-filled copy).
+// act runs gelu_kernel once per input element into `scratch` (B, H, W, Ci)
+// first, two device launches in all: the old loader ran the GELU K*K times
+// per element and N tile. x (B, H, W, Ci), wt (Co, K*K*Ci), out (B, H, W,
+// Co). The bias is added after the chain (the JAX kernel adds it before the
+// taps: within float tolerance, and the same on both sides of a stream).
+// Bound: operations (2*M*Co*K*K*Ci) at the 96- and 48-channel convs, where
+// 48- and 24-wide tiles waste no column and the grid fills the SMs (16x24
+// tiles at 32x48, 384 blocks; 32x48 at 64x96; 64x48 at 128x192); bytes for
+// z_proj_0 (Ci = Z <= 16). At 16x24 (M = 384, K*K*Ci = 864) neither: each
+// output is one chain of 864 dependent FMAs (~4 cycles each, ~1.7 us) and
+// the 16x24 tiles give 96 blocks of one warp, so the 54 K steps' latency
+// (copy, barrier, shared reads) is what the time is made of.
 extern "C" int trunk_conv_kxk_act(const void* x, int B, int H, int W, int Ci,
                                   int K, int Co, const void* wt,
-                                  const void* b, int act, void* out,
-                                  int device, void* stream) {
-    if (B < 1 || H < 1 || W < 1 || Ci < 1 || K < 1 || K % 2 != 1 || Co < 1)
+                                  const void* b, int act, void* scratch,
+                                  void* out, int device, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || Ci < 1 || K < 1 || K % 2 != 1 || Co < 1
+        || (act && !scratch))
         return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
+    const cudaStream_t st = (cudaStream_t)stream;
     const int M = B * H * W;
+    const float* in = x_f(x);
+    if (act) {
+        const long long n = (long long)M * Ci;
+        if (n % 4 == 0 && aligned16(in) && aligned16(scratch))
+            gelu_kernel<<<elementwise_blocks(n / 4), 256, 0, st>>>(
+                (const float4*)in, n / 4, (float4*)scratch);
+        else
+            gelu1_kernel<<<elementwise_blocks(n), 256, 0, st>>>(
+                in, n, (float*)scratch);
+        TRY(cudaGetLastError());
+        in = (const float*)scratch;
+    }
+    const ConvSrc src{in, M, H, W, Ci, K, K * K * Ci};
     const StoreBias store{(float*)out, x_f(b), Co};
-    if (act)
-        return (int)launch_gemm(M, Co, K * K * Ci,
-                                LoadTaps<true>{x_f(x), H, W, Ci, K}, x_f(wt),
-                                store, (cudaStream_t)stream);
-    return (int)launch_gemm(M, Co, K * K * Ci,
-                            LoadTaps<false>{x_f(x), H, W, Ci, K}, x_f(wt),
-                            store, (cudaStream_t)stream);
+    if (Ci % 4 == 0 && aligned16(in) && aligned16(wt))
+        return (int)dispatch_tiled<4>(M, Co, K * K * Ci, src, x_f(wt), store,
+                                      st);
+    return (int)dispatch_tiled<1>(M, Co, K * K * Ci, src, x_f(wt), store, st);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:609 zadd_dense: (syms + pm) @ w + b,

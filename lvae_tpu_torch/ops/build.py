@@ -57,8 +57,8 @@ _SIGNATURES = {
     'trunk_dw_ln_affine': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _P],
     'trunk_dense_act': [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P],
-    'trunk_conv_kxk_act': [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _I,
-                           _P],
+    'trunk_conv_kxk_act': [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                           _I, _P],
     'trunk_zadd_dense': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_zadd': [_P, _P, _LL, _P, _I, _P],
     'trunk_res_dense_act': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],

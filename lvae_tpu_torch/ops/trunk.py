@@ -439,7 +439,9 @@ def dense_act(x, w, b, act=True):
 
 def conv_kxk_act(x, wk, b, act=True):
     """'same' K x K conv (zero padding) with an optional GELU on the input:
-    x (B, H, W, Ci), wk (K, K, Ci, Co) (the flax layout) -> (B, H, W, Co)."""
+    x (B, H, W, Ci), wk (K, K, Ci, Co) (the flax layout) -> (B, H, W, Co).
+    One count a call; with act the call launches a GELU pass and then the
+    product."""
     if not _on_card('conv_kxk_act', x, wk, b):
         return conv_kxk_act_plain(x, wk, b, act)
     B, H, W, Ci = x.shape
@@ -451,11 +453,29 @@ def conv_kxk_act(x, wk, b, act=True):
     # free when wk is a view of a contiguous (Co, K, K, Ci), as _kxk_w's is
     wt, = _f32('conv_kxk_act', wk.permute(3, 0, 1, 2).reshape(Co, -1))
     out = torch.empty((B, H, W, Co), dtype=torch.float32, device=x.device)
+    # gelu(x), once per element, for the product to read (act only)
+    scratch = torch.empty_like(x) if act else None
     _launch('conv_kxk_act', build.library().trunk_conv_kxk_act, x.data_ptr(),
             B, H, W, Ci, K, Co, wt.data_ptr(), b.data_ptr(), int(bool(act)),
-            out.data_ptr(), device=x.device)
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            device=x.device)
     conv_kxk_act.launches += 1
     return out
+
+
+def im2col_tapmajor(x, K):
+    """x (B, H, W, Ci) -> (B, H*W, K*K*Ci), column k = (di*K + dj)*Ci + ci
+    holding x[b, h + di - p, w + dj - p, ci] (0 outside the image), the
+    depth order of conv_kxk_act's kernel. Pure data movement (pad, slices,
+    stack), so value-exact: dense_act on it is the conv, on the
+    matrix-product core that dense_act runs (a bitwise oracle for the
+    kernel; not on the main path)."""
+    B, H, W, Ci = x.shape
+    p = (K - 1) // 2
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    taps = torch.stack([xp[:, di:di + H, dj:dj + W, :]
+                        for di in range(K) for dj in range(K)], dim=3)
+    return taps.reshape(B, H * W, K * K * Ci)
 
 
 def zadd_dense(syms, pm, w, b):

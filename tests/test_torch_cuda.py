@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: the rANS kernels against their plain
 versions at every lane count the codec uses, the trunk kernels against
-theirs at qarv_tiny and qres_tiny shapes, the lossless head's two kernels
-against theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless
-round trips (legacy and portable) through them.
+theirs at qarv_tiny and qres_tiny shapes, dense and conv_kxk_act (the tiled
+product core) bitwise against the old core at ragged shapes, the lossless
+head's two kernels against theirs bitwise, and qarv_tiny, qres_tiny and
+qres_tiny_lossless round trips (legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -357,6 +358,103 @@ def test_portable_qres_tiny_roundtrip_on_card(card):
                  'fuse_zproj': 0, 'nll_head': 0, 'nll_recon': 0}
     for k in trunk.KERNELS:
         assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
+
+
+# ---- the tiled product core (dense, conv_kxk_act) ---------------------------
+
+# ragged rows M (a (B, H, W) grid for the conv), widths N, input channels Ci
+# at kernel sizes K: the depths K*K*Ci include every remainder mod 16 the
+# trunk meets, and Ci 10 and 14 take the 4-byte copies
+CORE_M = {1: (1, 1, 1), 95: (1, 5, 19), 385: (1, 11, 35)}
+CORE_CASES = [(M, N, Ci, K) for M in CORE_M for N in (24, 48, 96, 2048)
+              for Ci in (8, 10, 14, 48, 96) for K in (1, 3, 5)]
+
+
+def _core_oracle(args):
+    """The same function through dense_act on the old product core: each
+    output's sum is the same fmaf chain, so the tiled core's bits must
+    equal it."""
+    from lvae_tpu_torch.ops import trunk
+    if len(args) == 3:
+        return trunk.dense_act(*args, False)
+    x, wk, b, act = args
+    B, H, W, Ci = x.shape
+    K, Co = wk.shape[0], wk.shape[-1]
+    return trunk.dense_act(trunk.im2col_tapmajor(x, K),
+                           wk.reshape(K * K * Ci, Co), b,
+                           act).reshape(B, H, W, Co)
+
+
+def _f(rng, card, *shape, scale=1.0):
+    return torch.as_tensor((rng.normal(size=shape) * scale).astype(
+        np.float32), device=card)
+
+
+def test_tiled_core_dense_equals_old_core(card):
+    """dense on the tiled core is bitwise dense_act(act=False) on the old
+    core at every synthetic shape, also from rows 4 bytes off 16."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(7)
+    for M, N, Ci, K in CORE_CASES:
+        C = K * K * Ci
+        w, b = _f(rng, card, C, N, scale=C ** -0.5), _f(rng, card, N)
+        x = _f(rng, card, 1, M, C)
+        unaligned = _f(rng, card, M * C + 1)[1:].reshape(1, M, C)
+        for xd in (x, unaligned):
+            got = trunk.dense(xd, w, b)
+            assert torch.equal(got, _core_oracle((xd, w, b))), \
+                (M, N, C, xd.data_ptr() % 16)
+
+
+def test_tiled_core_conv_equals_old_core(card):
+    """conv_kxk_act on the tiled core (and its GELU pre-pass) is bitwise
+    dense_act on im2col_tapmajor's columns at every synthetic shape, act on
+    and off."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(8)
+    for M, N, Ci, K in CORE_CASES:
+        C = K * K * Ci
+        x = _f(rng, card, *CORE_M[M], Ci)
+        wk, b = _f(rng, card, K, K, Ci, N, scale=C ** -0.5), _f(rng, card, N)
+        for act in (True, False):
+            args = (x, wk, b, act)
+            got = trunk.conv_kxk_act(*args)
+            assert torch.equal(got, _core_oracle(args)), (M, N, Ci, K, act)
+
+
+@pytest.mark.parametrize('name', ['dense', 'conv_kxk_act'])
+def test_tiled_core_batch_launches_and_repeat(card, name):
+    """One launch counted per call, the same bits on a repeat, the first
+    image of a batch of two its bits alone (the tile shape may follow the
+    row count; no output's chain does), at shapes of each tile family."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(9)
+    fn = getattr(trunk, name)
+    shapes = ([(96, 512, 2048), (384, 512, 1536), (1536, 384, 1024),
+               (6144, 256, 512), (24576, 128, 48), (95, 90, 24)]
+              if name == 'dense' else
+              [(16, 24, 96, 96, True), (64, 96, 96, 96, True),
+               (128, 192, 48, 48, True), (16, 24, 14, 48, False),
+               (128, 192, 8, 24, False), (5, 19, 10, 24, True)])
+    for shape in shapes:
+        if name == 'dense':
+            M, C, N = shape
+            args = [_f(rng, card, 1, M, C),
+                    _f(rng, card, C, N, scale=C ** -0.5), _f(rng, card, N)]
+        else:
+            H, W, Ci, Co, act = shape
+            args = [_f(rng, card, 1, H, W, Ci),
+                    _f(rng, card, 3, 3, Ci, Co, scale=(9 * Ci) ** -0.5),
+                    _f(rng, card, Co), act]
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1, shape
+        assert torch.equal(fn(*args), got), shape
+        torch.testing.assert_close(got, trunk.PLAIN[fn](*args), atol=1e-5,
+                                   rtol=1e-4)
+        two = list(args)
+        two[0] = torch.cat([args[0], args[0].flip(-1)])
+        assert torch.equal(fn(*two)[:1], got), shape
 
 
 # ---- the lossless pixel head -----------------------------------------------
