@@ -10,13 +10,22 @@
    num_lanes='auto' picks for the three lambdas: N = 16, 64 and 128) on
    random symbols at qarv_base 512x768 size (about 617k symbols, with tail
    rows and escapes), and times both, with their inputs in L2 (as after
-   the stage that wrote them) and pushed out of it. Then it holds dense
-   and conv_kxk_act, the two kernels on the tiled product core, bitwise
-   (torch.equal) against their oracle on the old core (dense_act; for the
-   conv on im2col_tapmajor's columns) at synthetic ragged shapes: rows 1,
-   95 and 385, widths 24, 48, 96 and 2048, input channels 8, 10, 14, 48
-   and 96 at kernel sizes 1, 3 and 5, act on and off, dense also from
-   unaligned rows;
+   the stage that wrote them) and pushed out of it, also per dependent row
+   (ns_per_row). Then the checks of 2 and 5 again with the lossless head's
+   128-row table at N = 48 and 100 (B = 3), and the decode kernel, single
+   and multi-image, on rans_corner_cases (every lane renormalising, none,
+   a stream cut short, nsym ending inside a row, the stream ring wrapped
+   with chunk boundaries inside rows) at N = 1, 16, 48, 100 and 128 with
+   the four tables of corner_scale_tables, byte for byte against its plain
+   versions and B single launches. Then it holds dense, conv_kxk_act and
+   mlp_res, the kernels on the tiled product core, bitwise (torch.equal)
+   against their oracle on the old core (dense_act; for the conv on
+   im2col_tapmajor's columns; for mlp_res two dense_act calls and the
+   residual) at synthetic ragged shapes: rows 1, 95 and 385, widths 24, 48,
+   96 and 2048, input channels 8, 10, 14, 48 and 96 at kernel sizes 1, 3 and
+   5, act on and off, dense also from unaligned rows; mlp_res at rows 1, 95
+   and 385, widths 128, 192, 384 and 512, hidden ratios 1.5 to 4, one output
+   width unlike the input's, and once from unaligned rows;
 3. runs qarv_base with the committed weights on images/photo1_512x768.png
    through compress_file / decompress_file at lambda 16, 512 and 2048, on
    the legacy trunk and on the portable trunk (the main path: files are
@@ -27,12 +36,14 @@
 4. holds the seven portable-trunk kernels against their plain versions on
    the inputs the main path gives them (captured from one encode and
    decode of each image, every distinct shape), checks that a batch of two
-   gives the first image the bits it gets alone, holds dense bitwise
-   against the old core (as at every later captured shape, for dense and
-   conv_kxk_act, at B = 1 and B = 2), and times each kernel, its plain
-   version, for dense the old core (old_core_ms) and torch.addmm (device
-   times from CUDA-graph replays, and the eager wrapper's time beside
-   them);
+   gives the first image the bits it gets alone, holds dense and mlp_res
+   bitwise against the old core (as at every later captured shape, for
+   dense, conv_kxk_act and mlp_res, at B = 1 and B = 2), and times each
+   kernel, its plain version, for dense and mlp_res the old core
+   (old_core_ms), for dense torch.addmm (device times from CUDA-graph
+   replays, and the eager wrapper's time beside them); each qarv decode
+   also reports its rANS decode launches' time and share of dec_ms, as
+   the qres34m and lossless phases do;
 5. holds the two multi-image rANS kernels against their plain versions and
    against B single-kernel launches at N = 16, 64 and 128 and B = 2, 3 and
    6, on random symbols at qarv_base size (the same block layout for every
@@ -86,9 +97,9 @@
    against the PNG's).
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-tiled_core, codec, trunk, batch, qres, qres_trunk, lossless, lossless_trunk,
-fresh_process), the card line of nvidia-smi, the kernels line, then the
-result line.
+rans_decode_checks, tiled_core, codec, trunk, batch, qres, qres_trunk,
+lossless, lossless_trunk, fresh_process), the card line of nvidia-smi,
+the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
@@ -199,12 +210,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 # the kernels on the tiled product core (csrc/trunk.cu tiled_kernel), held
 # bitwise against their oracle on the old core (core_oracle) at every shape
-CORE_NAMES = ('dense', 'conv_kxk_act')
+CORE_NAMES = ('dense', 'conv_kxk_act', 'mlp_res')
 # the synthetic ragged shapes of that check: rows M (a B x H x W grid for
 # the conv), widths N, input channels Ci at kernel sizes K (dense: depth
 # K*K*Ci), act on and off
 CORE_M = {1: (1, 1, 1), 95: (1, 5, 19), 385: (1, 11, 35)}
 CORE_N, CORE_CI, CORE_K = (24, 48, 96, 2048), (8, 10, 14, 48, 96), (1, 3, 5)
+# mlp_res's synthetic shapes: rows, input widths C, hidden widths HID =
+# ratio * C; and one case whose output width CO differs from C
+MLP_M, MLP_C, MLP_RATIOS = (1, 95, 385), (128, 192, 384, 512), (1.5, 2, 3, 4)
+MLP_CO_CASE = (95, 384, 1536, 192)          # M, C, HID, CO
+# a hidden width that is no multiple of 4: fc2 from the 4-byte copies
+MLP_HID_RAGGED_CASE = (95, 128, 190, 128)
 CORE_SEED = 9
 # timing: medians of 5 kernel runs; the plain versions are host-bound
 # references taking seconds, so theirs are medians of 3, the first of which
@@ -244,13 +261,19 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def cuda_ms(torch, fn, repeats, first_ms=None):
-    """Median of `repeats` CUDA-event timings of fn() (ms), counting an
+def cuda_times(torch, fn, repeats, first_ms=None):
+    """`repeats` CUDA-event timings of fn() (ms), sorted, counting an
     already measured first run when `first_ms` is given."""
     times = [] if first_ms is None else [first_ms]
     while len(times) < repeats:
         times.append(timed(torch, fn)[1])
-    return sorted(times)[len(times) // 2]
+    return sorted(times)
+
+
+def cuda_ms(torch, fn, repeats, first_ms=None):
+    """Median of cuda_times."""
+    times = cuda_times(torch, fn, repeats, first_ms)
+    return times[len(times) // 2]
 
 
 def cold_l2_ms(torch, fn, repeats):
@@ -264,17 +287,19 @@ def cold_l2_ms(torch, fn, repeats):
     return sorted(times)[len(times) // 2]
 
 
-def random_blocks(np, seed, N):
-    """qarv_base-sized symbols: per block scale indexes, values drawn at
-    1.5x their scale, 1% escapes; block sizes cut by a few symbols so that
-    every block ends in a partial (tail) row."""
+def random_blocks(np, seed, N, scales=None):
+    """qarv_base-sized symbols: per block scale indexes (into `scales`, by
+    default the latent table's 64), values drawn at 1.5x their scale, 1%
+    escapes; block sizes cut by a few symbols so that every block ends in a
+    partial (tail) row."""
     from lvae_tpu_torch.ops import cdf
     rng = np.random.default_rng(seed)
-    scales = cdf.default_gaussian_scale_table()
+    if scales is None:
+        scales = cdf.default_gaussian_scale_table()
     vals, idxs = [], []
     for b, size in enumerate(QARV_BASE_BLOCKS):
         size -= 1 + (7 * b) % (N - 1)
-        idx = rng.integers(0, 64, size).astype(np.int32)
+        idx = rng.integers(0, len(scales), size).astype(np.int32)
         v = np.round(rng.normal(0, scales[idx] * 1.5)).astype(np.int32)
         esc = rng.random(size) < 0.01
         v[esc] = rng.integers(-500, 500, int(esc.sum()))
@@ -283,8 +308,150 @@ def random_blocks(np, seed, N):
     return vals, idxs
 
 
+def plain_row_ends(torch, cdfs, offsets, case):
+    """The word pointer before each row of image 0 of a rans_corner_cases
+    case and after its last: the plain decode run a row at a time."""
+    from lvae_tpu_torch.ops import rans_decode as rd
+    ix, stream = case['indexes'][0], torch.from_numpy(case['streams'][0])
+    cdfs, offsets = torch.from_numpy(cdfs), torch.from_numpy(offsets)
+    T, N = ix.shape
+    state = torch.from_numpy(case['states'][0][None])
+    ptr = torch.tensor(int(case['ptrs'][0]), dtype=torch.int32)
+    ends = [int(ptr)]
+    for t in range(T):
+        _, state, ptr = rd.rans_decode_block_plain(
+            torch.from_numpy(ix[t:t + 1]), state, ptr, stream, cdfs, offsets,
+            min(max(case['nsym'] - t * N, 0), N))
+        ends.append(int(ptr))
+    return ends
+
+
+def rans_ring():
+    """The decode kernel's stream ring, read from its source (csrc/rans.cu
+    kRingChunk, kRingChunks): (words a chunk, words in all)."""
+    import re
+    with open(os.path.join(ROOT, 'lvae_tpu_torch', 'csrc', 'rans.cu')) as f:
+        src = f.read()
+    chunk, chunks = (int(re.search(rf'constexpr int {n} = (\d+);',
+                                   src).group(1))
+                     for n in ('kRingChunk', 'kRingChunks'))
+    return chunk, chunk * chunks
+
+
+# lane counts of the corner cases (every lane count the kernel's two paths
+# take: one warp, a ragged last warp, whole warps)
+CORNER_LANES = (1, 16, 48, 100, 128)
+# lane counts of the plain-version and single-launch checks with the
+# lossless head's table
+HEAD_TABLE_LANES = (48, 100)
+
+
+def corner_scale_tables():
+    """The scale tables of the decode's corner cases, by label: the latent
+    table (64 rows of 249 CDF entries), the lossless head's (128 rows), the
+    latent table's first 40 rows (37 entries: rows shorter than the
+    kernel's 256) and 16 scales up to 40 (493 entries: rows padded to 1024,
+    the search's extra round)."""
+    from lvae_tpu_torch.ops import cdf
+    return {'latent': cdf.default_gaussian_scale_table(),
+            'head': cdf.lossless_head_scale_table(),
+            'narrow': cdf.default_gaussian_scale_table()[:40],
+            'wide': cdf.default_gaussian_scale_table(n=16, hi=40.0)}
+
+
+def rans_corner_cases(np, cdfs, offsets, N, seed=0):
+    """Decode inputs at the rANS decode kernel's corners (its stream
+    ring's chunk boundaries and wrap, from rans_ring), for a sentinel-padded
+    table (cdfs (S, L), offsets (S,): prepare_device_cdf) and N lanes: [(name,
+    case)], each case two images of one shape, numpy int32 indexes (2, T, N),
+    states (2, N), ptrs (2,), streams (2, W), and nsym. Any states and words
+    decode to something, so a case needs no encoder: the kernel must give its
+    plain version's bytes. Image 0 is the corner (checked here with
+    plain_row_ends), image 1 random states, indexes, pointer and words of the
+    same shape. Stream words carry garbage above their 16 bits (the decode
+    masks them).
+    - every_lane_renormalises: states 2^16 (slot 0: the first symbol, of
+      freq < 2^16), so row 0 takes N words, from a pointer N // 2 words
+      before a ring chunk boundary (the row's words cross it);
+    - no_lane_renormalises: states 0xFFFF8000 (slot 0x8000, the central
+      symbol of freq >= 2 times 0xFFFF), so row 0 takes none;
+    - stream_cut_short: W ends a few words past the pointer; later rows
+      read past W (0);
+    - ends_mid_row: nsym ends inside the last row (for N = 1 one row early);
+    - ring_wraps: every index the widest scale, rows enough that the words
+      wrap the ring at least twice and cross chunk boundaries inside rows
+      (N >= 16; fewer at N = 1, where a row takes one word at most)."""
+    import torch
+    rng = np.random.default_rng(seed + 1000 * N + len(cdfs))
+    chunk, ring = rans_ring()
+    S = len(cdfs)
+    full = np.int64(1) << 32
+
+    def words(W):
+        return rng.integers(0, 1 << 31, W).astype(np.int32)
+
+    def random_states():
+        return rng.integers(1 << 16, full, N).astype(np.uint32).view(
+            np.int32)
+
+    def case(T, ix0, x0, ptr0, W, nsym):
+        return dict(
+            indexes=np.stack([ix0, rng.integers(0, S, (T, N))]).astype(
+                np.int32),
+            states=np.stack([np.full(N, x0, np.uint32).view(np.int32)
+                             if np.isscalar(x0) else x0, random_states()]),
+            ptrs=np.array([ptr0, rng.integers(0, chunk)], np.int32),
+            streams=np.stack([words(W), words(W)]), nsym=nsym)
+
+    def random_ix(T):
+        return rng.integers(0, S, (T, N))
+
+    T = 12
+    # the widest scale's words a symbol (its entropy / 16 bits): rows
+    # enough for three ring wraps, at most 3000
+    widest = cdfs[S - 1][cdfs[S - 1] <= 1 << 16].astype(np.float64)
+    p = np.diff(widest) / (1 << 16)
+    per_symbol = -(p[p > 0] * np.log2(p[p > 0])).sum() / 16
+    T_wrap = int(min(max(3 * ring / (per_symbol * N), T), 3000))
+    ptr0 = chunk - N // 2
+    cases = [
+        ('every_lane_renormalises',
+         case(T, random_ix(T), 1 << 16, ptr0, ptr0 + T * N + 64, T * N)),
+        ('no_lane_renormalises',
+         case(T, random_ix(T), 0xFFFF8000, 5, T * N + 64, T * N)),
+        ('stream_cut_short',
+         case(T, random_ix(T), 1 << 16, 3, 3 + max(N // 2, 1), T * N)),
+        ('ends_mid_row',
+         case(T, random_ix(T), random_states(), 7, T * N + 64,
+              T * N - N // 2 - 1)),
+        ('ring_wraps',
+         case(T_wrap, np.full((T_wrap, N), S - 1), random_states(), ptr0,
+              T_wrap * N + 64, T_wrap * N))]
+    for name, c in cases:
+        ends = plain_row_ends(torch, cdfs, offsets, c)
+        counts = np.diff(ends).tolist()
+        W = c['streams'].shape[1]
+        crossing = any(a // chunk < (b - 1) // chunk
+                       for a, b in zip(ends[:-1], ends[1:]) if b > a)
+        ok = {'every_lane_renormalises': counts[0] == N and (N < 2
+                                                             or crossing),
+              'no_lane_renormalises': counts[0] == 0,
+              'stream_cut_short': ends[-1] > W,
+              'ends_mid_row': c['nsym'] % N != 0 or N == 1,
+              'ring_wraps': N < 16 or (ends[-1] - ends[0] >= 2 * ring
+                                       and crossing)}[name]
+        if not ok:
+            raise AssertionError(f'rans_corner_cases N={N} S={S}: {name} '
+                                 f'misses its corner (words {counts[:4]}, '
+                                 f'{ends[-1] - ends[0]} in all)')
+    return cases
+
+
 def check_kernels(torch, np, table, device, lane_counts):
-    """Both kernels against their plain versions at each lane count."""
+    """Both kernels against their plain versions at each lane count, on
+    qarv_base-sized symbols over the table's scales; each kernel's rows
+    (dependent steps: the decode's nine launches' rows, the encode's T) and
+    its time a row."""
     from lvae_tpu_torch.ops import rans_decode as rd, rans_encode as re_
     cdfs_np, offs_np = rd.prepare_device_cdf(table)
     cdfs = torch.as_tensor(cdfs_np, device=device)
@@ -292,7 +459,7 @@ def check_kernels(torch, np, table, device, lane_counts):
     S, L = cdfs_np.shape
     results = {'rans_encode_all': {}, 'rans_decode_block': {}}
     for N in lane_counts:
-        vals, idxs = random_blocks(np, 1234 + N, N)
+        vals, idxs = random_blocks(np, 1234 + N, N, table.scale_table)
         sym_rows, idx_rows, row_n = re_.blocks_to_rows(vals, idxs, N)
         T = sym_rows.shape[0]
         nsym = int(sum(v.size for v in vals))
@@ -381,7 +548,7 @@ def check_kernels(torch, np, table, device, lane_counts):
             'rans_encode_all': dict(
                 kernel=enc_kernel, plain=enc_plain, plain_ms=enc_plain_ms,
                 match=enc_match,
-                err=enc_err, launches=1,
+                err=enc_err, launches=1, rows=T,
                 # the pairs the kernel writes (the wrapper zero-fills the
                 # buffer), the states and n_words
                 bytes=4 * (2 * T * N + T) + table_bytes
@@ -392,12 +559,14 @@ def check_kernels(torch, np, table, device, lane_counts):
                 kernel=dec_kernel, plain=dec_plain, plain_ms=dec_plain_ms,
                 match=dec_match,
                 err=dec_err, launches=len(blocks),
+                rows=sum(int(rows.shape[0]) for rows, _ in blocks),
                 bytes=4 * (2 * T * N + n_words + 2 * N + 2) + table_bytes,
-                # 8-step binary search over <= 249 entries, state update,
+                # a search over <= 256 entries (8 compares), state update,
                 # renorm test and feed
                 ops=16 * nsym)}
         for name, r in runs.items():
-            ms = cuda_ms(torch, r['kernel'], KERNEL_REPEATS)
+            times = cuda_times(torch, r['kernel'], KERNEL_REPEATS)
+            ms = times[len(times) // 2]
             cold_ms = cold_l2_ms(torch, r['kernel'], KERNEL_REPEATS)
             plain_ms = cuda_ms(torch, r['plain'], PLAIN_REPEATS,
                                first_ms=r['plain_ms'])
@@ -407,11 +576,19 @@ def check_kernels(torch, np, table, device, lane_counts):
                 T=T, nsym=nsym, n_words=n_words, escapes=n_esc,
                 match=r['match'], max_abs_err=r['err'],
                 launches_per_image=r['launches'], ms=ms,
-                ms_cold_l2=cold_ms, plain_ms=plain_ms,
+                ms_cold_l2=cold_ms, rows=r['rows'],
+                ns_per_row=ms * 1e6 / r['rows'],
+                # the fastest and slowest of the warm timings
+                ns_per_row_range=[t * 1e6 / r['rows']
+                                  for t in (times[0], times[-1])],
+                ns_per_row_cold_l2=cold_ms * 1e6 / r['rows'],
+                plain_ms=plain_ms,
                 bytes=r['bytes'], ops=r['ops'],
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
-            progress(f'{name} N={N}: {ms:.3f} ms, plain {plain_ms:.1f} ms')
+            progress(f'{name} N={N}: {ms:.3f} ms ({ms * 1e6 / r["rows"]:.0f} '
+                     f'ns a row, cold L2 {cold_ms:.3f}), plain '
+                     f'{plain_ms:.1f} ms')
     return results
 
 
@@ -431,8 +608,8 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
     results = {'rans_encode_all_multi': {}, 'rans_decode_block_multi': {}}
     for N in lane_counts:
         for B in batches:
-            per = [random_blocks(np, 1234 + N + 1000 * b, N)
-                   for b in range(B)]
+            per = [random_blocks(np, 1234 + N + 1000 * b, N,
+                                 table.scale_table) for b in range(B)]
             rows = [re_.blocks_to_rows(v, i, N) for v, i in per]
             row_n = torch.as_tensor(rows[0][2], device=device)
             syms = torch.as_tensor(np.stack([r[0] for r in rows]),
@@ -539,7 +716,7 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
             runs = {
                 'rans_encode_all_multi': dict(
                     multi=enc_multi, singles=enc_singles,
-                    plain_ms=enc_plain_ms, err=enc_err, launches=1,
+                    plain_ms=enc_plain_ms, err=enc_err, launches=1, rows=T,
                     # the pairs the kernel writes (the wrapper zero-fills
                     # the buffer), the states and n_words
                     bytes=4 * (B * (2 * T * N + N + 1) + T + sum(
@@ -548,6 +725,7 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
                 'rans_decode_block_multi': dict(
                     multi=dec_multi, singles=dec_singles,
                     plain_ms=dec_plain_ms, err=dec_err, launches=len(blocks),
+                    rows=sum(int(rows_b.shape[1]) for rows_b, _ in blocks),
                     bytes=4 * (B * (2 * T * N + 2 * N + 2) + sum(n_words))
                     + table_bytes,
                     ops=B * 16 * nsym)}
@@ -561,7 +739,9 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
                     N=N, B=B, T=T, nsym_per_image=nsym, n_words=n_words,
                     match_plain=True, match_single_launches=True,
                     max_abs_err=r['err'], launches_per_batch=r['launches'],
-                    ms=ms, ms_cold_l2=cold_ms,
+                    ms=ms, ms_cold_l2=cold_ms, rows=r['rows'],
+                    ns_per_row=ms * 1e6 / r['rows'],
+                    ns_per_row_cold_l2=cold_ms * 1e6 / r['rows'],
                     single_launches_ms=singles_ms,
                     plain_ms=r['plain_ms'], bytes=r['bytes'], ops=r['ops'],
                     bound_ms=max(bytes_ms, ops_ms),
@@ -569,6 +749,64 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
                 progress(f'{name} {what}: {ms:.3f} ms, {B} images alone '
                          f'{singles_ms:.3f} ms, plain {r["plain_ms"]:.1f} ms')
     return results
+
+
+def decode_corner_case(torch, case, cdfs, offs, N):
+    """One rans_corner_cases case (numpy) on the card: each image through
+    rans_decode_block against rans_decode_block_plain, and both through
+    rans_decode_block_multi against its plain version and against the two
+    single launches, byte for byte (values, states, pointers). cdfs, offs:
+    the table on the card. -> (single match, multi match, words each image
+    took)."""
+    from lvae_tpu_torch.ops import rans_decode as rd
+    t = {k: torch.as_tensor(v, device=cdfs.device)
+         for k, v in case.items() if k != 'nsym'}
+    nsym = case['nsym']
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    single, alone = True, []
+    for b in range(2):
+        args = (t['indexes'][b], t['states'][b:b + 1], t['ptrs'][b],
+                t['streams'][b], cdfs, offs)
+        got = rd.rans_decode_block(*args, nsym, num_lanes=N)
+        single &= same(got, rd.rans_decode_block_plain(*args, nsym))
+        alone.append(got)
+    args = (t['indexes'], t['states'], t['ptrs'], t['streams'], cdfs, offs)
+    got = rd.rans_decode_block_multi(*args, nsym, num_lanes=N)
+    want = rd.rans_decode_block_multi_plain(*args, nsym)
+    multi = same(got, want) and all(
+        torch.equal(got[0][b], v) and torch.equal(got[1][b], st[0])
+        and torch.equal(got[2][b], p) for b, (v, st, p) in enumerate(alone))
+    return single, multi, (want[2].long() - t['ptrs'].long()).tolist()
+
+
+def check_decode_corners(torch, device, tables):
+    """decode_corner_case on every rans_corner_cases case, for each table
+    of `tables` ({label: CdfTable}) at every lane count of CORNER_LANES.
+    -> a row per case."""
+    from lvae_tpu_torch.ops import rans_decode as rd
+    rows = []
+    for label, table in tables.items():
+        cdfs_np, offs_np = rd.prepare_device_cdf(table)
+        cdfs = torch.as_tensor(cdfs_np, device=device)
+        offs = torch.as_tensor(offs_np, device=device)
+        for N in CORNER_LANES:
+            for name, c in rans_corner_cases(np, cdfs_np, offs_np, N):
+                single, multi, words = decode_corner_case(torch, c, cdfs,
+                                                          offs, N)
+                rows.append(dict(
+                    table=label, S=len(cdfs_np), N=N, case=name,
+                    T=c['indexes'].shape[1], W=c['streams'].shape[1],
+                    nsym=c['nsym'], words=words, single_match=single,
+                    multi_match=multi))
+                require(single and multi,
+                        f'rANS decode corner case {name} (table {label}, '
+                        f'N={N}): the kernel disagrees with its plain '
+                        f'version or single launches')
+    progress(f'rANS decode corner cases: {len(rows)} cases, all byte-equal')
+    return rows
 
 
 def launch_counters():
@@ -631,6 +869,7 @@ def run_codec(torch, model, portable, cases, tmpdir):
         enc_ms = cuda_ms(torch, lambda: model.compress(
             im, lmb=lmb, portable=portable), 3)
         dec_ms = cuda_ms(torch, lambda: model.decompress(body), 3)
+        rans = rans_share(torch, lambda: model.decompress(body), dec_ms)
         row = dict(trunk=kind, image=os.path.relpath(image, ROOT), lmb=lmb,
                    lanes=lanes_field & 0x7FFF,
                    portable_marker=bool(lanes_field & 0x8000),
@@ -638,7 +877,7 @@ def run_codec(torch, model, portable, cases, tmpdir):
                    finite=bool(np.isfinite(rec).all()),
                    shape=list(rec.shape), shape_ok=rec.shape == (1, H, W, 3),
                    bit_exact=bit_exact,
-                   enc_ms=enc_ms, dec_ms=dec_ms,
+                   enc_ms=enc_ms, dec_ms=dec_ms, **rans,
                    encode_launches=enc_launches,
                    decode_launches=dec_launches, path=path)
         ref = REFERENCE.get((image, lmb)) or REPORTED.get((image, lmb))
@@ -1187,14 +1426,21 @@ def graph_ms(torch, fn, inner, repeats=5):
 
 
 def core_oracle(torch, name, args):
-    """dense or conv_kxk_act computed by dense_act on the old product core
-    (gemm_kernel): dense as dense_act without its GELU, the conv as
-    dense_act on im2col_tapmajor's columns. Each output's sum is the same
-    fmaf chain on both cores, so the tiled core must match it bitwise."""
+    """dense, conv_kxk_act or mlp_res computed by dense_act on the old
+    product core (gemm_kernel): dense as dense_act without its GELU, the
+    conv as dense_act on im2col_tapmajor's columns, mlp_res as fc1 without
+    a GELU, then fc2 with the GELU on its input (the value mlp_res's fc1
+    epilogue stores), then shortcut + y * gamma (two roundings, as the
+    kernel's epilogue). Each output's sum is the same fmaf chain on both
+    cores, so the tiled core must match it bitwise."""
     from lvae_tpu_torch.ops import trunk
     if name == 'dense':
         x, w, b = args
         return trunk.dense_act(x, w, b, False)
+    if name == 'mlp_res':
+        t, w1, b1, w2, b2, gamma, shortcut = args
+        y = trunk.dense_act(trunk.dense_act(t, w1, b1, False), w2, b2, True)
+        return shortcut + y * gamma
     x, wk, b = args[:3]
     act = args[3] if len(args) > 3 else True
     B, H, W, Ci = x.shape
@@ -1213,11 +1459,13 @@ def core_bitwise(torch, name, args, got=None):
 
 
 def check_core_synthetic(torch, device):
-    """dense and conv_kxk_act against core_oracle, bitwise, on synthetic
-    ragged shapes: every M of CORE_M, N of CORE_N, Ci of CORE_CI and K of
-    CORE_K; dense at depth K*K*Ci, also from a row pointer 4 bytes off 16
-    (the 4-byte copies); the conv with act on and off (Ci 10 and 14 take
-    the 4-byte copies)."""
+    """dense, conv_kxk_act and mlp_res against core_oracle, bitwise, on
+    synthetic ragged shapes: every M of CORE_M, N of CORE_N, Ci of CORE_CI
+    and K of CORE_K; dense at depth K*K*Ci, also from a row pointer 4 bytes
+    off 16 (the 4-byte copies); the conv with act on and off (Ci 10 and 14
+    take the 4-byte copies); mlp_res at every M of MLP_M, C of MLP_C and
+    hidden ratio of MLP_RATIOS, at MLP_CO_CASE and MLP_HID_RAGGED_CASE,
+    and once from unaligned rows."""
     import itertools
     rng = np.random.default_rng(CORE_SEED)
 
@@ -1242,14 +1490,29 @@ def check_core_synthetic(torch, device):
             if not core_bitwise(torch, 'conv_kxk_act', (xi, wk, b, act)):
                 bad.append(dict(kernel='conv_kxk_act', M=M, N=N, Ci=Ci,
                                 K=K, act=act))
+    mlp = [(M, C, round(C * r), C) for M, C, r in itertools.product(
+        MLP_M, MLP_C, MLP_RATIOS)] + [MLP_CO_CASE, MLP_HID_RAGGED_CASE]
+    for i, (M, C, HID, CO) in enumerate(mlp + [MLP_CO_CASE]):
+        unaligned = i == len(mlp)
+        t = (f(M * C + 1)[1:].reshape(1, M, C) if unaligned
+             else f(1, M, C))
+        args = (t, f(C, HID, scale=C ** -0.5), f(HID),
+                f(HID, CO, scale=HID ** -0.5), f(CO), f(CO, scale=0.1),
+                f(1, M, CO))
+        cases += 1
+        if not core_bitwise(torch, 'mlp_res', args):
+            bad.append(dict(kernel='mlp_res', M=M, C=C, HID=HID, CO=CO,
+                            unaligned=unaligned))
     progress(f'tiled core, synthetic shapes: {cases} cases, {len(bad)} not '
              f'bitwise equal to the old core')
     require(not bad, f'tiled core not bitwise equal to the old core at '
                      f'{bad[:5]}')
     return dict(cases=cases, bitwise=True, M=list(CORE_M), N=list(CORE_N),
                 Ci=list(CORE_CI), K=list(CORE_K), acts=[True, False],
+                mlp_res_shapes=[list(m) for m in mlp],
                 oracle='dense_act on the old core (conv: on '
-                       'im2col_tapmajor columns)')
+                       'im2col_tapmajor columns; mlp_res: fc1, then fc2 '
+                       'with the GELU on its input, then the residual)')
 
 
 def check_trunk_kernels(torch, names, cases):
@@ -1300,9 +1563,10 @@ def check_trunk_kernels(torch, names, cases):
             eager_ms = per_call_ms(torch, lambda: fn(*args), TRUNK_INNER)
             plain_ms = graph_ms(torch, lambda: plain(*args),
                                 TRUNK_PLAIN_INNER, repeats=3)
-            # dense on the old core: its oracle's device time
+            # dense and mlp_res on the old core: their oracles' device time
             old_core_ms = (graph_ms(torch, lambda: core_oracle(
-                torch, name, args), TRUNK_INNER) if name == 'dense' else None)
+                torch, name, args), TRUNK_INNER)
+                if name in ('dense', 'mlp_res') else None)
             library_ms = None
             lib = library_call(torch, name, args)
             if lib is not None:
@@ -1360,7 +1624,7 @@ def check_trunk_kernels(torch, names, cases):
             kernel_ms_where_library=per_image('ms', rows=lib_rows)
             if lib_rows else None,
             **({'old_core_ms': per_image('old_core_ms')}
-               if name == 'dense' else {}),
+               if name in ('dense', 'mlp_res') else {}),
             **({'core_bitwise_shapes': len(shapes)}
                if name in CORE_NAMES else {}),
             bound_ms=max(bytes_ms, ops_ms),
@@ -1530,7 +1794,9 @@ def run_qres(torch, tmpdir):
         file_encode_launches=enc_l, file_decode_launches=dec_l,
         compress_launches=c_enc_l, decompress_launches=c_dec_l,
         batch_encode_launches=b_enc_l, batch_decode_launches=b_dec_l,
-        times=times, trunk_device_ms=trunk_ms, scaled_posterior=esc)
+        times=times, trunk_device_ms=trunk_ms, scaled_posterior=esc,
+        **rans_share(torch, lambda: model.decompress(obj),
+                     times['portable']['dec_ms']))
     require(result['finite'] and rec.shape == (1, H, W, 3),
             'qres34m: bad reconstruction')
     require(result['portable_marker'], 'qres34m: file without the marker')
@@ -1640,8 +1906,9 @@ def check_nll_synthetic(torch, H, W, device):
 
 def rans_block_times(torch, decode):
     """Run decode() with rd.rans_decode_block recorded, then time each
-    recorded launch again (CUDA events, median of 5): -> (latent blocks'
-    ms summed, the head block's ms, the head's rows)."""
+    recorded launch again (CUDA events, median of 5): -> ([ms of each
+    launch], [rows of each launch]); the lossless head's block is the
+    last."""
     from lvae_tpu_torch.ops import rans_decode as rd
     calls = []
     restore = record_calls(rd, 'rans_decode_block', calls)
@@ -1651,7 +1918,16 @@ def rans_block_times(torch, decode):
         restore()
     ms = [cuda_ms(torch, lambda a=args, k=kw: rd.rans_decode_block(*a, **k),
                   KERNEL_REPEATS) for args, kw, _ in calls]
-    return sum(ms[:-1]), ms[-1], int(calls[-1][0][0].shape[0])
+    return ms, [int(args[0].shape[0]) for args, _, _ in calls]
+
+
+def rans_share(torch, decode, dec_ms):
+    """The rANS decode launches of decode() (rans_block_times): their ms
+    summed, rows, ns a row, and their share of `dec_ms`."""
+    ms, rows = rans_block_times(torch, decode)
+    return dict(rans_decode_ms=sum(ms), rans_decode_rows=sum(rows),
+                rans_ns_per_row=sum(ms) * 1e6 / sum(rows),
+                rans_share_of_dec_ms=sum(ms) / dec_ms)
 
 
 def spread_head_scales(torch, model, crop):
@@ -1742,9 +2018,10 @@ def run_lossless(torch, tmpdir):
     singles_ok = bool(np.array_equal(model.decompress_batch(singles), ims))
 
     # 4. the head's kernels at every shape of one photo1 encode + decode
-    # (nll_head, nll_recon bitwise; the head's dense convs as in the qres
-    # phase) and on photo1-sized synthetic inputs
-    kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + ('dense',), [
+    # (nll_head, nll_recon bitwise; the head's dense convs and the trunk's
+    # mlp_res as in the qres phase) and on photo1-sized synthetic inputs
+    kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + ('dense',
+                                                          'mlp_res'), [
         ('photo1', lambda: model.compress(im), model.decompress)])
     for name in LOSSLESS_TRUNK:
         require_bitwise(name, kernels[name]['by_shape'])
@@ -1752,8 +2029,10 @@ def run_lossless(torch, tmpdir):
 
     # 5. the head block's rANS decode apart from the latent blocks'; then
     # bench.py's qres34m workload on both trunks, as in the qres phase
-    latent_ms, head_ms, head_rows = rans_block_times(
+    block_ms, block_rows = rans_block_times(
         torch, lambda: model.decompress(obj))
+    latent_ms, head_ms, head_rows = (sum(block_ms[:-1]), block_ms[-1],
+                                     block_rows[-1])
     progress(f'rANS decode: latent blocks {latent_ms:.3f} ms, the head '
              f'block {head_ms:.3f} ms ({head_rows} rows)')
     im_dev = torch.as_tensor(im, device=model.device)
@@ -1821,8 +2100,13 @@ def run_lossless(torch, tmpdir):
         compress_launches=c_enc_l, decompress_launches=c_dec_l,
         batch_encode_launches=b_enc_l, batch_decode_launches=b_dec_l,
         nll_synthetic=synthetic, rans_decode_latent_ms=latent_ms,
-        rans_decode_head_ms=head_ms, head_rows=head_rows, times=times,
-        trunk_device_ms={d: sum(r[f'{d}_ms'] for r in kernels.values())
+        rans_decode_head_ms=head_ms, head_rows=head_rows,
+        head_ns_per_row=head_ms * 1e6 / head_rows,
+        rans_share_of_dec_ms=(latent_ms + head_ms)
+        / times['portable']['dec_ms'], times=times,
+        # the head's kernels (mlp_res is the qres34m trunk's)
+        trunk_device_ms={d: sum(kernels[n][f'{d}_ms']
+                                for n in LOSSLESS_TRUNK + ('dense',))
                          for d in ('encode', 'decode')},
         spread_crop=SPREAD_CROP, spread=spread)
     require(result['portable_marker'], 'qres34m_lossless: file without the '
@@ -1955,6 +2239,19 @@ def main():
                                 sorted(set(lanes_of.values())),
                                 (2, 3, SERVING_B))
     emit({'multi_kernels': multi})
+    # the decode kernel with the lossless head's 128-row table at two lane
+    # counts with a ragged last warp, and on its corner cases
+    head_table = cdf.build_cdf_table(cdf.lossless_head_scale_table())
+    emit({'rans_decode_checks': dict(
+        head_table=dict(
+            lanes=list(HEAD_TABLE_LANES),
+            single=check_kernels(torch, np, head_table, device,
+                                 HEAD_TABLE_LANES),
+            multi=check_multi_kernels(torch, np, head_table, device,
+                                      HEAD_TABLE_LANES, (3,))),
+        corner_cases=check_decode_corners(torch, device, {
+            label: cdf.build_cdf_table(scales)
+            for label, scales in corner_scale_tables().items()}))})
     emit({'tiled_core': check_core_synthetic(torch, device)})
 
     t = time.perf_counter()

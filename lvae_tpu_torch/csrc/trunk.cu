@@ -28,12 +28,13 @@
 //
 // The matrix products run on two exact-float32 SIMT cores, no tensor cores
 // (TF32 keeps ~3 digits, and 3xTF32 or FP64 DMMA would change the bits):
-// - gemm_kernel, one 64x64 shared-memory tile with a single buffer: mlp_res,
-//   prior_head, fuse_zproj, dense_act, zadd_dense and res_dense_act;
+// - gemm_kernel, one 64x64 shared-memory tile with a single buffer:
+//   prior_head, fuse_zproj, dense_act, zadd_dense and res_dense_act, and
+//   the oracle of the other core;
 // - tiled_kernel, built for the H100: tile shapes chosen by (M, N) so that
 //   the grid fills the SMs and no column is wasted, a 3-stage cp.async ring,
-//   and an implicit-conv loader without per-element division: dense and
-//   conv_kxk_act.
+//   and an implicit-conv loader without per-element division: dense,
+//   conv_kxk_act and mlp_res's two products.
 // Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
 // (padded steps add fmaf(0, 0, acc)), so they give the same bits; tiling
 // only moves which thread runs a chain, which may follow M (so the batch
@@ -89,13 +90,14 @@ __device__ __forceinline__ float warp_dot(const float* __restrict__ x,
 // the f32 matrix-product core: out[m, n] = epilogue(sum_k A(m, k) * W[n, k])
 // A through a prologue functor, W in (N, K) layout (torch's (out, in)).
 //
-// Bound on this card: operations where K and N are both wide (mlp_res, the
-// 1x1 convs up to 1/8 scale), against 67 TFLOP/s of non-tensor f32; bytes
-// where K or N is a latent width Z or the 48 pixel channels (prior_head,
-// fuse_zproj, the last dense), against 3.35 TB/s. This SIMT tile reaches a
-// fraction of the first: it runs 2 shared-memory loads (float4) per 16
-// FMAs and stages both operands once per 16-deep K step. For the second it
-// reads each A row once per 64 output columns, so a narrow N reads A once.
+// Bound on this card: operations where K and N are both wide (dense_act's
+// 384-channel convs), against 67 TFLOP/s of non-tensor f32; bytes where K
+// or N is a latent width Z or the 48 pixel channels (prior_head,
+// fuse_zproj, zadd_dense, res_dense_act), against 3.35 TB/s. This SIMT
+// tile reaches a fraction of the first: it runs 2 shared-memory loads
+// (float4) per 16 FMAs and stages both operands once per 16-deep K step.
+// For the second it reads each A row once per 64 output columns, so a
+// narrow N reads A once.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
@@ -521,7 +523,9 @@ cudaError_t launch_tiled(int M, int N, int K, ASrc a, const float* w,
 // holds (M*N / SMs) set the block's size: below ~6k small blocks fill the
 // card, above ~16k the largest tiles, whose 6x8 threads read shared memory
 // least per FMA; 96x128 only where its 256-thread blocks make two whole
-// waves. 4-byte copies (V = 1, unaligned rows) take the small tiles.
+// waves. Where 32x64 tiles would leave more than half the SMs idle, 16x32
+// tiles of 2x2 a thread. 4-byte copies (V = 1, unaligned rows) take the
+// small tiles.
 template <int V, class ASrc, class Store>
 cudaError_t dispatch_tiled(int M, int N, int K, ASrc a, const float* w,
                            Store st, cudaStream_t s) {
@@ -536,6 +540,10 @@ cudaError_t dispatch_tiled(int M, int N, int K, ASrc a, const float* w,
 #define TILE(...) \
     return launch_tiled<Tile<__VA_ARGS__>, V>(M, N, K, a, w, st, s)
     if (N % 64 == 0) {
+        if constexpr (V == 4) {
+            // a narrow product with a deep chain (mlp_res's fc2 at 96 rows)
+            if (2LL * ((M + 31) / 32) * (N / 64) < sms) TILE(16, 32, 2, 2);
+        }
         if (per_sm <= 6000 || V == 1) {
             if (V == 4 && N % 48 == 0 && per_sm >= 3000) TILE(32, 48, 4, 6);
             TILE(32, 64, 4, 4);
@@ -907,10 +915,15 @@ extern "C" int trunk_dw_ln_mod(const void* x, int B, int H, int W, int C,
                             NormAdaLN{mod, C}, (float*)out, st);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:223 mlp_res: two launches of the
-// product core through the (M, HID) scratch `hidden`. w1t (HID, C),
-// w2t (CO, HID). Bound: operations (4*M*C*HID flops); the scratch round trip
-// adds 8*M*HID bytes, small beside them at every main-path shape.
+// Replaces lvae_tpu/ops/pallas/trunk.py:223 mlp_res, on the tiled core: two
+// launches through the (M, HID) scratch `hidden`, fc1 with the GELU
+// epilogue, fc2 with the layer-scale residual one. w1t (HID, C), w2t (CO,
+// HID). Bound: operations (4*M*C*HID flops); the scratch round trip adds
+// 8*M*HID bytes, small beside them at every main-path shape. At 96 rows fc2
+// is a narrow product with a deep chain (96 x 2048 -> 512: each output 2048
+// dependent FMAs, ~4.4 us alone), where the old 64x64 tile ran 16 blocks;
+// dispatch_tiled gives it 16x32 tiles (96 blocks), and the 128 K steps'
+// copies and barriers, not the FMAs, are then what its time is made of.
 extern "C" int trunk_mlp_res(const void* t, int M, int C, int HID, int CO,
                              const void* w1t, const void* b1, const void* w2t,
                              const void* b2, const void* gamma,
@@ -918,12 +931,18 @@ extern "C" int trunk_mlp_res(const void* t, int M, int C, int HID, int CO,
                              int device, void* stream) {
     TRY(set_device(device));
     const cudaStream_t st = (cudaStream_t)stream;
-    TRY(launch_gemm(M, HID, C, LoadRows{(const float*)t, C}, (const float*)w1t,
-                    StoreBiasGelu{(float*)hidden, (const float*)b1, HID}, st));
-    return (int)launch_gemm(
-        M, CO, HID, LoadRows{(const float*)hidden, HID}, (const float*)w2t,
-        StoreLayerScaleRes{(float*)out, (const float*)b2, (const float*)gamma,
-                           (const float*)shortcut, CO}, st);
+    const DenseSrc src1{x_f(t), M, C};
+    const StoreBiasGelu store1{(float*)hidden, x_f(b1), HID};
+    if (C % 4 == 0 && aligned16(t) && aligned16(w1t))
+        TRY(dispatch_tiled<4>(M, HID, C, src1, x_f(w1t), store1, st));
+    else
+        TRY(dispatch_tiled<1>(M, HID, C, src1, x_f(w1t), store1, st));
+    const DenseSrc src2{(const float*)hidden, M, HID};
+    const StoreLayerScaleRes store2{(float*)out, x_f(b2), x_f(gamma),
+                                    x_f(shortcut), CO};
+    if (HID % 4 == 0 && aligned16(hidden) && aligned16(w2t))
+        return (int)dispatch_tiled<4>(M, CO, HID, src2, x_f(w2t), store2, st);
+    return (int)dispatch_tiled<1>(M, CO, HID, src2, x_f(w2t), store2, st);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:257 dense, on the tiled core. wt

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: the rANS kernels against their plain
-versions at every lane count the codec uses, the trunk kernels against
-theirs at qarv_tiny and qres_tiny shapes, dense and conv_kxk_act (the tiled
-product core) bitwise against the old core at ragged shapes, the lossless
+versions at every lane count the codec uses, the decode kernel on its
+corner cases, the trunk kernels against theirs at qarv_tiny and qres_tiny
+shapes, dense, conv_kxk_act and mlp_res (the tiled product core) bitwise
+against the old core at ragged shapes, the lossless
 head's two kernels against theirs bitwise, and qarv_tiny, qres_tiny and
 qres_tiny_lossless round trips (legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
@@ -455,6 +456,58 @@ def test_tiled_core_batch_launches_and_repeat(card, name):
         two = list(args)
         two[0] = torch.cat([args[0], args[0].flip(-1)])
         assert torch.equal(fn(*two)[:1], got), shape
+
+
+def test_mlp_res_equals_old_core(card):
+    """mlp_res on the tiled core is bitwise its oracle on the old core
+    (chip_smoke.core_oracle: fc1, then fc2 with the GELU on its input, then
+    the residual) at ragged shapes, the narrow qarv shapes, one output
+    width unlike the input's and one hidden width that is no multiple of 4
+    (fc2 from the 4-byte copies); one launch counted a call; the first
+    image of a batch of two its bits alone."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(10)
+    for M, C, HID, CO in [(1, 128, 192, 128), (95, 192, 384, 192),
+                          (385, 384, 1536, 384), (96, 512, 2048, 512),
+                          (384, 512, 1536, 512), (95, 384, 1536, 192),
+                          (95, 128, 190, 128)]:
+        args = [_f(rng, card, 1, M, C), _f(rng, card, C, HID, scale=C ** -0.5),
+                _f(rng, card, HID), _f(rng, card, HID, CO, scale=HID ** -0.5),
+                _f(rng, card, CO), _f(rng, card, CO, scale=0.1),
+                _f(rng, card, 1, M, CO)]
+        before = trunk.mlp_res.launches
+        got = trunk.mlp_res(*args)
+        assert trunk.mlp_res.launches == before + 1
+        assert torch.equal(got, chip_smoke.core_oracle(torch, 'mlp_res',
+                                                       args)), (M, C, HID, CO)
+        two = list(args)
+        for i in (0, 6):
+            two[i] = torch.cat([args[i], args[i].flip(-1)])
+        assert torch.equal(trunk.mlp_res(*two)[:1], got), (M, C, HID, CO)
+
+
+# ---- the rANS decode kernel at its corners ---------------------------------
+
+@pytest.mark.parametrize('table', ['latent', 'head', 'narrow', 'wide'])
+@pytest.mark.parametrize('N', [1, 16, 48, 100, 128])
+def test_decode_corner_cases_match_plain(card, N, table):
+    """The decode kernel, single and multi-image, on chip_smoke's
+    rans_corner_cases (every lane renormalising, none, a stream cut short,
+    nsym ending inside a row, the stream ring wrapped), byte for byte
+    against its plain versions and two single launches, with each table of
+    chip_smoke.corner_scale_tables: the latent table (S = 64), the
+    lossless head's (S = 128), 40 rows shorter than the kernel's 256
+    entries, and 16 rows padded to 1024 (the search's extra round)."""
+    import chip_smoke
+    scales = chip_smoke.corner_scale_tables()[table]
+    cdfs_np, offs_np = rd.prepare_device_cdf(cdf.build_cdf_table(scales))
+    cdfs = torch.as_tensor(cdfs_np, device=card)
+    offs = torch.as_tensor(offs_np, device=card)
+    for name, case in chip_smoke.rans_corner_cases(np, cdfs_np, offs_np, N):
+        single, multi, _ = chip_smoke.decode_corner_case(torch, case, cdfs,
+                                                         offs, N)
+        assert single and multi, name
 
 
 # ---- the lossless pixel head -----------------------------------------------
