@@ -25,7 +25,12 @@
    96 and 2048, input channels 8, 10, 14, 48 and 96 at kernel sizes 1, 3 and
    5, act on and off, dense also from unaligned rows; mlp_res at rows 1, 95
    and 385, widths 128, 192, 384 and 512, hidden ratios 1.5 to 4, one output
-   width unlike the input's, and once from unaligned rows;
+   width unlike the input's, and once from unaligned rows. Then it holds
+   dw_ln_mod and dw_ln_affine, the depthwise stencil pair on the halo-tile
+   kernel, bitwise against the warp-per-pixel kernel (the _warp entry
+   points) at synthetic ragged shapes: H and W of 1, 3, 5, 13 and 130, C of
+   8, 40, 128, 200, 384 and 512, K of 1, 3, 5, 7, 9 and 31 (in bands of
+   tap rows), and at 13 x 130 a B = 2 input 4 bytes off 16-byte alignment;
 3. runs qarv_base with the committed weights on images/photo1_512x768.png
    through compress_file / decompress_file at lambda 16, 512 and 2048, on
    the legacy trunk and on the portable trunk (the main path: files are
@@ -38,10 +43,14 @@
    decode of each image, every distinct shape), checks that a batch of two
    gives the first image the bits it gets alone, holds dense and mlp_res
    bitwise against the old core (as at every later captured shape, for
-   dense, conv_kxk_act and mlp_res, at B = 1 and B = 2), and times each
+   dense, conv_kxk_act and mlp_res, at B = 1 and B = 2) and dw_ln_mod (as
+   dw_ln_affine later) against the warp-per-pixel kernel, and times each
    kernel, its plain version, for dense and mlp_res the old core
-   (old_core_ms), for dense torch.addmm (device times from CUDA-graph
-   replays, and the eager wrapper's time beside them); each qarv decode
+   (old_core_ms), for the stencil pair the warp-per-pixel kernel
+   (warp_oracle_ms) and the two-call yardstick F.conv2d(groups=C) +
+   F.layer_norm (two_calls_ms), for dense torch.addmm (device times from
+   CUDA-graph replays, and the eager wrapper's time beside them); each qarv
+   decode
    also reports its rANS decode launches' time and share of dec_ms, as
    the qres34m and lossless phases do;
 5. holds the two multi-image rANS kernels against their plain versions and
@@ -97,9 +106,9 @@
    against the PNG's).
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-rans_decode_checks, tiled_core, codec, trunk, batch, qres, qres_trunk,
-lossless, lossless_trunk, fresh_process), the card line of nvidia-smi,
-the kernels line, then the result line.
+rans_decode_checks, tiled_core, dw_tile, codec, trunk, batch, qres,
+qres_trunk, lossless, lossless_trunk, fresh_process), the card line of
+nvidia-smi, the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
@@ -223,6 +232,17 @@ MLP_CO_CASE = (95, 384, 1536, 192)          # M, C, HID, CO
 # a hidden width that is no multiple of 4: fc2 from the 4-byte copies
 MLP_HID_RAGGED_CASE = (95, 128, 190, 128)
 CORE_SEED = 9
+# the depthwise stencil pair (csrc/trunk.cu dw_tile_kernel), held bitwise
+# against the warp-per-pixel kernel (the _warp entry points) at every shape
+DW_NAMES = ('dw_ln_mod', 'dw_ln_affine')
+# that check's synthetic ragged shapes: H and W each of DW_HW (below K
+# too), C of DW_C (some no multiple of 32), K of DW_K (9 and 31 run the
+# kernel's run-time-K instantiation, 31 in bands of tap rows: its whole
+# halo does not fit); at H x W = 13 x 130 also B = 2 from an input 4 bytes
+# off 16 (the 4-byte copies)
+DW_HW, DW_C, DW_K = (1, 3, 5, 13, 130), (8, 40, 128, 200, 384, 512), \
+    (1, 3, 5, 7, 9, 31)
+DW_SEED = 11
 # timing: medians of 5 kernel runs; the plain versions are host-bound
 # references taking seconds, so theirs are medians of 3, the first of which
 # is the run whose output the kernel is compared with
@@ -1244,14 +1264,19 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
                 torch, name, args)
             core_ok = (core_bitwise(torch, name, args, got[0])
                        if name in CORE_NAMES else None)
+            warp_ok = (warp_bitwise(torch, name, args, got[0])
+                       if name in DW_NAMES else None)
             rows.append(dict(images=sig[0][0][0], max_abs_err=err,
                              err_over_tolerance=worst, index_flips=flips,
-                             core_bitwise=core_ok))
+                             core_bitwise=core_ok, warp_bitwise=warp_ok))
             require_trunk_match(f'{name} at batch shapes {sig} (max abs err '
                                 f'{err:.3g})', worst, flips_ok)
             require(core_ok is not False, f'{name} at batch shapes {sig}: '
                                           f'not bitwise equal to the old '
                                           f'product core')
+            require(warp_ok is not False, f'{name} at batch shapes {sig}: '
+                                          f'not bitwise equal to the '
+                                          f'warp-per-pixel kernel')
         # every kernel runs on the whole chunk: its first argument leads
         # with the chunk's image count
         batches = sorted({r['images'] for r in rows})
@@ -1515,6 +1540,80 @@ def check_core_synthetic(torch, device):
                        'with the GELU on its input, then the residual)')
 
 
+def warp_oracle(name):
+    """The warp-per-pixel kernel of dw_ln_mod or dw_ln_affine."""
+    from lvae_tpu_torch.ops import trunk
+    return getattr(trunk, name + '_warp')
+
+
+def warp_bitwise(torch, name, args, got=None):
+    """Whether the halo-tile kernel's output equals the warp-per-pixel
+    kernel's, bit for bit."""
+    from lvae_tpu_torch.ops import trunk
+    if got is None:
+        got = getattr(trunk, name)(*args)
+    return bool(torch.equal(got, warp_oracle(name)(*args)))
+
+
+def two_calls(torch, name, args):
+    """The stencil pair's yardstick, two PyTorch calls (no single one
+    computes the function): F.conv2d(groups=C) on a channels-last view, then
+    F.layer_norm over C (dw_ln_affine's with its affine; dw_ln_mod's without,
+    the modulation left out). Weights in torch's layout, made outside the
+    calls; time them with TF32 off."""
+    import torch.nn.functional as F
+    x, dwk, dwb = args[:3]
+    K, C = args[-1], x.shape[-1]
+    xc = x.permute(0, 3, 1, 2)
+    wc = dwk.permute(2, 0, 1).reshape(C, 1, K, K).contiguous()
+    affine = args[3:5] if name == 'dw_ln_affine' else (None, None)
+
+    def run():
+        y = F.conv2d(xc, wc, dwb, padding=(K - 1) // 2, groups=C)
+        return F.layer_norm(y.permute(0, 2, 3, 1), (C,), *affine, eps=1e-6)
+    return run
+
+
+def check_dw_synthetic(torch, device):
+    """dw_ln_mod and dw_ln_affine against their warp-per-pixel kernels,
+    bitwise, at every H and W of DW_HW, C of DW_C and K of DW_K; inputs from
+    a seeded generator on the card."""
+    import itertools
+    g = torch.Generator(device=device).manual_seed(DW_SEED)
+
+    def f(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    cases, bad = 0, []
+    for name, H, W, C, K in itertools.product(DW_NAMES, DW_HW, DW_HW, DW_C,
+                                              DW_K):
+        variants = [(1, False)] + ([(2, True)] if (H, W) == (13, 130)
+                                   else [])
+        for B, unaligned in variants:
+            x = (f(B * H * W * C + 1)[1:].reshape(B, H, W, C) if unaligned
+                 else f(B, H, W, C))
+            dwk, dwb = f(K, K, C, scale=0.3), f(C, scale=0.1)
+            args = ((x, dwk, dwb, f(64, 2 * C, scale=0.2),
+                     f(2 * C, scale=0.1), f(B, 64), K)
+                    if name == 'dw_ln_mod' else
+                    (x, dwk, dwb, f(C, scale=0.5) + 1, f(C, scale=0.1), K))
+            cases += 1
+            if not warp_bitwise(torch, name, args):
+                bad.append(dict(kernel=name, B=B, H=H, W=W, C=C, K=K,
+                                unaligned=unaligned))
+    torch.cuda.synchronize()
+    progress(f'stencil pair, synthetic shapes: {cases} cases, {len(bad)} '
+             f'not bitwise equal to the warp-per-pixel kernel')
+    require(not bad, f'halo-tile stencil not bitwise equal to the '
+                     f'warp-per-pixel kernel at {bad[:5]}')
+    return dict(cases=cases, bitwise=True, H=list(DW_HW), W=list(DW_HW),
+                C=list(DW_C), K=list(DW_K),
+                unaligned='B = 2 from an input 4 bytes off 16 at 13 x 130, '
+                          'every C and K',
+                oracle='the warp-per-pixel kernel (trunk_dw_ln_mod_warp, '
+                       'trunk_dw_ln_affine_warp)')
+
+
 def check_trunk_kernels(torch, names, cases):
     """Each trunk kernel of `names` against its plain version on the card at
     every main-path shape, the B=1 vs B=2 bitwise check, and the times. The
@@ -1556,6 +1655,10 @@ def check_trunk_kernels(torch, names, cases):
             core_ok = (core_bitwise(torch, name, args, got[0])
                        and core_bitwise(torch, name, args2, two[0])
                        if name in CORE_NAMES else None)
+            # the stencil pair against its warp-per-pixel kernel, likewise
+            warp_ok = (warp_bitwise(torch, name, args, got[0])
+                       and warp_bitwise(torch, name, args2, two[0])
+                       if name in DW_NAMES else None)
             # device times from CUDA-graph replays; the eager time (what
             # the codec pays, host launch time included) beside the
             # kernel's
@@ -1567,12 +1670,18 @@ def check_trunk_kernels(torch, names, cases):
             old_core_ms = (graph_ms(torch, lambda: core_oracle(
                 torch, name, args), TRUNK_INNER)
                 if name in ('dense', 'mlp_res') else None)
-            library_ms = None
+            library_ms = warp_ms = two_calls_ms = None
             lib = library_call(torch, name, args)
-            if lib is not None:
-                with torch.backends.cudnn.flags(enabled=True,
-                                                allow_tf32=False):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                if lib is not None:
                     library_ms = graph_ms(torch, lib, TRUNK_INNER)
+                if name in DW_NAMES:
+                    two_calls_ms = graph_ms(torch, two_calls(torch, name,
+                                                             args),
+                                            TRUNK_INNER)
+            if name in DW_NAMES:
+                warp_ms = graph_ms(torch, lambda: warp_oracle(name)(*args),
+                                   TRUNK_INNER)
             nbytes, ops = work(name, args)
             shapes.append(dict(
                 shapes=[list(s[0]) if isinstance(s, tuple) else s
@@ -1581,9 +1690,11 @@ def check_trunk_kernels(torch, names, cases):
                 decode_calls=n_dec, max_abs_err=err,
                 err_over_tolerance=worst, index_flips=flips,
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
-                core_bitwise=core_ok, ms=ms, eager_ms=eager_ms,
-                old_core_ms=old_core_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bytes=nbytes, ops=ops,
+                core_bitwise=core_ok, warp_bitwise=warp_ok, ms=ms,
+                eager_ms=eager_ms, old_core_ms=old_core_ms,
+                warp_oracle_ms=warp_ms, plain_ms=plain_ms,
+                library_ms=library_ms, two_calls_ms=two_calls_ms,
+                bytes=nbytes, ops=ops,
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / SCALAR_OPS_PER_S) * 1e3))
             progress(f'{name} {shapes[-1]["shapes"][0]}: err {err:.2e} '
@@ -1602,6 +1713,8 @@ def check_trunk_kernels(torch, names, cases):
                     f'{what}: batch of two changes the first image\'s bits')
             require(r['core_bitwise'] is not False,
                     f'{what}: not bitwise equal to the old product core')
+            require(r['warp_bitwise'] is not False,
+                    f'{what}: not bitwise equal to the warp-per-pixel kernel')
 
         def per_image(key, enc=1, dec=1, rows=shapes):
             """key summed over one image's launches (encode, decode)."""
@@ -1627,6 +1740,10 @@ def check_trunk_kernels(torch, names, cases):
                if name in ('dense', 'mlp_res') else {}),
             **({'core_bitwise_shapes': len(shapes)}
                if name in CORE_NAMES else {}),
+            **({'warp_oracle_ms': per_image('warp_oracle_ms'),
+                'two_calls_ms': per_image('two_calls_ms'),
+                'warp_bitwise_shapes': len(shapes)}
+               if name in DW_NAMES else {}),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
             max_abs_err=max(r['max_abs_err'] for r in shapes),
@@ -2253,6 +2370,7 @@ def main():
             label: cdf.build_cdf_table(scales)
             for label, scales in corner_scale_tables().items()}))})
     emit({'tiled_core': check_core_synthetic(torch, device)})
+    emit({'dw_tile': check_dw_synthetic(torch, device)})
 
     t = time.perf_counter()
     model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
@@ -2423,6 +2541,12 @@ def main():
             eager_ms=r['eager_ms'],
             **({'old_core_ms': r['old_core_ms']} if 'old_core_ms' in r
                else {}),
+            **(dict(warp_oracle_ms=r['warp_oracle_ms'],
+                    two_calls_ms=r['two_calls_ms'],
+                    two_calls='F.conv2d(groups=C) + F.layer_norm, TF32 off'
+                              + ('' if name == 'dw_ln_affine'
+                                 else ', without the modulation'))
+               if name in DW_NAMES else {}),
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'],
             bound_derivation=(

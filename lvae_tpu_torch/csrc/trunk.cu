@@ -644,16 +644,20 @@ emb_mlp_kernel(const float* __restrict__ lmb, const float* __restrict__ freqs,
 // modulation gemb @ ew + eb for each batch row, a warp per output
 // (warp_dot), and the depthwise weights turned tap-major (K*K, C) so that
 // phase 2 reads them coalesced (dw_ln_affine's caller passes them so).
-// Phase 2: one warp per pixel, lane l holding channels l, l+32, ...: the
-// K x K stencil read straight from the NHWC feature with the 'same' zero
-// padding done by skipping out-of-image taps (no padded copy, no window
-// stack), then LayerNorm over C with a fixed reduction order (each lane sums
-// its channels in order, then a xor-shuffle tree, which leaves every lane
-// with the same bits), then y * (1 + scale) + shift (dw_ln_mod) or
-// y * scale + bias (dw_ln_affine: no phase-1 modulation).
+// Phase 2: the K x K stencil with the 'same' zero padding done by skipping
+// out-of-image taps (no padded copy, no window stack): each output starts
+// from its bias and adds its taps in (di, dj) row-major order, a multiply
+// and an add each; then LayerNorm over C with a fixed reduction order (lane
+// l sums channels l, l+32, ... in order, then a xor-shuffle tree, which
+// leaves every lane with the same bits), then y * (1 + scale) + shift
+// (dw_ln_mod) or y * scale + bias (dw_ln_affine: no phase-1 modulation).
+// Two kernels compute phase 2 with the same arithmetic, so the same bits:
+// - dw_tile_kernel, the one the wrappers launch (below);
+// - dw_ln_kernel, one warp per pixel reading its K*K neighbours straight
+//   from global memory, which re-reads each input K*K times from L1/L2; it
+//   is kept as the tile kernel's bitwise oracle (the _warp entry points).
 // Bound: bytes at K <= 5 (one read of x, one write), operations at K = 7
-// (2*49 flops per element); the stencil re-reads each input K*K times from
-// L1/L2, which is the largest cost at (128, 192, 128, 7).
+// (2*49 flops per element).
 // ---------------------------------------------------------------------------
 
 __global__ void dw_prep_kernel(const float* __restrict__ gemb,
@@ -677,18 +681,29 @@ __global__ void dw_prep_kernel(const float* __restrict__ gemb,
 }
 
 // what follows the LayerNorm: the AdaLN modulation of the batch row
-// (dw_ln_mod), or the LayerNorm's own affine (dw_ln_affine)
+// (dw_ln_mod), or the LayerNorm's own affine (dw_ln_affine); params(b, c)
+// reads a channel's two numbers, so that a kernel can load them early
 struct NormAdaLN {
     const float* mod; int C;     // (B, 2C): shift, then scale
-    __device__ float operator()(int b, int c, float y) const {
+    __device__ float2 params(int b, int c) const {
         const float* shift = mod + (long long)b * 2 * C;
-        return y * (1.0f + shift[C + c]) + shift[c];
+        return make_float2(shift[C + c], shift[c]);
+    }
+    __device__ float apply(float y, float2 p) const {
+        return y * (1.0f + p.x) + p.y;
+    }
+    __device__ float operator()(int b, int c, float y) const {
+        return apply(y, params(b, c));
     }
 };
 struct NormAffine {
     const float* scale; const float* bias;
-    __device__ float operator()(int, int c, float y) const {
-        return y * __ldg(scale + c) + __ldg(bias + c);
+    __device__ float2 params(int, int c) const {
+        return make_float2(__ldg(scale + c), __ldg(bias + c));
+    }
+    __device__ float apply(float y, float2 p) const { return y * p.x + p.y; }
+    __device__ float operator()(int b, int c, float y) const {
+        return apply(y, params(b, c));
     }
 };
 
@@ -762,9 +777,9 @@ cudaError_t launch_dw(const float* x, int B, int H, int W, int C, int K,
 
 // one warp per pixel holds C <= 512 channels, CPL = ceil(C / 32) a lane
 template <class Norm>
-cudaError_t dispatch_dw(const float* x, int B, int H, int W, int C, int K,
-                        const float* dwk_t, const float* dwb, Norm norm,
-                        float* out, cudaStream_t st) {
+cudaError_t dispatch_dw_warp(const float* x, int B, int H, int W, int C,
+                             int K, const float* dwk_t, const float* dwb,
+                             Norm norm, float* out, cudaStream_t st) {
     switch ((C + 31) / 32) {
 #define DW_CASE(n) \
         case n: return launch_dw<n>(x, B, H, W, C, K, dwk_t, dwb, norm, out, st);
@@ -774,6 +789,361 @@ cudaError_t dispatch_dw(const float* x, int B, int H, int W, int C, int K,
 #undef DW_CASE
         default: return cudaErrorInvalidValue;
     }
+}
+
+// ---------------------------------------------------------------------------
+// The halo-tile stencil kernel. A block owns a TH x TW tile of output pixels
+// of one image, all C channels, and walks the channels in 32-wide slabs,
+// G slabs a stage. For each stage it stages into shared memory, through a
+// two-stage cp.async ring (the next stage's copies fly while this one
+// computes), the (TH+K-1) x (TW+K-1) halo of those slabs, 32 floats a
+// pixel (lane l reads channel l: 32 consecutive words, no bank conflict),
+// and their K*K x 32 tap-major weights; taps off the image are zero-filled
+// and never added. So each input float is fetched from global memory about
+// (TH+K-1)(TW+K-1) / (TH*TW) times (2.4x at 8x16, K = 7), not K*K times.
+// A warp computes one 8-pixel strip along W of one slab, lane l channel l:
+// per halo row di it loads the strip's 8+K-1 inputs and the row's K weights
+// into registers, then each output adds its taps in its own (di, dj) order.
+// The finished y goes to a (TH*TW, C) tile in shared memory; then one warp
+// a pixel loads its y[l + 32 i] into registers and runs dw_ln_kernel's
+// LayerNorm on them, and writes the output coalesced. y in shared memory
+// rather than registers keeps the slab loop a runtime loop (no
+// C-dependent instantiations) and costs one store and one load an output,
+// beside K*K multiplies and adds and ~2.5 K shared loads. The block has 16
+// warps: at K >= 5 the kernel needs too many registers for two such blocks
+// an SM, and 16 warps hide more latency than 8 (smaller blocks under a
+// register cap were slower). What holds it back at K = 7: the separate
+// multiply and add of every tap (no FMA, for the bits), one block an SM,
+// and at the small tiles the halo's traffic from L2.
+// pick_dw_tile chooses the tile by (B, H, W, C, K): down to one 8-pixel
+// strip for the small grids, where G grows so that all of C is in flight
+// at once.
+// ---------------------------------------------------------------------------
+
+constexpr int DW_THREADS = 512;
+constexpr int DW_WARPS = DW_THREADS / 32;
+constexpr int DW_R = 8;                 // outputs a lane computes along W
+constexpr int DW_CPL = 16;              // channels a lane holds: C <= 512
+
+struct DwTile {
+    int TH, TW;        // output pixels of a block (TW a multiple of DW_R)
+    int G;             // 32-channel slabs a stage holds
+    int stages;        // 1 (all of C in one stage) or 2 (the ring)
+    int KB;            // tap rows a stage holds: K, or (a run-time K whose
+                       // halo does not fit) a band of them, y kept in the
+                       // tile between bands
+};
+
+// floats of shared memory: the ring's stages first (each a multiple of 32
+// floats, so 16-byte aligned for the copies), then the (TH*TW, C) y tile
+long long dw_smem_floats(const DwTile& t, int C, int K) {
+    const long long halo = (long long)(t.TH + t.KB - 1) * (t.TW + K - 1);
+    return (long long)t.stages * t.G * (halo + t.KB * K + 1) * 32
+           + (long long)t.TH * t.TW * C;
+}
+
+// KT: the kernel size as a template parameter (1, 3, 5, 7: the tap loops
+// unroll), or 0 for any other odd K, read from K at run time.
+template <int KT, class Norm>
+__global__ void __launch_bounds__(DW_THREADS)
+dw_tile_kernel(const float* __restrict__ x, int H, int W, int C, int K,
+               DwTile t, int tiles_w, int tiles_h, int vec,
+               const float* __restrict__ dwk_t, const float* __restrict__ dwb,
+               Norm norm, float* __restrict__ out) {
+    extern __shared__ __align__(16) float dw_smem[];
+    if constexpr (KT > 0) K = KT;
+    const int KB = KT > 0 ? KT : t.KB, nbands = (K + KB - 1) / KB;
+    const int p = (K - 1) / 2, KBK = KB * K;   // a band's taps, then bias
+    const int HR = t.TH + KB - 1, HC = t.TW + K - 1;
+    const int stage_floats = t.G * (HR * HC + KBK + 1) * 32;
+    float* ysh = dw_smem + t.stages * stage_floats;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int tpi = tiles_w * tiles_h;
+    const int b = blockIdx.x / tpi, tile = blockIdx.x % tpi;
+    const int h0 = tile / tiles_w * t.TH, w0 = tile % tiles_w * t.TW;
+    const int nslab = (C + 31) / 32;
+    const int nsteps = (nslab + t.G - 1) / t.G * nbands;
+    const float* xb = x + (long long)b * H * W * C;
+
+    // stage the halo and weights of slabs [s0, s0 + G), tap rows [d0, d0 +
+    // KB), into `st` (step: slabs outer, bands inner): qp copies a pixel's
+    // 32-float slab row, ppc pixels a pass of the block; a thread walks
+    // (slab, row, col) by adds, no division a copy
+    const int V = vec ? 4 : 1, qp = 32 / V, ppc = DW_THREADS / qp;
+    const int q = tid % qp, pix0 = tid / qp, npix = HR * HC;
+    auto issue = [&](int step, float* st) {
+        const int s0 = step / nbands * t.G, d0 = step % nbands * KB;
+        int g = pix0 / npix, row = pix0 % npix / HC, col = pix0 % HC;
+        for (int e = pix0; e < t.G * npix; e += ppc) {
+            const int c = 32 * (s0 + g) + q * V;
+            const int hh = h0 - p + d0 + row, ww = w0 - p + col;
+            const bool ok = s0 + g < nslab && c < C
+                            && (unsigned)hh < (unsigned)H
+                            && (unsigned)ww < (unsigned)W;
+            const float* src =
+                ok ? xb + ((long long)hh * W + ww) * C + c : x;
+            if (vec) cp_async<4>(st + e * 32 + q * V, src, ok);
+            else cp_async<1>(st + e * 32 + q * V, src, ok);
+            for (col += ppc; col >= HC; col -= HC)
+                if (++row == HR) row = 0, ++g;
+        }
+        // the slabs' tap rows of the band and their bias row
+        float* wst = st + t.G * npix * 32;
+        int wg = pix0 / (KBK + 1), tap = pix0 % (KBK + 1);
+        for (int e = pix0; e < t.G * (KBK + 1); e += ppc) {
+            const int c = 32 * (s0 + wg) + q * V, gt = d0 * K + tap;
+            const bool ok = s0 + wg < nslab && c < C
+                            && (tap == KBK || gt < K * K);
+            const float* src = !ok ? dwb
+                               : tap < KBK ? dwk_t + (long long)gt * C + c
+                                           : dwb + c;
+            if (vec) cp_async<4>(wst + e * 32 + q * V, src, ok);
+            else cp_async<1>(wst + e * 32 + q * V, src, ok);
+            for (tap += ppc; tap > KBK; tap -= KBK + 1) ++wg;
+        }
+    };
+
+    // one stage's outputs into ysh: unit u = (slab g of the stage, strip)
+    auto compute = [&](int step, const float* st) {
+        const int s0 = step / nbands * t.G, d0 = step % nbands * KB;
+        const int spr = t.TW / DW_R, nstrips = t.TH * spr;
+        const int units = min(t.G, nslab - s0) * nstrips;
+        const float* wst = st + t.G * HR * HC * 32;
+        for (int u = warp; u < units; u += DW_WARPS) {
+            const int g = u / nstrips, strip = u % nstrips;
+            const int tr = strip / spr, tc = strip % spr * DW_R;
+            const int h = h0 + tr, wl = w0 + tc - p;  // column of tap 0
+            const int c = 32 * (s0 + g) + lane;
+            if (h >= H || w0 + tc >= W || c >= C) continue;
+            // from the bias, or from where the previous band left y
+            float y[DW_R];
+            float* yo = ysh + (tr * t.TW + tc) * C + c;
+            const float bias = wst[(g * (KBK + 1) + KBK) * 32 + lane];
+#pragma unroll
+            for (int r = 0; r < DW_R; ++r)
+                y[r] = d0 == 0 ? bias : yo[r * C];
+            // dj outer, r inner: eight independent adds in flight, while
+            // each output still adds its taps in (di, dj) order
+            const bool inside = wl >= 0 && wl + DW_R + K - 1 <= W;
+#pragma unroll 1
+            for (int dd = 0; dd < (KT > 0 ? KT : min(KB, K - d0)); ++dd) {
+                const int hh = h + d0 + dd - p;
+                if (hh < 0 || hh >= H) continue;
+                const float* hrow = st + ((g * HR + tr + dd) * HC + tc) * 32
+                                    + lane;
+                const float* wrow =
+                    wst + (g * (KBK + 1) + dd * K) * 32 + lane;
+                if constexpr (KT > 0) {
+                    float xin[DW_R + KT - 1], wk[KT];
+#pragma unroll
+                    for (int j = 0; j < DW_R + KT - 1; ++j)
+                        xin[j] = hrow[j * 32];
+#pragma unroll
+                    for (int dj = 0; dj < KT; ++dj) wk[dj] = wrow[dj * 32];
+                    if (inside) {
+#pragma unroll
+                        for (int dj = 0; dj < KT; ++dj)
+#pragma unroll
+                            for (int r = 0; r < DW_R; ++r)
+                                y[r] = y[r] + xin[r + dj] * wk[dj];
+                    } else {
+#pragma unroll
+                        for (int dj = 0; dj < KT; ++dj)
+#pragma unroll
+                            for (int r = 0; r < DW_R; ++r)
+                                if ((unsigned)(wl + r + dj) < (unsigned)W)
+                                    y[r] = y[r] + xin[r + dj] * wk[dj];
+                    }
+                } else {
+                    for (int dj = 0; dj < K; ++dj) {
+                        const float wv = wrow[dj * 32];
+#pragma unroll
+                        for (int r = 0; r < DW_R; ++r)
+                            if ((unsigned)(wl + r + dj) < (unsigned)W)
+                                y[r] = y[r] + hrow[(r + dj) * 32] * wv;
+                    }
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < DW_R; ++r)
+                if (w0 + tc + r < W) yo[r * C] = y[r];
+        }
+    };
+
+    issue(0, dw_smem);
+    cp_async_commit();
+    for (int step = 0; step < nsteps; ++step) {
+        float* st = dw_smem + (t.stages == 2 ? step % 2 : 0) * stage_floats;
+        if (t.stages == 2) {
+            if (step + 1 < nsteps)
+                issue(step + 1, dw_smem + (step + 1) % 2 * stage_floats);
+            cp_async_commit();
+            cp_async_wait<1>();                // this step's copies landed
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        compute(step, st);
+        __syncthreads();                       // the stage may be refilled
+        if (t.stages == 1 && step + 1 < nsteps) {
+            issue(step + 1, dw_smem);
+            cp_async_commit();
+        }
+    }
+    cp_async_wait<0>();
+
+    // LayerNorm and the Norm step, one warp a pixel: its y[l + 32 i] loaded
+    // from the tile into registers at once, then dw_ln_kernel's arithmetic
+    for (int px = warp; px < t.TH * t.TW; px += DW_WARPS) {
+        const int h = h0 + px / t.TW, w = w0 + px % t.TW;
+        if (h >= H || w >= W) continue;        // whole warps skip together
+        const float* yr = ysh + px * C;
+        float y[DW_CPL];
+        float2 np[DW_CPL];                    // loads in flight meanwhile
+#pragma unroll
+        for (int i = 0; i < DW_CPL; ++i) {
+            const int c = lane + 32 * i;
+            if (c < C) np[i] = norm.params(b, c);
+            y[i] = c < C ? yr[c] : 0.f;
+        }
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < DW_CPL; ++i)
+            if (lane + 32 * i < C) s += y[i];
+        const float mu = warp_sum(s) / (float)C;
+        float v = 0.f;
+#pragma unroll
+        for (int i = 0; i < DW_CPL; ++i) {
+            if (lane + 32 * i < C) {
+                const float d = y[i] - mu;
+                v += d * d;
+            }
+        }
+        const float var = warp_sum(v) / (float)C;
+        const float rstd = 1.0f / sqrtf(var + 1e-6f);
+        float* o = out + (((long long)b * H + h) * W + w) * C;
+#pragma unroll
+        for (int i = 0; i < DW_CPL; ++i) {
+            const int c = lane + 32 * i;
+            if (c < C) o[c] = norm.apply((y[i] - mu) * rstd, np[i]);
+        }
+    }
+}
+
+template <int KT, class Norm>
+cudaError_t launch_dw_tile(const float* x, int B, int H, int W, int C, int K,
+                           const DwTile& t, int vec, const float* dwk_t,
+                           const float* dwb, Norm norm, float* out,
+                           int smem_optin, cudaStream_t stream) {
+    static bool opted[64];             // opt in to the device's limit, once
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64) return cudaErrorInvalidDevice;
+    if (!opted[dev]) {
+        err = cudaFuncSetAttribute(dw_tile_kernel<KT, Norm>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_optin);
+        if (err != cudaSuccess) return err;
+        opted[dev] = true;
+    }
+    const int tiles_w = (W + t.TW - 1) / t.TW;
+    const int tiles_h = (H + t.TH - 1) / t.TH;
+    const long long blocks = (long long)B * tiles_w * tiles_h;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const size_t smem = (size_t)dw_smem_floats(t, C, K) * sizeof(float);
+    dw_tile_kernel<KT, Norm><<<(unsigned)blocks, DW_THREADS, smem, stream>>>(
+        x, H, W, C, K, t, tiles_w, tiles_h, vec, dwk_t, dwb, norm, out);
+    return cudaGetLastError();
+}
+
+// The tile for (B, H, W, C, K): of DW_TILES, the one with the least
+// waves * (TH*TW*(K*K + 10) + 16*(TH+K-1)*(TW+K-1)), the block's stencil
+// and halo work times the waves of blocks over the SMs (the kernel holds
+// one 512-thread block an SM at K >= 5): a model fitted to every tile's
+// time at the main path's shapes on the H100 (B = 1, 2 and 6). G slabs a
+// stage so that a stage holds a unit for every warp, spread evenly over
+// the steps; a two-stage ring unless one stage holds all of C; where that
+// exceeds the device's shared memory, a smaller G, and for a run-time K
+// (not an instantiated one) bands of KB < K tap rows, one slab a stage.
+// -> false if not even one tap row of the smallest tile fits.
+constexpr int DW_TILES[][2] = {{8, 16}, {4, 32}, {4, 16}, {4, 8}, {2, 16},
+                               {2, 8}, {1, 16}, {1, 8}};
+
+bool dw_templated_k(int K) { return K == 1 || K == 3 || K == 5 || K == 7; }
+
+bool pick_dw_tile(int B, int H, int W, int C, int K, int sms, int smem_optin,
+                  DwTile* out) {
+    const int nslab = (C + 31) / 32;
+    auto fits = [&](const DwTile& t) {
+        return dw_smem_floats(t, C, K) * 4 <= smem_optin;
+    };
+    long long best = -1;
+    for (const auto& tile : DW_TILES) {
+        const int TH = tile[0], TW = tile[1];
+        // a tile mostly off the image (the smallest always qualifies)
+        if ((TH > H || TW - DW_R >= W) && !(TH == 1 && TW == DW_R)) continue;
+        const long long blocks = (long long)B * ((H + TH - 1) / TH)
+                                 * ((W + TW - 1) / TW);
+        const long long cost =
+            (blocks + sms - 1) / sms
+            * ((long long)TH * TW * (K * K + 10)
+               + 16LL * (TH + K - 1) * (TW + K - 1));
+        if (best >= 0 && cost >= best) continue;
+        const int nstrips = TH * TW / DW_R;
+        const int g0 = (DW_WARPS + nstrips - 1) / nstrips;
+        DwTile found{0, 0, 0, 0, 0};
+        for (int G = g0 < nslab ? g0 : nslab; G >= 1 && !found.TH; --G) {
+            const int steps = (nslab + G - 1) / G;
+            const DwTile t{TH, TW, (nslab + steps - 1) / steps,
+                           steps > 1 ? 2 : 1, K};
+            if (fits(t)) found = t;
+        }
+        for (int KB = K - 1; KB >= 1 && !found.TH && !dw_templated_k(K);
+             --KB) {
+            const DwTile t{TH, TW, 1, 2, KB};
+            if (fits(t)) found = t;
+        }
+        if (found.TH) {
+            *out = found;
+            best = cost;
+        }
+    }
+    return best >= 0;
+}
+
+// the halo-tile kernel for C <= 512 and any odd K whose one tap row of a
+// 1 x 8 tile fits (K up to ~400 at C = 512)
+template <class Norm>
+cudaError_t dispatch_dw(const float* x, int B, int H, int W, int C, int K,
+                        const float* dwk_t, const float* dwb, Norm norm,
+                        float* out, cudaStream_t st) {
+    if (C > 32 * 16 || K % 2 != 1) return cudaErrorInvalidValue;
+    int dev, sms, optin;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    DwTile t;
+    if (!pick_dw_tile(B, H, W, C, K, sms, optin, &t))
+        return cudaErrorInvalidValue;
+    const int vec = C % 4 == 0 && aligned16(x) && aligned16(dwk_t)
+                    && aligned16(dwb);
+#define DW_TILE(KT) \
+    return launch_dw_tile<KT>(x, B, H, W, C, K, t, vec, dwk_t, dwb, norm, \
+                              out, optin, st)
+    switch (K) {
+        case 1: DW_TILE(1);
+        case 3: DW_TILE(3);
+        case 5: DW_TILE(5);
+        case 7: DW_TILE(7);
+        default: DW_TILE(0);
+    }
+#undef DW_TILE
 }
 
 // ---------------------------------------------------------------------------
@@ -892,27 +1262,62 @@ extern "C" int trunk_emb_mlp(const void* lmb, int B, const void* freqs,
     return (int)cudaGetLastError();
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:166 dw_ln_mod. x/out (B, H, W, C);
-// dwk (C, K, K); ewt (2C, E); scratch holds B*2C + K*K*C floats.
+// dw_ln_mod's phase 1 into `scratch`: (B, 2C) modulation, then the (K*K, C)
+// tap-major weights; -> the launch's error
+static cudaError_t dw_ln_mod_prep(int B, int C, int K, const void* dwk,
+                                  const void* ewt, const void* eb,
+                                  const void* gemb, int E, void* scratch,
+                                  cudaStream_t st) {
+    const long long nmod = (long long)B * 2 * C * 32;
+    const long long ntap = (long long)K * K * C;
+    const long long prep = nmod > ntap ? nmod : ntap;
+    float* mod = (float*)scratch;
+    dw_prep_kernel<<<(unsigned)((prep + 255) / 256), 256, 0, st>>>(
+        x_f(gemb), x_f(ewt), x_f(eb), B, C, E, x_f(dwk), K * K, mod,
+        mod + (long long)B * 2 * C);
+    return cudaGetLastError();
+}
+
+static bool dw_ln_shape_ok(int B, int H, int W, int C, int K) {
+    return B >= 1 && H >= 1 && W >= 1 && C >= 1 && C <= 32 * 16 && K >= 1
+           && K % 2 == 1;
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:166 dw_ln_mod, on the halo-tile
+// kernel. x/out (B, H, W, C); dwk (C, K, K); ewt (2C, E); scratch holds
+// B*2C + K*K*C floats.
 extern "C" int trunk_dw_ln_mod(const void* x, int B, int H, int W, int C,
                                int K, const void* dwk, const void* dwb,
                                const void* ewt, const void* eb,
                                const void* gemb, int E, void* scratch,
                                void* out, int device, void* stream) {
-    if (B < 1 || H < 1 || W < 1 || C < 1 || C > 32 * 16 || K < 1 || E < 1)
+    if (!dw_ln_shape_ok(B, H, W, C, K) || E < 1)
         return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
     const cudaStream_t st = (cudaStream_t)stream;
-    float* mod = (float*)scratch;
-    float* dwk_t = mod + (long long)B * 2 * C;
-    const long long nmod = (long long)B * 2 * C * 32, ntap = (long long)K * K * C;
-    const long long prep = nmod > ntap ? nmod : ntap;
-    dw_prep_kernel<<<(unsigned)((prep + 255) / 256), 256, 0, st>>>(
-        (const float*)gemb, (const float*)ewt, (const float*)eb, B, C, E,
-        (const float*)dwk, K * K, mod, dwk_t);
-    TRY(cudaGetLastError());
-    return (int)dispatch_dw(x_f(x), B, H, W, C, K, dwk_t, x_f(dwb),
-                            NormAdaLN{mod, C}, (float*)out, st);
+    TRY(dw_ln_mod_prep(B, C, K, dwk, ewt, eb, gemb, E, scratch, st));
+    const float* mod = x_f(scratch);
+    return (int)dispatch_dw(x_f(x), B, H, W, C, K, mod + (long long)B * 2 * C,
+                            x_f(dwb), NormAdaLN{mod, C}, (float*)out, st);
+}
+
+// dw_ln_mod on the warp-per-pixel kernel: the halo-tile kernel's bitwise
+// oracle (chip_smoke.py, tests/test_torch_cuda.py), not on the main path.
+extern "C" int trunk_dw_ln_mod_warp(const void* x, int B, int H, int W,
+                                    int C, int K, const void* dwk,
+                                    const void* dwb, const void* ewt,
+                                    const void* eb, const void* gemb, int E,
+                                    void* scratch, void* out, int device,
+                                    void* stream) {
+    if (!dw_ln_shape_ok(B, H, W, C, K) || E < 1)
+        return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const cudaStream_t st = (cudaStream_t)stream;
+    TRY(dw_ln_mod_prep(B, C, K, dwk, ewt, eb, gemb, E, scratch, st));
+    const float* mod = x_f(scratch);
+    return (int)dispatch_dw_warp(x_f(x), B, H, W, C, K,
+                                 mod + (long long)B * 2 * C, x_f(dwb),
+                                 NormAdaLN{mod, C}, (float*)out, st);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:223 mlp_res, on the tiled core: two
@@ -1018,20 +1423,33 @@ extern "C" int trunk_finish_image(const void* x, long long n, void* out,
 // over K is still one chain k = 0..K-1.
 // ---------------------------------------------------------------------------
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:462 dw_ln_affine. x/out (B, H, W, C);
-// dwk_t (K, K, C), tap-major, prepared once per module by the caller (no
-// phase 1); scale, bias (C,). Bound: as dw_ln_mod's stencil (bytes at
-// K <= 5, operations at K = 7).
+// Replaces lvae_tpu/ops/pallas/trunk.py:462 dw_ln_affine, on the halo-tile
+// kernel. x/out (B, H, W, C); dwk_t (K, K, C), tap-major, prepared once
+// per module by the caller (no phase 1); scale, bias (C,). Bound: as
+// dw_ln_mod's stencil (bytes at K <= 5, operations at K = 7).
 extern "C" int trunk_dw_ln_affine(const void* x, int B, int H, int W, int C,
                                   int K, const void* dwk_t, const void* dwb,
                                   const void* scale, const void* bias,
                                   void* out, int device, void* stream) {
-    if (B < 1 || H < 1 || W < 1 || C < 1 || C > 32 * 16 || K < 1)
-        return (int)cudaErrorInvalidValue;
+    if (!dw_ln_shape_ok(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
     return (int)dispatch_dw(x_f(x), B, H, W, C, K, x_f(dwk_t), x_f(dwb),
                             NormAffine{x_f(scale), x_f(bias)}, (float*)out,
                             (cudaStream_t)stream);
+}
+
+// dw_ln_affine on the warp-per-pixel kernel: the halo-tile kernel's bitwise
+// oracle, not on the main path.
+extern "C" int trunk_dw_ln_affine_warp(const void* x, int B, int H, int W,
+                                       int C, int K, const void* dwk_t,
+                                       const void* dwb, const void* scale,
+                                       const void* bias, void* out,
+                                       int device, void* stream) {
+    if (!dw_ln_shape_ok(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    return (int)dispatch_dw_warp(x_f(x), B, H, W, C, K, x_f(dwk_t),
+                                 x_f(dwb), NormAffine{x_f(scale), x_f(bias)},
+                                 (float*)out, (cudaStream_t)stream);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:520 dense_act: (gelu(x) or x) @ w +

@@ -47,6 +47,8 @@ _SIGNATURES = {
                       _P],
     'trunk_dw_ln_mod': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                         _P, _I, _P],
+    'trunk_dw_ln_mod_warp': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                             _P, _P, _I, _P],
     'trunk_mlp_res': [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _P],
     'trunk_dense': [_P, _I, _I, _I, _P, _P, _P, _I, _P],
@@ -56,6 +58,8 @@ _SIGNATURES = {
     'trunk_finish_image': [_P, _LL, _P, _I, _P],
     'trunk_dw_ln_affine': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _P],
+    'trunk_dw_ln_affine_warp': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _I, _P],
     'trunk_dense_act': [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P],
     'trunk_conv_kxk_act': [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
                            _I, _P],

@@ -272,12 +272,7 @@ def emb_mlp(lmb, freqs, w0, b0, w1, b1, sin_period):
     return emb, gemb
 
 
-def dw_ln_mod(x, dwk, dwb, ew, eb, gemb, kernel_size):
-    """K x K depthwise conv ('same', zero padding) + bias -> LayerNorm over C
-    (eps 1e-6, no affine) -> y * (1 + scale) + shift, (shift, scale) =
-    gemb @ ew + eb. x (B, H, W, C); dwk (K, K, C); ew (E, 2C); gemb (B, E)."""
-    if not _on_card('dw_ln_mod', x, dwk, dwb, ew, eb, gemb):
-        return dw_ln_mod_plain(x, dwk, dwb, ew, eb, gemb, kernel_size)
+def _dw_ln_mod_launch(entry, x, dwk, dwb, ew, eb, gemb, kernel_size):
     B, H, W, C = x.shape
     K = int(kernel_size)
     E = ew.shape[0]
@@ -291,12 +286,35 @@ def dw_ln_mod(x, dwk, dwb, ew, eb, gemb, kernel_size):
     # scratch: (B, 2C) modulation, then the (K*K, C) tap-major weights
     scratch = torch.empty(B * 2 * C + K * K * C, dtype=torch.float32,
                           device=x.device)
-    _launch('dw_ln_mod', build.library().trunk_dw_ln_mod, x.data_ptr(), B, H,
-            W, C, K, dwk_c.data_ptr(), dwb.data_ptr(), ewt.data_ptr(),
-            eb.data_ptr(), gemb.data_ptr(), E, scratch.data_ptr(),
-            out.data_ptr(), device=x.device)
+    _launch('dw_ln_mod', entry, x.data_ptr(), B, H, W, C, K,
+            dwk_c.data_ptr(), dwb.data_ptr(), ewt.data_ptr(), eb.data_ptr(),
+            gemb.data_ptr(), E, scratch.data_ptr(), out.data_ptr(),
+            device=x.device)
+    return out
+
+
+def dw_ln_mod(x, dwk, dwb, ew, eb, gemb, kernel_size):
+    """K x K depthwise conv ('same', zero padding) + bias -> LayerNorm over C
+    (eps 1e-6, no affine) -> y * (1 + scale) + shift, (shift, scale) =
+    gemb @ ew + eb. x (B, H, W, C), C <= 512; dwk (K, K, C), K odd; ew
+    (E, 2C); gemb (B, E)."""
+    if not _on_card('dw_ln_mod', x, dwk, dwb, ew, eb, gemb):
+        return dw_ln_mod_plain(x, dwk, dwb, ew, eb, gemb, kernel_size)
+    out = _dw_ln_mod_launch(build.library().trunk_dw_ln_mod, x, dwk, dwb, ew,
+                            eb, gemb, kernel_size)
     dw_ln_mod.launches += 1
     return out
+
+
+def dw_ln_mod_warp(x, dwk, dwb, ew, eb, gemb, kernel_size):
+    """dw_ln_mod on the warp-per-pixel kernel (one warp a pixel, its K*K
+    neighbours read from global memory): the bitwise oracle of dw_ln_mod's
+    halo-tile kernel in chip_smoke.py and the card tests; not on the main
+    path, and not counted in dw_ln_mod.launches."""
+    if not _on_card('dw_ln_mod', x, dwk, dwb, ew, eb, gemb):
+        return dw_ln_mod_plain(x, dwk, dwb, ew, eb, gemb, kernel_size)
+    return _dw_ln_mod_launch(build.library().trunk_dw_ln_mod_warp, x, dwk,
+                             dwb, ew, eb, gemb, kernel_size)
 
 
 def mlp_res(t, w1, b1, w2, b2, gamma, shortcut):
@@ -398,12 +416,7 @@ def finish_image(x):
 
 # ---- the QRes-VAE trunk (lvae_tpu/ops/pallas/trunk.py:446-748) -----------
 
-def dw_ln_affine(x, dwk, dwb, scale, bias, kernel_size):
-    """K x K depthwise conv ('same', zero padding) + bias -> LayerNorm over C
-    (eps 1e-6) -> y * scale + bias, the plain ConvNeXt block's norm. x (B, H,
-    W, C); dwk (K, K, C); scale, bias (C,)."""
-    if not _on_card('dw_ln_affine', x, dwk, dwb, scale, bias):
-        return dw_ln_affine_plain(x, dwk, dwb, scale, bias, kernel_size)
+def _dw_ln_affine_launch(entry, x, dwk, dwb, scale, bias, kernel_size):
     B, H, W, C = x.shape
     K = int(kernel_size)
     if dwk.shape != (K, K, C) or scale.shape != (C,) or K % 2 != 1:
@@ -412,11 +425,31 @@ def dw_ln_affine(x, dwk, dwb, scale, bias, kernel_size):
     # convnext_plain's cached weight is
     x, dwk, dwb, scale, bias = _f32('dw_ln_affine', x, dwk, dwb, scale, bias)
     out = torch.empty_like(x)
-    _launch('dw_ln_affine', build.library().trunk_dw_ln_affine, x.data_ptr(),
-            B, H, W, C, K, dwk.data_ptr(), dwb.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), device=x.device)
+    _launch('dw_ln_affine', entry, x.data_ptr(), B, H, W, C, K,
+            dwk.data_ptr(), dwb.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), device=x.device)
+    return out
+
+
+def dw_ln_affine(x, dwk, dwb, scale, bias, kernel_size):
+    """K x K depthwise conv ('same', zero padding) + bias -> LayerNorm over C
+    (eps 1e-6) -> y * scale + bias, the plain ConvNeXt block's norm. x (B, H,
+    W, C), C <= 512; dwk (K, K, C), K odd; scale, bias (C,)."""
+    if not _on_card('dw_ln_affine', x, dwk, dwb, scale, bias):
+        return dw_ln_affine_plain(x, dwk, dwb, scale, bias, kernel_size)
+    out = _dw_ln_affine_launch(build.library().trunk_dw_ln_affine, x, dwk,
+                               dwb, scale, bias, kernel_size)
     dw_ln_affine.launches += 1
     return out
+
+
+def dw_ln_affine_warp(x, dwk, dwb, scale, bias, kernel_size):
+    """dw_ln_affine on the warp-per-pixel kernel: the halo-tile kernel's
+    bitwise oracle (as dw_ln_mod_warp); not on the main path, not counted."""
+    if not _on_card('dw_ln_affine', x, dwk, dwb, scale, bias):
+        return dw_ln_affine_plain(x, dwk, dwb, scale, bias, kernel_size)
+    return _dw_ln_affine_launch(build.library().trunk_dw_ln_affine_warp, x,
+                                dwk, dwb, scale, bias, kernel_size)
 
 
 def dense_act(x, w, b, act=True):

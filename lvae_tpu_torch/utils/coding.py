@@ -160,7 +160,11 @@ def _avg_row(cur: bytearray, prev: bytes, bpp: int):
 # channels per pixel of each PNG colour type: gray, RGB, palette,
 # gray+alpha, RGBA
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_PNG_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# the seven Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _unfilter(raw, height, stride, bpp, path):
@@ -193,13 +197,36 @@ def _unfilter(raw, height, stride, bpp, path):
     return out
 
 
+def _row_bytes(width, channels, depth):
+    """Bytes of one filtered row, its filter-type byte included."""
+    return (width * channels * depth + 7) // 8 + 1
+
+
+def _samples(raw, height, width, channels, depth, path):
+    """The filtered rows of an image (or of one Adam7 pass) -> (height,
+    width, channels) samples: uint8 up to 8 bits, uint16 at 16."""
+    stride = _row_bytes(width, channels, depth) - 1
+    rows = _unfilter(raw, height, stride, max(1, channels * depth // 8), path)
+    if depth == 16:           # big-endian
+        return rows.view('>u2').astype(np.uint16).reshape(height, width,
+                                                          channels)
+    if depth < 8:             # unpack MSB-first; each row pads to a byte
+        rows = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        rows = (rows * weights).sum(-1)[:, :width].astype(np.uint8)
+    return rows.reshape(height, width, channels)
+
+
 def read_png(path) -> np.ndarray:
-    """Decode a non-interlaced PNG -> uint8 (H, W, 3), converted to RGB as
-    PIL's convert('RGB') converts it: 8-bit RGB and RGBA (alpha dropped),
-    8-bit gray and gray+alpha (gray copied to the three channels, alpha
-    dropped), gray at 1, 2 or 4 bits (scaled to 0..255), and palette
-    images at 1, 2, 4 or 8 bits (each index looked up in PLTE; tRNS
-    ignored). 16-bit and interlaced images raise ValueError."""
+    """Decode a PNG -> uint8 (H, W, 3), converted to RGB as Pillow's
+    convert('RGB') converts it: RGB and RGBA (alpha dropped), gray and
+    gray+alpha (gray copied to the three channels, alpha dropped), gray at
+    1, 2 or 4 bits (scaled to 0..255), palette images at 1, 2, 4 or 8 bits
+    (each index looked up in PLTE; tRNS ignored). 16-bit samples map as
+    Pillow maps them: gray (mode I;16) clips at 255; RGB, RGBA and
+    gray+alpha keep the high byte. Adam7-interlaced images are
+    deinterlaced pass by pass. Any other file (JPEG, BMP, ...) raises
+    ValueError: the port carries no other image decoder."""
     with open(path, 'rb') as f:
         data = f.read()
     if data[:8] != b'\x89PNG\r\n\x1a\n':
@@ -220,22 +247,33 @@ def read_png(path) -> np.ndarray:
     if hdr is None:
         raise ValueError(f'{path}: no IHDR chunk')
     width, height, depth, color, _, _, interlace = hdr
-    if interlace != 0:
-        raise ValueError(f'{path}: interlaced PNGs are not supported')
-    if depth == 16:
-        raise ValueError(f'{path}: 16-bit PNGs are not supported')
+    if interlace not in (0, 1):
+        raise ValueError(f'{path}: unknown PNG interlace method {interlace}')
     if depth not in _PNG_DEPTHS.get(color, ()):
         raise ValueError(f'{path}: unsupported PNG colour type {color} at '
                          f'bit depth {depth}')
     channels = _PNG_CHANNELS[color]
-    stride = (width * channels * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b''.join(idat)), height, stride,
-                     max(1, channels * depth // 8), path)
-    if depth < 8:             # unpack MSB-first; each row pads to a byte
-        rows = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        rows = (rows * weights).sum(-1)[:, :width].astype(np.uint8)
-    px = rows.reshape(height, width, channels)
+    raw = zlib.decompress(b''.join(idat))
+    if interlace == 0:
+        px = _samples(raw, height, width, channels, depth, path)
+    else:
+        # each non-empty pass is a small image of its own, unfiltered alone
+        passes = []
+        for r0, c0, dr, dc in _ADAM7:
+            ph, pw = -(-(height - r0) // dr), -(-(width - c0) // dc)
+            if ph > 0 and pw > 0:
+                passes.append((r0, c0, dr, dc, ph, pw))
+        if len(raw) != sum(ph * _row_bytes(pw, channels, depth)
+                           for *_, ph, pw in passes):
+            raise ValueError(f'{path}: truncated image data')
+        px = np.zeros((height, width, channels),
+                      np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for r0, c0, dr, dc, ph, pw in passes:
+            n = ph * _row_bytes(pw, channels, depth)
+            px[r0::dr, c0::dc] = _samples(raw[pos:pos + n], ph, pw, channels,
+                                          depth, path)
+            pos += n
     if color == 3:
         if not plte:
             raise ValueError(f'{path}: palette image without PLTE')
@@ -243,6 +281,8 @@ def read_png(path) -> np.ndarray:
         entries = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
         pal[:len(entries)] = entries
         return pal[px[..., 0]]
+    if depth == 16:
+        px = (np.minimum(px, 255) if color == 0 else px >> 8).astype(np.uint8)
     if color in (0, 4):
         gray = px[..., 0]
         if depth < 8:

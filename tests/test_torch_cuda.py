@@ -2,7 +2,8 @@
 versions at every lane count the codec uses, the decode kernel on its
 corner cases, the trunk kernels against theirs at qarv_tiny and qres_tiny
 shapes, dense, conv_kxk_act and mlp_res (the tiled product core) bitwise
-against the old core at ragged shapes, the lossless
+against the old core at ragged shapes, dw_ln_mod and dw_ln_affine (the
+halo-tile stencil) bitwise against the warp-per-pixel kernel, the lossless
 head's two kernels against theirs bitwise, and qarv_tiny, qres_tiny and
 qres_tiny_lossless round trips (legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
@@ -485,6 +486,70 @@ def test_mlp_res_equals_old_core(card):
         for i in (0, 6):
             two[i] = torch.cat([args[i], args[i].flip(-1)])
         assert torch.equal(trunk.mlp_res(*two)[:1], got), (M, C, HID, CO)
+
+
+# ---- the depthwise stencil pair on the halo-tile kernel --------------------
+
+def _dw_args(rng, card, name, B, H, W, C, K, unaligned=False):
+    x = (_f(rng, card, B * H * W * C + 1)[1:].reshape(B, H, W, C)
+         if unaligned else _f(rng, card, B, H, W, C))
+    dwk, dwb = _f(rng, card, K, K, C, scale=0.3), _f(rng, card, C, scale=0.1)
+    if name == 'dw_ln_mod':
+        return [x, dwk, dwb, _f(rng, card, 64, 2 * C, scale=0.2),
+                _f(rng, card, 2 * C, scale=0.1), _f(rng, card, B, 64), K]
+    return [x, dwk, dwb, _f(rng, card, C, scale=0.5) + 1,
+            _f(rng, card, C, scale=0.1), K]
+
+
+@pytest.mark.parametrize('name', ['dw_ln_mod', 'dw_ln_affine'])
+def test_dw_tile_equals_warp_kernel_ragged(card, name):
+    """dw_ln_mod and dw_ln_affine on the halo-tile kernel are bitwise the
+    warp-per-pixel kernel (the _warp entry points) at ragged shapes: H and
+    W of 1, 3, 5, 13 and 130 (below K too), C of 8, 40, 128, 200, 384 and
+    512, K of 1, 3, 5, 7, 9 and 31 (the run-time-K instantiation, 31 in
+    bands of tap rows), and at 13 x 130 a batch of two from an input 4
+    bytes off 16."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(12)
+    fn, oracle = getattr(trunk, name), getattr(trunk, name + '_warp')
+    for H, W in [(h, w) for h in chip_smoke.DW_HW for w in chip_smoke.DW_HW]:
+        for C in chip_smoke.DW_C:
+            for K in chip_smoke.DW_K:
+                cases = [(1, False)] + ([(2, True)] if (H, W) == (13, 130)
+                                        else [])
+                for B, unaligned in cases:
+                    args = _dw_args(rng, card, name, B, H, W, C, K,
+                                    unaligned)
+                    assert torch.equal(fn(*args), oracle(*args)), \
+                        (B, H, W, C, K, unaligned)
+
+
+@pytest.mark.parametrize('name,C', [('dw_ln_affine', 192),
+                                    ('dw_ln_mod', 128)])
+def test_dw_tile_quarter_grid(card, name, C):
+    """At the 1/4 grid of a 512x768 photo (128 x 192, K = 7: qres34m's and
+    qarv_base's widths) the halo-tile kernel is bitwise the warp-per-pixel
+    kernel, within tolerance of the plain version, counts one launch a call
+    (the oracle none), repeats its bits, and gives the first image of a
+    batch of two the bits it gets alone."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(13)
+    fn, oracle = getattr(trunk, name), getattr(trunk, name + '_warp')
+    args = _dw_args(rng, card, name, 1, 128, 192, C, 7)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    assert torch.equal(got, oracle(*args))
+    assert fn.launches == before + 1
+    assert torch.equal(fn(*args), got)
+    torch.testing.assert_close(got, trunk.PLAIN[fn](*args), atol=1e-5,
+                               rtol=1e-4)
+    two = list(args)
+    per_image = (0, 5) if name == 'dw_ln_mod' else (0,)
+    for i in per_image:
+        two[i] = torch.cat([args[i], args[i].flip(-1)])
+    assert torch.equal(fn(*two)[:1], got)
 
 
 # ---- the rANS decode kernel at its corners ---------------------------------

@@ -307,9 +307,32 @@ def test_read_png_sub_byte_filters(tmp_path, depth, color):
     (16, 2, 0, '16-bit'), (16, 0, 0, '16-bit'), (8, 2, 1, 'interlaced')])
 def test_read_png_refuses_16_bit_and_interlaced(tmp_path, depth, color,
                                                 interlace, what):
-    path = tmp_path / 'x.png'
+    """16-bit and Adam7-interlaced PNGs are read, not refused: as PIL's
+    convert('RGB') reads them (every kind of each, and the 16-bit mapping,
+    in tests/test_torch_png.py)."""
+    import struct as st
+    import zlib
+    from PIL import Image
+    path = tmp_path / f'{what}.png'
     channels = 3 if color == 2 else 1
-    rows = np.zeros((4, 4 * channels * depth // 8), np.uint8)
-    _write_png_packed(path, rows, 4, depth, color, [0], interlace=interlace)
-    with pytest.raises(ValueError, match=what):
-        tcoding.read_png(path)
+    px = np.random.default_rng(depth + color).integers(
+        0, 256, (4, 4, channels * depth // 8)).astype(np.uint8)
+    if interlace:   # the Adam7 passes of a 4x4 image, each row unfiltered
+        passes = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+                  (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+        raw = b''.join(b'\x00' + px[r, c0::dc].tobytes()
+                       for r0, c0, dr, dc in passes if c0 < 4
+                       for r in range(r0, 4, dr))
+
+        def chunk(kind, data):
+            return (st.pack('>I', len(data)) + kind + data
+                    + st.pack('>I', zlib.crc32(kind + data) & 0xFFFFFFFF))
+        path.write_bytes(
+            b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', st.pack('>IIBBBBB', 4, 4, depth, color, 0, 0, 1))
+            + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))
+    else:
+        _write_png_packed(path, px.reshape(4, -1), 4, depth, color, [0])
+    got = tcoding.read_png(path)
+    assert got.shape == (4, 4, 3) and got.any()
+    assert np.array_equal(got, np.asarray(Image.open(path).convert('RGB')))

@@ -49,9 +49,12 @@ def test_scale_table_matches_jax():
     assert want[0] == pytest.approx(0.1) and want.size == 64
 
 
-# (H, W, C, K): ragged H*W, the kernel sizes of qres34m's stages
+# (H, W, C, K): ragged H*W, the kernel sizes of qres34m's stages; H or W
+# below K at K = 7 with C = 40
 @pytest.mark.parametrize('H,W,C,K', [(8, 12, 48, 1), (9, 7, 16, 3),
-                                     (16, 24, 32, 5), (13, 11, 24, 7)])
+                                     (16, 24, 32, 5), (13, 11, 24, 7),
+                                     (5, 3, 40, 7), (2, 9, 40, 7),
+                                     (4, 1, 40, 7)])
 def test_dw_ln_affine_matches_jax(H, W, C, K):
     rng = np.random.default_rng(H * W + K)
     x = _normal(rng, (2, H, W, C))

@@ -55,9 +55,13 @@ def test_emb_mlp_matches_jax(E0, E):
         _close(g, w)
 
 
-# (H, W, C, K): ragged H*W, every kernel size of the main path's extremes
+# (H, W, C, K): ragged H*W, every kernel size of the main path's extremes;
+# H or W below K at K = 7 with C = 40, no multiple of 32 (taps off the
+# image on both sides of every pixel)
 @pytest.mark.parametrize('H,W,C,K', [(8, 12, 32, 1), (9, 7, 16, 3),
-                                     (16, 24, 32, 5), (64, 64, 16, 7)])
+                                     (16, 24, 32, 5), (64, 64, 16, 7),
+                                     (3, 13, 40, 7), (13, 5, 40, 7),
+                                     (1, 6, 40, 7)])
 def test_dw_ln_mod_matches_jax(H, W, C, K):
     rng = np.random.default_rng(H * W + K)
     B, E = 2, 32
