@@ -11,13 +11,24 @@
    random symbols at qarv_base 512x768 size (about 617k symbols, with tail
    rows and escapes), and times both, with their inputs in L2 (as after
    the stage that wrote them) and pushed out of it, also per dependent row
-   (ns_per_row). Then the checks of 2 and 5 again with the lossless head's
+   (ns_per_row); the encode also byte for byte against its row-sync
+   oracle kernel (the _rowsync entry points), with the oracle's time
+   (rowsync_ms), the chain phase's own time (chain_ms) and the chain's
+   bound, its rows on parameters already in registers (chain_bound_ms).
+   Then the checks of 2 and 5 again with the lossless head's
    128-row table at N = 48 and 100 (B = 3), and the decode kernel, single
    and multi-image, on rans_corner_cases (every lane renormalising, none,
    a stream cut short, nsym ending inside a row, the stream ring wrapped
    with chunk boundaries inside rows) at N = 1, 16, 48, 100 and 128 with
    the four tables of corner_scale_tables, byte for byte against its plain
-   versions and B single launches. Then it holds dense, conv_kxk_act and
+   versions and B single launches; and the encode on
+   rans_encode_corner_cases (every lane renormalising on every row, none,
+   empty and tail rows, one row, out-of-range indexes and symbols, the word
+   capacity cut inside a row, at 1 and at T * N, and at N = 1 60,007 rows)
+   at N = 1, 16, 31, 32, 33, 48, 64, 100 and 128 with the latent and head
+   tables: each image against the row-sync kernel, B = 1, 2, 3 and 6
+   against the row-sync kernel and B single launches, and the plain
+   versions, byte for byte. Then it holds dense, conv_kxk_act and
    mlp_res, the kernels on the tiled product core, bitwise (torch.equal)
    against their oracle on the old core (dense_act; for the conv on
    im2col_tapmajor's columns; for mlp_res two dense_act calls and the
@@ -36,8 +47,9 @@
    the legacy trunk and on the portable trunk (the main path: files are
    portable streams), plus images/hopper_576x512.png at 512 (portable);
    counts every kernel's launches in each call, checks that decoding is
-   bit-exact against the encode side's reconstruction and that rate and
-   quality match the JAX package's recorded results;
+   bit-exact against the encode side's reconstruction, that each file
+   equals the one written with the row-sync encode kernel swapped in, and
+   that rate and quality match the JAX package's recorded results;
 4. holds the seven portable-trunk kernels against their plain versions on
    the inputs the main path gives them (captured from one encode and
    decode of each image, every distinct shape), checks that a batch of two
@@ -62,7 +74,8 @@
    request of photo1..3 at lambda 776.05 and 2048 through compress_batch /
    decompress_batch, bit-exact against encode_check_batch, with each
    lambda's mean rate and PSNR held against the JAX package's recorded
-   sweep; a batch stream decoded alone and single streams decoded as a
+   sweep, the bodies equal to those of the row-sync encode kernel; a batch
+   stream decoded alone and single streams decoded as a
    batch, bitwise; the request split [3, 3] by max_program_batch=4; the
    seven trunk kernels held against their plain versions as in 4 on the
    inputs of that request at B = 6 and at B = 3 (every distinct shape); the
@@ -106,7 +119,7 @@
    against the PNG's).
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-rans_decode_checks, tiled_core, dw_tile, codec, trunk, batch, qres,
+rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, codec, trunk, batch, qres,
 qres_trunk, lossless, lossless_trunk, fresh_process), the card line of
 nvidia-smi, the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -567,7 +580,10 @@ def check_kernels(torch, np, table, device, lane_counts):
         runs = {
             'rans_encode_all': dict(
                 kernel=enc_kernel, plain=enc_plain, plain_ms=enc_plain_ms,
-                match=enc_match,
+                match=enc_match, extras=lambda: encode_oracle_times(
+                    torch, enc_kernel, lambda: re_.rans_encode_all_rowsync(
+                        inband, idx_t, row_n_t, cdfs, num_lanes=N),
+                    inband[None], idx_t[None], row_n_t, cdfs, T),
                 err=enc_err, launches=1, rows=T,
                 # the pairs the kernel writes (the wrapper zero-fills the
                 # buffer), the states and n_words
@@ -605,11 +621,45 @@ def check_kernels(torch, np, table, device, lane_counts):
                 plain_ms=plain_ms,
                 bytes=r['bytes'], ops=r['ops'],
                 bound_ms=max(bytes_ms, ops_ms),
-                bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+                bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                **(r['extras']() if 'extras' in r else {}))
             progress(f'{name} N={N}: {ms:.3f} ms ({ms * 1e6 / r["rows"]:.0f} '
                      f'ns a row, cold L2 {cold_ms:.3f}), plain '
-                     f'{plain_ms:.1f} ms')
+                     f'{plain_ms:.1f} ms{oracle_note(results[name][N])}')
     return results
+
+
+def encode_oracle_times(torch, kernel, rowsync, syms, idx, row_n, cdfs,
+                        rows):
+    """The encode's extras at one shape (syms, idx (B, T, N) on the card):
+    whether the row-sync kernel writes the kernel's bytes, its time
+    (rowsync_ms), the chain phase's own time (chain_ms) and the chain's
+    bound, its rows on parameters held in registers (chain_bound_ms), the
+    last two also a row."""
+    from lvae_tpu_torch.ops import rans_encode as re_
+    same = all(torch.equal(a, b) for a, b in zip(kernel(), rowsync()))
+    require(same, f'the encode disagrees with its row-sync kernel at '
+                  f'{tuple(syms.shape)}')
+    out = dict(rowsync_match=same,
+               rowsync_ms=cuda_ms(torch, rowsync, KERNEL_REPEATS))
+    for key, registers_only in (('chain', False), ('chain_bound', True)):
+        ms = cuda_ms(torch, re_.chain_phase(syms, idx, row_n, cdfs,
+                                            registers_only), KERNEL_REPEATS)
+        out.update({f'{key}_ms': ms, f'{key}_ns_per_row': ms * 1e6 / rows})
+    return out
+
+
+def encode_oracle_keys(r):
+    """encode_oracle_times' times for the kernels line ({} elsewhere)."""
+    return {k: r[k] for k in ('rowsync_ms', 'chain_ms', 'chain_bound_ms')
+            if k in r}
+
+
+def oracle_note(r):
+    """encode_oracle_times' numbers for a progress line ('' elsewhere)."""
+    return (f', row-sync {r["rowsync_ms"]:.3f} ms, chain '
+            f'{r["chain_ns_per_row"]:.1f} ns a row (bound '
+            f'{r["chain_bound_ns_per_row"]:.1f})' if 'rowsync_ms' in r else '')
 
 
 def check_multi_kernels(torch, np, table, device, lane_counts, batches):
@@ -736,6 +786,11 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
             runs = {
                 'rans_encode_all_multi': dict(
                     multi=enc_multi, singles=enc_singles,
+                    extras=lambda: encode_oracle_times(
+                        torch, enc_multi,
+                        lambda: re_.rans_encode_all_multi_rowsync(
+                            inband, idx, row_n, cdfs, num_lanes=N),
+                        inband, idx, row_n, cdfs, T),
                     plain_ms=enc_plain_ms, err=enc_err, launches=1, rows=T,
                     # the pairs the kernel writes (the wrapper zero-fills
                     # the buffer), the states and n_words
@@ -765,9 +820,11 @@ def check_multi_kernels(torch, np, table, device, lane_counts, batches):
                     single_launches_ms=singles_ms,
                     plain_ms=r['plain_ms'], bytes=r['bytes'], ops=r['ops'],
                     bound_ms=max(bytes_ms, ops_ms),
-                    bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+                    bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                    **(r['extras']() if 'extras' in r else {}))
                 progress(f'{name} {what}: {ms:.3f} ms, {B} images alone '
-                         f'{singles_ms:.3f} ms, plain {r["plain_ms"]:.1f} ms')
+                         f'{singles_ms:.3f} ms, plain {r["plain_ms"]:.1f} ms'
+                         f'{oracle_note(results[name][f"N{N}_B{B}"])}')
     return results
 
 
@@ -829,6 +886,215 @@ def check_decode_corners(torch, device, tables):
     return rows
 
 
+# the encode's corner cases (rans_encode_corner_cases): lane counts (one
+# warp, ragged last warps, whole warps), batch sizes, rows of a case, and
+# the rows of the N = 1 case whose scan crosses many tiles
+ENCODE_CORNER_LANES = (1, 16, 31, 32, 33, 48, 64, 100, 128)
+ENCODE_CORNER_BATCHES = (1, 2, 3, 6)
+ENCODE_CORNER_ROWS, ENCODE_LONG_ROWS = 96, 60007
+ENCODE_CORNER_TABLES = ('latent', 'head')
+
+
+def encode_row_words(np, cdfs, syms, indexes, row_n):
+    """The words each row of one image takes, rows T-1 .. 0: the plain
+    encode's row loop in numpy (int64) on a sentinel-padded table."""
+    T, N = syms.shape
+    S, L = cdfs.shape
+    c = cdfs.astype(np.int64)
+    ix = np.clip(indexes, 0, S - 1)
+    sy = np.clip(syms, 0, L - 2)
+    start, freq = c[ix, sy], c[ix, sy + 1] - c[ix, sy]
+    x = np.full(N, 1 << 16, np.int64)
+    counts = []
+    for t in range(T - 1, -1, -1):
+        act = np.arange(N) < row_n[t]
+        f = np.where(act, freq[t], 1)
+        flag = act & ((x >> 16) >= f)
+        counts.append(int(flag.sum()))
+        x = np.where(flag, x >> 16, x)
+        x = np.where(act, ((x // f) << 16) + x % f + np.where(act, start[t], 0),
+                     x)
+    return counts
+
+
+def rans_encode_corner_cases(np, cdfs, N, rows=ENCODE_CORNER_ROWS,
+                             long_rows=ENCODE_LONG_ROWS, seed=0):
+    """Encode inputs at the encode's corners, for a sentinel-padded table
+    (cdfs (S, L): prepare_device_cdf) and N lanes: [(name, case)], each case
+    max(ENCODE_CORNER_BATCHES) images of one row layout: numpy int32 syms
+    and indexes (B, T, N), row_n (T,), and w_cap. Image 0 is the corner
+    (checked here with encode_row_words), the others further draws of the
+    same kind. Every clamped (index, symbol) lies inside its CDF row, so the
+    plain versions code every case too. T = `rows` but where named.
+    - every_lane_renormalises: symbols of frequency 1, so every lane
+      renormalises on every row;
+    - no_lane_renormalises: the central symbol of the scale whose largest
+      frequency is the table's largest (the narrowest): no lane
+      renormalises;
+    - empty_and_tail_rows: row lengths 0, N and between;
+    - one_row: T = 1;
+    - out_of_range: indexes below 0 and past S - 1, symbols below 0 and, on
+      the widest scale (whose rows hold every bin), past L - 2: clamped;
+    - w_cap_inside_row, w_cap_one, w_cap_all: the word capacity cut inside
+      a row (N = 1: at half the words), 1, and T * N;
+    - long_scan (N = 1 only): T = `long_rows`, a scan over many tiles.
+    The other cases draw their symbols from the CDFs, one in ten uniform
+    over the row's bins."""
+    rng = np.random.default_rng(seed + 1000 * N + len(cdfs))
+    S, L = cdfs.shape
+    B = max(ENCODE_CORNER_BATCHES)
+    c = cdfs.astype(np.int64)
+    lengths = (cdfs <= 1 << 16).sum(1)           # the rest is the sentinel
+    freq = np.diff(c, axis=1)
+    valid = np.arange(L - 1)[None] < (lengths - 1)[:, None]
+    ones = np.argwhere(valid & (freq == 1))
+    central = np.unravel_index(np.argmax(np.where(valid, freq, 0)),
+                               freq.shape)
+    require(lengths[-1] == L, 'the widest scale is the last')
+
+    # the rows laid end to end, row i lifted by i << 18 (entries <= 2^17):
+    # one sorted array, searched for every (index, slot) at once
+    flat = (c + (np.arange(S)[:, None] << 18)).ravel()
+
+    def draw(T):
+        ix = rng.integers(0, S, (B, T, N))
+        slot = rng.integers(0, 1 << 16, (B, T, N))
+        sy = np.searchsorted(flat, (ix << 18) + slot, 'right') - 1 - ix * L
+        uniform = rng.random(ix.shape) < 0.1
+        sy[uniform] = (rng.random(int(uniform.sum()))
+                       * (lengths[ix[uniform]] - 1)).astype(np.int64)
+        return sy, ix
+
+    def case(sy, ix, row_n=None, w_cap=None):
+        T = sy.shape[1]
+        row_n = np.full(T, N) if row_n is None else row_n
+        return dict(syms=sy.astype(np.int32), indexes=ix.astype(np.int32),
+                    row_n=np.asarray(row_n, np.int32),
+                    w_cap=T * N if w_cap is None else int(w_cap))
+
+    T = rows
+    pick = ones[rng.integers(0, len(ones), (B, T, N))]
+    cases = [('every_lane_renormalises', case(pick[..., 1], pick[..., 0])),
+             ('no_lane_renormalises',
+              case(np.full((B, T, N), central[1]),
+                   np.full((B, T, N), central[0])))]
+    sy, ix = draw(T)
+    row_n = rng.integers(0, N + 1, T)
+    row_n[::3], row_n[1::3] = 0, N
+    cases.append(('empty_and_tail_rows', case(sy, ix, row_n)))
+    cases.append(('one_row', case(*draw(1))))
+    sy, ix = draw(T)
+    kind = rng.integers(0, 5, (B, T, N))
+    kind.reshape(B, -1)[:, :5] = np.arange(5)     # every kind in each image
+    ix = np.where(kind == 1, rng.integers(-5, 0, ix.shape), ix)
+    sy = np.where(kind == 1, np.minimum(sy, lengths[0] - 2), sy)
+    hi = S + rng.integers(0, 5, ix.shape)        # the widest scale, clamped
+    ix = np.where(kind == 2, hi, ix)
+    sy = np.where(kind == 3, rng.integers(-5, 0, sy.shape), sy)
+    ix = np.where(kind == 4, hi, ix)
+    sy = np.where(kind == 4, rng.integers(L - 1, L + 5, sy.shape), sy)
+    cases.append(('out_of_range', case(sy, ix)))
+    sy, ix = draw(T)
+    counts = encode_row_words(np, cdfs, sy[0], ix[0], np.full(T, N))
+    ends = np.cumsum([0] + counts)
+    if N > 1:
+        k = next(k for k, n in enumerate(counts) if n >= 2)
+        cut = int(ends[k]) + counts[k] // 2
+    else:
+        cut = int(ends[-1]) // 2
+    cases += [('w_cap_inside_row', case(sy, ix, w_cap=cut)),
+              ('w_cap_one', case(sy, ix, w_cap=1)),
+              ('w_cap_all', case(sy, ix))]
+    if N == 1:
+        cases.append(('long_scan', case(*draw(long_rows))))
+    for name, cs in cases:
+        counts = encode_row_words(np, cdfs, cs['syms'][0], cs['indexes'][0],
+                                  cs['row_n'])
+        ends = np.cumsum([0] + counts)
+        rn = cs['row_n'][::-1]
+        ok = {'every_lane_renormalises': counts == rn.tolist(),
+              'no_lane_renormalises': ends[-1] == 0,
+              'empty_and_tail_rows': (rn == 0).any() and (rn == N).any()
+              and (N == 1 or ((rn > 0) & (rn < N)).any()),
+              'one_row': len(counts) == 1,
+              'out_of_range': ((cs['indexes'] < 0).any()
+                               and (cs['indexes'] >= S).any()
+                               and (cs['syms'] < 0).any()
+                               and (cs['syms'] > L - 2).any()),
+              'w_cap_inside_row': ends[-1] > cs['w_cap'] and (
+                  N == 1 or not np.isin(cs['w_cap'], ends)),
+              'w_cap_one': ends[-1] > 1,
+              'w_cap_all': cs['w_cap'] == len(counts) * N,
+              'long_scan': len(counts) == long_rows}[name]
+        if not ok:
+            raise AssertionError(f'rans_encode_corner_cases N={N} S={S}: '
+                                 f'{name} misses its corner')
+    return cases
+
+
+def encode_corner_case(torch, case, cdfs, N):
+    """One rans_encode_corner_cases case on the card: each image through
+    rans_encode_all against the row-sync kernel, the first B images (each B
+    of ENCODE_CORNER_BATCHES) through rans_encode_all_multi against its
+    row-sync kernel and the B single launches, and the plain versions on
+    image 0 and on all images; byte for byte (pairs, n_words, states).
+    cdfs: the table on the card. -> (single, multi, plain) matches."""
+    from lvae_tpu_torch.ops import rans_encode as re_
+    t = {k: torch.as_tensor(case[k], device=cdfs.device)
+         for k in ('syms', 'indexes', 'row_n')}
+    kw = dict(num_lanes=N, w_cap=case['w_cap'])
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    single, alone = True, []
+    for b in range(len(case['syms'])):
+        args = (t['syms'][b], t['indexes'][b], t['row_n'], cdfs)
+        got = re_.rans_encode_all(*args, **kw)
+        single &= same(got, re_.rans_encode_all_rowsync(*args, **kw))
+        alone.append(got)
+    plain = same(alone[0], re_.rans_encode_all_plain(
+        t['syms'][0], t['indexes'][0], t['row_n'], cdfs, case['w_cap']))
+    multi = True
+    for B in ENCODE_CORNER_BATCHES:
+        args = (t['syms'][:B], t['indexes'][:B], t['row_n'], cdfs)
+        got = re_.rans_encode_all_multi(*args, **kw)
+        multi &= same(got, re_.rans_encode_all_multi_rowsync(*args, **kw))
+        multi &= all(torch.equal(got[0][b], p) and torch.equal(got[1][b], n)
+                     and torch.equal(got[2][b], st[0])
+                     for b, (p, n, st) in enumerate(alone[:B]))
+    plain &= same(got, re_.rans_encode_all_multi_plain(*args[:3], cdfs,
+                                                       case['w_cap']))
+    return single, multi, plain
+
+
+def rans_encode_checks(torch, device):
+    """encode_corner_case on every rans_encode_corner_cases case of each
+    table of ENCODE_CORNER_TABLES at every lane count of
+    ENCODE_CORNER_LANES. -> a row per case."""
+    from lvae_tpu_torch.ops import rans_decode as rd
+    from lvae_tpu_torch.ops import cdf
+    tables = corner_scale_tables()
+    rows = []
+    for label in ENCODE_CORNER_TABLES:
+        cdfs_np, _ = rd.prepare_device_cdf(cdf.build_cdf_table(tables[label]))
+        cdfs = torch.as_tensor(cdfs_np, device=device)
+        for N in ENCODE_CORNER_LANES:
+            for name, c in rans_encode_corner_cases(np, cdfs_np, N):
+                single, multi, plain = encode_corner_case(torch, c, cdfs, N)
+                rows.append(dict(
+                    table=label, N=N, case=name, T=len(c['row_n']),
+                    w_cap=c['w_cap'], batches=list(ENCODE_CORNER_BATCHES),
+                    single_match=single, multi_match=multi,
+                    plain_match=plain))
+                require(single and multi and plain,
+                        f'rANS encode corner case {name} (table {label}, '
+                        f'N={N}): the kernel disagrees with the row-sync '
+                        f'kernel, B single launches or its plain version')
+    progress(f'rANS encode corner cases: {len(rows)} cases, all byte-equal')
+    return rows
+
+
 def launch_counters():
     """{kernel name: wrapper} for every kernel of the main paths."""
     from lvae_tpu_torch.ops import rans_decode as rd, rans_encode as re_
@@ -857,6 +1123,19 @@ def psnr_bpp(rec, im, n_bytes):
                                                           * im.shape[2])
 
 
+def with_rowsync_encode(fn):
+    """fn() with the row-sync encode kernel in place of the encode (both
+    entry points), for that one call."""
+    from lvae_tpu_torch.ops import rans_encode as re_
+    saved = re_.rans_encode_all, re_.rans_encode_all_multi
+    re_.rans_encode_all = re_.rans_encode_all_rowsync
+    re_.rans_encode_all_multi = re_.rans_encode_all_multi_rowsync
+    try:
+        return fn()
+    finally:
+        re_.rans_encode_all, re_.rans_encode_all_multi = saved
+
+
 def run_codec(torch, model, portable, cases, tmpdir):
     """compress_file -> decompress_file of each (image, lambda), on one
     trunk, each call's kernel launches counted; the round trip checked
@@ -877,6 +1156,11 @@ def run_codec(torch, model, portable, cases, tmpdir):
         rec, dec_launches = counted_call(lambda: model.decompress_file(path))
         with open(path, 'rb') as f:
             body = f.read()[4:]
+        rowsync_path = path + '.rowsync'
+        with_rowsync_encode(lambda: model.compress_file(
+            image, rowsync_path, lmb=lmb, portable=portable))
+        with open(rowsync_path, 'rb') as f:
+            rowsync_same = f.read()[4:] == body
         lanes_field = struct.unpack('<H', body[18:20])[0]
         psnr, bpp = psnr_bpp(rec, im, len(body))
         # the port's own round-trip check: the encode side's
@@ -896,7 +1180,7 @@ def run_codec(torch, model, portable, cases, tmpdir):
                    bytes=len(body), bpp=bpp, psnr=psnr,
                    finite=bool(np.isfinite(rec).all()),
                    shape=list(rec.shape), shape_ok=rec.shape == (1, H, W, 3),
-                   bit_exact=bit_exact,
+                   bit_exact=bit_exact, rowsync_file_equal=rowsync_same,
                    enc_ms=enc_ms, dec_ms=dec_ms, **rans,
                    encode_launches=enc_launches,
                    decode_launches=dec_launches, path=path)
@@ -916,6 +1200,8 @@ def run_codec(torch, model, portable, cases, tmpdir):
     for row in rows:
         what = f'{kind} {row["image"]} lambda {row["lmb"]:g}'
         require(row['bit_exact'], f'{what}: decode is not bit-exact')
+        require(row['rowsync_file_equal'],
+                f'{what}: the file differs with the row-sync encode kernel')
         require(row['portable_marker'] == portable,
                 f'{what}: wrong trunk-kind marker')
         require(row['finite'] and row['shape_ok'],
@@ -1014,6 +1300,8 @@ def run_batch(torch, model, tmpdir):
     # 1. round trip, rate and quality; the launches of each call
     bodies, enc_l = counted_call(lambda: model.compress_batch(ims, lmb=lmbs))
     dec, dec_l = counted_call(lambda: model.decompress_batch(bodies))
+    rowsync_same = with_rowsync_encode(
+        lambda: model.compress_batch(ims, lmb=lmbs)) == bodies
     codec = model._fused
     lmb_t = torch.tensor([struct.unpack('f', struct.pack('f', v))[0]
                           for v in lmbs], device=model.device)
@@ -1087,6 +1375,7 @@ def run_batch(torch, model, tmpdir):
     result = dict(
         images=[os.path.relpath(p, ROOT) for p in PHOTOS] * 2, lmbs=lmbs,
         lane_fields=fields, bit_exact=bit_exact, per_lambda=per_lmb,
+        rowsync_bodies_equal=rowsync_same,
         stream_bytes=[len(b) for b in bodies],
         batch_stream_alone_bitwise=bool(np.array_equal(alone0[0], dec[0])),
         single_streams_as_batch_bitwise=singles_ok,
@@ -1103,6 +1392,8 @@ def run_batch(torch, model, tmpdir):
              f'no_sync_same={no_sync_same}')
     require(fields == [0x8000 | 128], f'batch lane fields {fields}')
     require(bit_exact, 'batch decode is not bit-exact')
+    require(rowsync_same, 'the batch bodies differ with the row-sync encode '
+                          'kernel')
     for r in per_lmb:
         require(abs(r['bpp_rel_diff']) <= BPP_REL_TOL
                 and abs(r['psnr_diff_db']) <= PSNR_TOL_DB,
@@ -2369,6 +2660,7 @@ def main():
         corner_cases=check_decode_corners(torch, device, {
             label: cdf.build_cdf_table(scales)
             for label, scales in corner_scale_tables().items()}))})
+    emit({'rans_encode_checks': rans_encode_checks(torch, device)})
     emit({'tiled_core': check_core_synthetic(torch, device)})
     emit({'dw_tile': check_dw_synthetic(torch, device)})
 
@@ -2482,12 +2774,13 @@ def main():
             match=all(r['match'] for r in by_n.values()),
             max_abs_err=max(r['max_abs_err'] for r in by_n.values()),
             ms=main_n['ms'], plain_ms=main_n['plain_ms'],
+            **encode_oracle_keys(main_n),
             bound_ms=main_n['bound_ms'], bound_by=main_n['bound_by'],
             bound_derivation=(
                 f'max(bytes / 3.35 TB/s, ops / 67 Tops/s) per qarv_base '
                 f'512x768 image at N={lanes_of[main_lmb]}; the real limit '
                 f'is the serial chain of T dependent rows (T at each N '
-                f'below)'),
+                f'below; the encode: chain_bound_ms)'),
             library_ms=None,
             by_lanes={str(n): r for n, r in by_n.items()}))
     batch_n = max(lanes_of.values())
@@ -2504,7 +2797,7 @@ def main():
             match=True,
             max_abs_err=max(r['max_abs_err'] for r in by_case.values()),
             ms=main_b['ms'], single_launches_ms=main_b['single_launches_ms'],
-            plain_ms=main_b['plain_ms'],
+            plain_ms=main_b['plain_ms'], **encode_oracle_keys(main_b),
             bound_ms=main_b['bound_ms'], bound_by=main_b['bound_by'],
             bound_derivation=(
                 f'max(bytes / 3.35 TB/s, ops / 67 Tops/s) for {SERVING_B} '

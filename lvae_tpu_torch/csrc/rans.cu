@@ -24,11 +24,17 @@
 // cp.async, and up to 64 lanes one warp runs an image (two lanes a thread
 // above 32), so that a row needs no block barrier. A row is then a
 // shared-memory search and a ballot per 32 lanes, and above 64 lanes one block
-// barrier. Encode (rans_encode_all_kernel) is the simple design: one thread
-// block of N threads per image, CDF rows read through the L1 cache, one block
-// barrier a row. The multi-image entry points launch the same kernels with one
-// block per image (grid = B), so that B images' chains run side by side on B
-// SMs.
+// barrier. Encode is a chain too, but only of each lane's own state: a
+// row's (start, freq) depends on its (index, symbol) alone, and a word's
+// position on the other lanes' flags alone. So the encode runs as four
+// launches: a parallel lookup of every row's (start, freq); the chains, one
+// thread a lane and no barrier, each fetching its rows kChainAhead ahead;
+// a scan of the rows' word counts; and a parallel placement of the words.
+// The first encode kernel (rans_encode_rowsync_kernel: one block of N
+// threads an image, CDF rows read on the chain, one block barrier a row)
+// stays as the oracle the card checks hold the new one against. The
+// multi-image entry points launch the same kernels over B images, so that B
+// images' chains run side by side on other SMs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -289,24 +295,26 @@ rans_decode_block_kernel(const int* __restrict__ indexes, int T, int N,
     if (tid == 0) ptr_out[img] = (int)ptr;
 }
 
-// Replaces lvae_tpu/ops/pallas/rans_encode.py:217 rans_encode_all (the
-// Pallas _encode_kernel) and, launched with one block per image,
-// rans_encode.py:419 rans_encode_all_multi (_encode_kernel_multi). Encodes
-// all rows of an image in reverse row order from states 2^16; block b
-// encodes image b: its (T, N) symbols and indexes at b*T*N, its pairs at
-// b*pair_cap (int32 elements), its word count at b and states at b*N; the
-// row lengths are shared. Words go out in push order (lane-descending inside
-// each reversed row) into the u16 view of a zero-filled pair buffer; words
-// past w_cap are counted but not written, so the caller detects the overflow
-// from n_words. Native u32 division replaces the TPU's f32 long division.
+// The first encode kernel, kept as the oracle of the four-phase encode
+// below (entry points rans_encode_all_rowsync and
+// rans_encode_all_multi_rowsync; off the main path). Encodes all rows of an
+// image in reverse row order from states 2^16; block b encodes image b: its
+// (T, N) symbols and indexes at b*T*N, its pairs at b*pair_cap (int32
+// elements), its word count at b and states at b*N; the row lengths are
+// shared. Words go out in push order (lane-descending inside each reversed
+// row) into the u16 view of a zero-filled pair buffer; words past w_cap are
+// counted but not written, so the caller detects the overflow from n_words.
+// Native u32 division replaces the TPU's f32 long division. Each row loads
+// its index and symbol, then the CDF row they pick, and waits at a block
+// barrier for the warps' counts: ~610-880 ns a row on an H100.
 __global__ void __launch_bounds__(kMaxLanes)
-rans_encode_all_kernel(const int* __restrict__ syms,
-                       const int* __restrict__ indexes,
-                       const int* __restrict__ row_n, int T, int N,
-                       const int* __restrict__ cdfs, int S, int L,
-                       uint16_t* __restrict__ words, long long pair_cap,
-                       long long w_cap, int* __restrict__ n_words,
-                       int* __restrict__ states_out) {
+rans_encode_rowsync_kernel(const int* __restrict__ syms,
+                           const int* __restrict__ indexes,
+                           const int* __restrict__ row_n, int T, int N,
+                           const int* __restrict__ cdfs, int S, int L,
+                           uint16_t* __restrict__ words, long long pair_cap,
+                           long long w_cap, int* __restrict__ n_words,
+                           int* __restrict__ states_out) {
     __shared__ int warp_count[2][kMaxWarps];
     const int img = blockIdx.x;
     const long long rows = (long long)T * N;
@@ -354,6 +362,259 @@ rans_encode_all_kernel(const int* __restrict__ syms,
     if (lane_ok) states_out[lane] = (int)x;
     if (lane == 0) n_words[img] = (int)end;
 }
+
+// ---- the encode: lookup, chains, scan, placement ---------------------------
+//
+// Replaces lvae_tpu/ops/pallas/rans_encode.py:217 rans_encode_all (the
+// Pallas _encode_kernel) and rans_encode.py:419 rans_encode_all_multi
+// (_encode_kernel_multi); byte for byte equal to rans_encode_rowsync_kernel
+// (pairs, n_words, states) on every input. Bound: the bytes take ~1.6 us an
+// image at 3.35 TB/s, the chain of a lane's T dependent rows takes T times
+// one row's arithmetic (the flag, then the state update): the chain is the
+// bound. The TPU kernel's byte-split one-hot gathers and f32 long division
+// exist only for the MXU and the VPU. Four launches over B images, in
+// stream order:
+// 1. rans_encode_lookup_kernel, parallel over (b, t, lane): each symbol's
+//    coding parameters (coding_params) from its clamped index and symbol,
+//    into a (B, T, N) scratch;
+// 2. rans_encode_chain_kernel, a block of one warp per 32 lanes of an
+//    image: each lane's chain in reverse row order from 2^16, with no
+//    block barrier and nothing shared between warps. Each lane copies its
+//    own parameters into a shared-memory ring with cp.async kChainAhead - 1
+//    rows before the row that codes them, and reads them into registers a
+//    row before that row; so the state update waits on no load. A flagged
+//    lane writes its word into a dense (B, T, N) u16 scratch, the warp its
+//    ballot into a (B, T, ceil(N/32)) scratch; at the end each lane writes
+//    its state;
+// 3. rans_encode_scan_kernel, one block an image: each row's word count
+//    (the popcounts of its ballots), scanned in push order (row T-1 first)
+//    into the rows' first positions; the total is n_words;
+// 4. rans_encode_place_kernel, parallel over (b, t, lane): a flagged lane's
+//    word goes to its row's first position + the flagged lanes above it in
+//    the row (push order is lane-descending), if that is below w_cap.
+constexpr int kChainAhead = 32;     // the chain's ring: rows in flight + 1
+constexpr int kGridThreads = 256;   // blocks of the lookup and placement
+constexpr int kGridBlocks = 1024;   // their blocks an image, at most
+constexpr int kScanThreads = 1024;
+constexpr int kScanRows = 8;        // rows a scan thread holds per tile
+static_assert((kChainAhead & (kChainAhead - 1)) == 0, "");
+static_assert(kGridThreads >= 2 * kMaxLanes, "two rows a block at least");
+static_assert(kScanThreads / kWarp == kWarp, "one warp scans the warps");
+
+// 16-byte cp.async into shared memory, through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(src) : "memory");
+}
+
+// A symbol's coding parameters for the chain: start, freq, and for the
+// division of a state xs by freq, rcp = floor((2^32 - 1) / freq) and k =
+// 2^16 - freq (mod 2^32). q0 = umulhi(xs, rcp) is floor(xs / freq) or one
+// less, so q = q0 + (xs - q0 * freq >= freq), and the state update
+// ((xs / freq) << 16) + xs % freq + start is q * k + xs + start (mod 2^32).
+// freq 0 (a table past its rows) takes the native division's result,
+// xs / 0 = 2^32 - 1 and xs % 0 = xs: rcp 0 and k = 2^32 - 2^16 give that.
+// An inactive lane is (0, 2^32 - 1, 0, 0): no flag, the state unchanged.
+__device__ __forceinline__ uint4 coding_params(uint32_t start,
+                                               uint32_t freq) {
+    return freq == 0u ? make_uint4(start, 0u, 0u, 0xFFFF0000u)
+                      : make_uint4(start, freq, 0xFFFFFFFFu / freq,
+                                   (1u << 16) - freq);
+}
+
+// The lookup and the placement run on a (B, blocks) grid: blockIdx.x is
+// the image, a block covers kGridThreads / N rows of it, a thread a lane.
+__global__ void __launch_bounds__(kGridThreads)
+rans_encode_lookup_kernel(const int* __restrict__ syms,
+                          const int* __restrict__ indexes,
+                          const int* __restrict__ row_n, int T, int N,
+                          const int* __restrict__ cdfs, int S, int L,
+                          uint4* __restrict__ params) {
+    const int rpb = kGridThreads / N;
+    const int lane = (int)threadIdx.x % N;
+    if ((int)threadIdx.x >= rpb * N) return;
+    for (int t = blockIdx.y * rpb + (int)threadIdx.x / N; t < T;
+         t += gridDim.y * rpb) {
+        const long long e = ((long long)blockIdx.x * T + t) * N + lane;
+        uint4 v = make_uint4(0u, 0xFFFFFFFFu, 0u, 0u);
+        if (lane < __ldg(row_n + t)) {
+            const int id = min(max(__ldg(indexes + e), 0), S - 1);
+            const int s = min(max(__ldg(syms + e), 0), L - 2);
+            const int* row = cdfs + (long long)id * L;
+            const uint32_t start = (uint32_t)__ldg(row + s);
+            v = coding_params(start, (uint32_t)__ldg(row + s + 1) - start);
+        }
+        params[e] = v;
+    }
+}
+
+// REGISTERS_ONLY (the chain's bound, timed by the card checks): every row
+// codes the top row's parameters, held in registers, and nothing is stored
+// but the states: the rows' arithmetic alone. `params` has kChainAhead rows
+// of N before image 0's rows, so that a chain may fetch past its row 0
+// (values never used).
+template <bool REGISTERS_ONLY>
+__global__ void __launch_bounds__(kWarp)
+rans_encode_chain_kernel(const uint4* __restrict__ params, int T, int N,
+                         int nw, uint16_t* __restrict__ dense,
+                         unsigned* __restrict__ ballots,
+                         int* __restrict__ states_out) {
+    __shared__ uint4 ring[kChainAhead][kWarp];
+    const int img = blockIdx.x / nw, warp = blockIdx.x % nw;
+    const int wl = threadIdx.x, lane = warp * kWarp + wl;
+    const bool lane_ok = lane < N;
+    const long long rows = (long long)T * N;
+    // row T-1's parameters, then a row back a row (lanes past N read lane
+    // 0's and never flag); row t's word and ballot, also a row back a row
+    const uint4* next = params + img * rows + (long long)(T - 1) * N
+                        + (lane_ok ? lane : 0);
+    uint16_t* word = dense + img * rows + (long long)(T - 1) * N + lane;
+    unsigned* ballot_out = ballots + ((long long)img * T + T - 1) * nw + warp;
+    auto slot = [&](int t) -> uint4& { return ring[t & (kChainAhead - 1)][wl]; };
+    auto fetch = [&](int t) {            // row t's copy, one commit group
+        cp_async16(&slot(t), next);
+        next -= N;
+        cp_async_commit();
+    };
+    uint32_t x = 1u << 16;
+    auto code = [&](uint4 v) {
+        const bool flag = lane_ok && (x >> 16) >= v.y;
+        const unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag);
+        if constexpr (!REGISTERS_ONLY) {
+            if (flag) *word = (uint16_t)(x & 0xFFFFu);
+            *ballot_out = ballot;          // every lane: one address, value
+            word -= N;
+            ballot_out -= nw;
+        }
+        const uint32_t xs = flag ? x >> 16 : x;
+        const uint32_t q0 = __umulhi(xs, v.z);
+        x = (q0 + (xs - q0 * v.y >= v.y ? 1u : 0u)) * v.w + (xs + v.x);
+    };
+    uint4 v;                                 // the row being coded
+    if constexpr (REGISTERS_ONLY) {
+        v = __ldg(next);
+        for (int t = T - 1; t >= 0; --t) code(v);
+    } else {
+        for (int t = T - 1; t > T - kChainAhead; --t) fetch(t);
+        cp_async_wait<kChainAhead - 2>();    // row T-1's group
+        v = slot(T - 1);
+#pragma unroll 4
+        for (int t = T - 1; t >= 0; --t) {
+            // into row t + 1's slot, read a row ago
+            fetch(t - kChainAhead + 1);
+            // row t - 1's group (then kChainAhead - 2 newer ones)
+            cp_async_wait<kChainAhead - 2>();
+            const uint4 v_next = slot(t - 1);
+            code(v);
+            v = v_next;
+        }
+        cp_async_wait<0>();                  // no copy outlives the block
+    }
+    if (lane_ok) states_out[(long long)img * N + lane] = (int)x;
+}
+
+// Row r's first word position, r in push order, per tile of kScanThreads *
+// kScanRows rows: each thread sums its kScanRows rows' counts, a warp scan
+// and a scan of the warps' totals give its exclusive prefix.
+__global__ void __launch_bounds__(kScanThreads)
+rans_encode_scan_kernel(const unsigned* __restrict__ ballots, int T, int nw,
+                        long long* __restrict__ base,
+                        int* __restrict__ n_words) {
+    __shared__ int warp_incl[kWarp];
+    const int img = blockIdx.x, tid = threadIdx.x;
+    const int warp = tid / kWarp, wl = tid % kWarp;
+    ballots += (long long)img * T * nw;
+    base += (long long)img * T;
+    auto warp_scan = [&](int v) {         // inclusive
+#pragma unroll
+        for (int d = 1; d < kWarp; d <<= 1) {
+            const int up = __shfl_up_sync(0xFFFFFFFFu, v, d);
+            if (wl >= d) v += up;
+        }
+        return v;
+    };
+    long long carry = 0;
+    for (long long p0 = 0; p0 < T; p0 += kScanThreads * kScanRows) {
+        int count[kScanRows], sum = 0;
+#pragma unroll
+        for (int k = 0; k < kScanRows; ++k) {
+            const long long p = p0 + (long long)tid * kScanRows + k;
+            count[k] = 0;
+            if (p < T) {
+                const unsigned* b = ballots + (T - 1 - p) * nw;
+                for (int w = 0; w < nw; ++w) count[k] += __popc(__ldg(b + w));
+            }
+            sum += count[k];
+        }
+        const int incl = warp_scan(sum);
+        if (wl == kWarp - 1) warp_incl[warp] = incl;
+        __syncthreads();
+        if (warp == 0) warp_incl[wl] = warp_scan(warp_incl[wl]);
+        __syncthreads();
+        long long pos = carry + (warp > 0 ? warp_incl[warp - 1] : 0)
+                        + incl - sum;
+#pragma unroll
+        for (int k = 0; k < kScanRows; ++k) {
+            const long long p = p0 + (long long)tid * kScanRows + k;
+            if (p < T) base[T - 1 - p] = pos;
+            pos += count[k];
+        }
+        carry += warp_incl[kWarp - 1];
+        __syncthreads();                 // warp_incl is rewritten next tile
+    }
+    if (tid == 0) n_words[img] = (int)carry;
+}
+
+__global__ void __launch_bounds__(kGridThreads)
+rans_encode_place_kernel(const uint16_t* __restrict__ dense,
+                         const unsigned* __restrict__ ballots,
+                         const long long* __restrict__ base, int T, int N,
+                         int nw, uint16_t* __restrict__ words,
+                         long long pair_cap, long long w_cap) {
+    const int rpb = kGridThreads / N;
+    const int lane = (int)threadIdx.x % N;
+    const int w = lane / kWarp, bit = lane % kWarp;
+    if ((int)threadIdx.x >= rpb * N) return;
+    words += 2 * (long long)blockIdx.x * pair_cap;
+    for (int t = blockIdx.y * rpb + (int)threadIdx.x / N; t < T;
+         t += gridDim.y * rpb) {
+        const long long r = (long long)blockIdx.x * T + t;
+        const unsigned* b = ballots + r * nw;
+        const unsigned mine = __ldg(b + w);
+        if (!((mine >> bit) & 1u)) continue;
+        long long p = __ldg(base + r) + __popc(
+            bit == kWarp - 1 ? 0u : mine & (0xFFFFFFFFu << (bit + 1)));
+        for (int u = w + 1; u < nw; ++u) p += __popc(__ldg(b + u));
+        if (p < w_cap) words[p] = __ldg(dense + r * N + lane);
+    }
+}
+
+// The encode's scratch, carved from one buffer the caller allocates: every
+// symbol's coding parameters (after kChainAhead rows of padding), the rows'
+// first positions, the ballots, the words.
+struct EncodeScratch {
+    uint4* params;
+    long long* base;
+    unsigned* ballots;
+    uint16_t* dense;
+    int nw;
+
+    static long long bytes(int B, int T, int N) {
+        const long long syms = (long long)B * T * N, rows = (long long)B * T;
+        return 16LL * kChainAhead * N + 18 * syms
+               + rows * (8 + 4LL * ((N + kWarp - 1) / kWarp));
+    }
+    EncodeScratch(void* p, int B, int T, int N)
+        : nw((N + kWarp - 1) / kWarp) {
+        const long long syms = (long long)B * T * N, rows = (long long)B * T;
+        char* c = (char*)p + 16LL * kChainAhead * N;
+        params = (uint4*)c;
+        base = (long long*)(c += 16 * syms);
+        ballots = (unsigned*)(c += 8 * rows);
+        dense = (uint16_t*)(c + 4 * rows * nw);
+    }
+};
 
 int threads_for(int N) { return ((N + kWarp - 1) / kWarp) * kWarp; }
 
@@ -441,21 +702,45 @@ extern "C" int rans_decode_block(const void* indexes, int T, int N,
                                    cuda_stream);
 }
 
+// The bytes of the scratch the encode entry points take for B images of
+// (T, N) rows.
+extern "C" long long rans_encode_scratch_bytes(int B, int T, int N) {
+    return EncodeScratch::bytes(B, T, N);
+}
+
 // B images' encode (B = 1: rans_encode_all); `pairs` holds B regions of
-// pair_cap int32 elements, zero-filled by the caller.
+// pair_cap int32 elements, zero-filled by the caller; `scratch` holds at
+// least rans_encode_scratch_bytes(B, T, N) bytes. The four launches of the
+// encode, each checked as it is made.
 extern "C" int rans_encode_all_multi(
         const void* syms, const void* indexes, const void* row_n, int B,
         int T, int N, const void* cdfs, int S, int L, void* pairs,
         long long pair_cap, long long w_cap, void* n_words, void* states_out,
-        int device, void* cuda_stream) {
-    const int err = check_args(B, T, N, S, L, device);
+        void* scratch, long long scratch_bytes, int device,
+        void* cuda_stream) {
+    int err = check_args(B, T, N, S, L, device);
     if (err != 0) return err;
-    if (2 * pair_cap < w_cap) return (int)cudaErrorInvalidValue;
-    rans_encode_all_kernel<<<B, threads_for(N), 0,
-                             (cudaStream_t)cuda_stream>>>(
+    if (2 * pair_cap < w_cap
+            || scratch_bytes < EncodeScratch::bytes(B, T, N))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t stream = (cudaStream_t)cuda_stream;
+    const EncodeScratch sc(scratch, B, T, N);
+    const int rpb = kGridThreads / N;
+    const int blocks = (T + rpb - 1) / rpb;
+    const dim3 grid(B, blocks < kGridBlocks ? blocks : kGridBlocks);
+    rans_encode_lookup_kernel<<<grid, kGridThreads, 0, stream>>>(
         (const int*)syms, (const int*)indexes, (const int*)row_n, T, N,
-        (const int*)cdfs, S, L, (uint16_t*)pairs, pair_cap, w_cap,
-        (int*)n_words, (int*)states_out);
+        (const int*)cdfs, S, L, sc.params);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    rans_encode_chain_kernel<false><<<B * sc.nw, kWarp, 0, stream>>>(
+        sc.params, T, N, sc.nw, sc.dense, sc.ballots, (int*)states_out);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    rans_encode_scan_kernel<<<B, kScanThreads, 0, stream>>>(
+        sc.ballots, T, sc.nw, sc.base, (int*)n_words);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    rans_encode_place_kernel<<<grid, kGridThreads, 0, stream>>>(
+        sc.dense, sc.ballots, sc.base, T, N, sc.nw, (uint16_t*)pairs,
+        pair_cap, w_cap);
     return (int)cudaGetLastError();
 }
 
@@ -463,9 +748,59 @@ extern "C" int rans_encode_all(const void* syms, const void* indexes,
                                const void* row_n, int T, int N,
                                const void* cdfs, int S, int L, void* pairs,
                                long long pair_cap, long long w_cap,
-                               void* n_words, void* states_out, int device,
+                               void* n_words, void* states_out, void* scratch,
+                               long long scratch_bytes, int device,
                                void* cuda_stream) {
     return rans_encode_all_multi(syms, indexes, row_n, 1, T, N, cdfs, S, L,
-                                 pairs, pair_cap, w_cap, n_words,
-                                 states_out, device, cuda_stream);
+                                 pairs, pair_cap, w_cap, n_words, states_out,
+                                 scratch, scratch_bytes, device, cuda_stream);
+}
+
+// The encode's chain phase alone, on a scratch that rans_encode_all_multi
+// filled for the same (B, T, N): rewrites the same words, ballots and
+// states. registers_only: the chain's bound (rans_encode_chain_kernel). For
+// the card checks' timings only.
+extern "C" int rans_encode_chain_multi(int B, int T, int N, void* scratch,
+                                       long long scratch_bytes,
+                                       void* states_out, int registers_only,
+                                       int device, void* cuda_stream) {
+    const int err = check_args(B, T, N, 1, 2, device);    // no table here
+    if (err != 0) return err;
+    if (scratch_bytes < EncodeScratch::bytes(B, T, N))
+        return (int)cudaErrorInvalidValue;
+    const EncodeScratch sc(scratch, B, T, N);
+    auto kernel = registers_only ? rans_encode_chain_kernel<true>
+                                 : rans_encode_chain_kernel<false>;
+    kernel<<<B * sc.nw, kWarp, 0, (cudaStream_t)cuda_stream>>>(
+        sc.params, T, N, sc.nw, sc.dense, sc.ballots, (int*)states_out);
+    return (int)cudaGetLastError();
+}
+
+// The row-sync oracle: B images' encode, one block an image; the
+// arguments of rans_encode_all_multi without the scratch.
+extern "C" int rans_encode_all_multi_rowsync(
+        const void* syms, const void* indexes, const void* row_n, int B,
+        int T, int N, const void* cdfs, int S, int L, void* pairs,
+        long long pair_cap, long long w_cap, void* n_words, void* states_out,
+        int device, void* cuda_stream) {
+    const int err = check_args(B, T, N, S, L, device);
+    if (err != 0) return err;
+    if (2 * pair_cap < w_cap) return (int)cudaErrorInvalidValue;
+    rans_encode_rowsync_kernel<<<B, threads_for(N), 0,
+                                 (cudaStream_t)cuda_stream>>>(
+        (const int*)syms, (const int*)indexes, (const int*)row_n, T, N,
+        (const int*)cdfs, S, L, (uint16_t*)pairs, pair_cap, w_cap,
+        (int*)n_words, (int*)states_out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rans_encode_all_rowsync(
+        const void* syms, const void* indexes, const void* row_n, int T,
+        int N, const void* cdfs, int S, int L, void* pairs,
+        long long pair_cap, long long w_cap, void* n_words, void* states_out,
+        int device, void* cuda_stream) {
+    return rans_encode_all_multi_rowsync(syms, indexes, row_n, 1, T, N, cdfs,
+                                         S, L, pairs, pair_cap, w_cap,
+                                         n_words, states_out, device,
+                                         cuda_stream);
 }

@@ -33,16 +33,23 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points of csrc/*.cu (every pointer and the
-# stream as c_void_p, or ctypes would cut them to 32-bit ints)
+# stream as c_void_p, or ctypes would cut them to 32-bit ints); each returns
+# a CUDA error code (int) unless _RESTYPES says otherwise
 _SIGNATURES = {
     'rans_decode_block': [_P, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I,
                           _P, _LL, _P, _I, _P],
     'rans_decode_block_multi': [_P, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
                                 _I, _I, _P, _LL, _P, _I, _P],
     'rans_encode_all': [_P, _P, _P, _I, _I, _P, _I, _I, _P, _LL, _LL, _P,
-                        _P, _I, _P],
+                        _P, _P, _LL, _I, _P],
     'rans_encode_all_multi': [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _LL,
-                              _LL, _P, _P, _I, _P],
+                              _LL, _P, _P, _P, _LL, _I, _P],
+    'rans_encode_scratch_bytes': [_I, _I, _I],
+    'rans_encode_chain_multi': [_I, _I, _I, _P, _LL, _P, _I, _I, _P],
+    'rans_encode_all_rowsync': [_P, _P, _P, _I, _I, _P, _I, _I, _P, _LL,
+                                _LL, _P, _P, _I, _P],
+    'rans_encode_all_multi_rowsync': [_P, _P, _P, _I, _I, _I, _P, _I, _I,
+                                      _P, _LL, _LL, _P, _P, _I, _P],
     'trunk_emb_mlp': [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I,
                       _P],
     'trunk_dw_ln_mod': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
@@ -69,6 +76,8 @@ _SIGNATURES = {
     'trunk_nll_head': [_P, _P, _LL, _P, _I, _F, _F, _P, _P, _I, _P],
     'trunk_nll_recon': [_P, _P, _LL, _F, _P, _I, _P],
 }
+
+_RESTYPES = {'rans_encode_scratch_bytes': _LL}
 
 _loaded = {}
 
@@ -145,7 +154,7 @@ def library():
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _loaded['lib'] = lib
     return lib
 

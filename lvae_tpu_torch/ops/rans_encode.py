@@ -2,9 +2,12 @@
 
 `rans_encode_all` and `rans_encode_all_multi` have the interfaces of the JAX
 package's Pallas functions (lvae_tpu/ops/pallas/rans_encode.py:217 and
-:419): each launches the CUDA kernel of csrc/rans.cu for tensors on the card
-and runs its plain PyTorch version, a row loop, for tensors on the CPU.
+:419): each runs the CUDA encode of csrc/rans.cu for tensors on the card
+(four launches: lookup, lane chains, scan, word placement; one count a
+call) and its plain PyTorch version, a row loop, for tensors on the CPU.
 Streams are byte-identical to lvae_tpu/ops/rans_interleaved.py's encoder.
+The `_rowsync` wrappers run the first encode kernel, the card checks'
+oracle.
 
 Escapes are handled outside the kernel (`prepare_inband`): out-of-range
 values are coded as the escape bin and their (position, value) pairs travel
@@ -106,6 +109,46 @@ def rans_encode_all_plain(syms, indexes, row_n, cdfs, w_cap=None):
     return pairs, n_words, to_i32_bits(x).reshape(1, N)
 
 
+def _encode(entry, syms, indexes, row_n, cdfs, num_lanes, w_cap,
+            scratch=None):
+    """The encode wrappers' common body, for (T, N) or (B, T, N) symbols:
+    the plain version on CPU tensors, else one call of C entry point
+    `entry` (on `scratch`, allocated here if None). -> (outputs,
+    launched)."""
+    multi = syms.dim() == 3
+    *_, T, N = syms.shape
+    if N != num_lanes:
+        raise ValueError(f'symbols have {N} lanes, expected {num_lanes}')
+    dev = syms.device
+    if dev.type == 'cuda':
+        row_n = torch.as_tensor(row_n, dtype=torch.int32, device=dev)
+    if not launches_kernel(entry, dev, (syms, indexes, row_n, cdfs)):
+        plain = rans_encode_all_multi_plain if multi else rans_encode_all_plain
+        return plain(syms, indexes, row_n, cdfs, w_cap), False
+    if indexes.shape != syms.shape or row_n.shape != (T,):
+        raise ValueError(f'{entry}: bad indexes/row_n shape')
+    B = syms.shape[0] if multi else 1
+    w_cap = T * N if w_cap is None else int(w_cap)
+    S, L = cdfs.shape
+    lib = build.library()
+    pairs = torch.zeros((B, pair_capacity(w_cap)), dtype=torch.int32,
+                        device=dev)
+    n_words = torch.empty((B,), dtype=torch.int32, device=dev)
+    states = torch.empty((B, N), dtype=torch.int32, device=dev)
+    args = [syms.data_ptr(), indexes.data_ptr(), row_n.data_ptr(),
+            *([B] if multi else []), T, N, cdfs.data_ptr(), S, L,
+            pairs.data_ptr(), pairs.shape[1], w_cap, n_words.data_ptr(),
+            states.data_ptr()]
+    if not entry.endswith('_rowsync'):
+        if scratch is None:
+            scratch = encode_scratch(B, T, N, dev)
+        args += [scratch.data_ptr(), scratch.numel()]
+    build.check(getattr(lib, entry)(*args, *launch_context(dev)), entry)
+    if not multi:
+        pairs, n_words = pairs[0], n_words[0]
+    return (pairs, n_words, states), True
+
+
 def rans_encode_all(syms, indexes, row_n, cdfs, num_lanes=128, w_cap=None):
     """Encode all of an image's symbol rows (all latent blocks concatenated,
     each block starting on a fresh row).
@@ -122,33 +165,23 @@ def rans_encode_all(syms, indexes, row_n, cdfs, num_lanes=128, w_cap=None):
          order; n_words 0-dim int32; states (1, N) int32, the decoder's
          initial states)
     """
-    T, N = syms.shape
-    if N != num_lanes:
-        raise ValueError(f'symbols have {N} lanes, expected {num_lanes}')
-    dev = syms.device
-    if dev.type == 'cuda':
-        row_n = torch.as_tensor(row_n, dtype=torch.int32, device=dev)
-    if not launches_kernel('rans_encode_all', dev,
-                           (syms, indexes, row_n, cdfs)):
-        return rans_encode_all_plain(syms, indexes, row_n, cdfs, w_cap)
-    if indexes.shape != syms.shape or row_n.shape != (T,):
-        raise ValueError('rans_encode_all: bad indexes/row_n shape')
-    w_cap = T * N if w_cap is None else int(w_cap)
-    S, L = cdfs.shape
-    lib = build.library()
-    pairs = torch.zeros(pair_capacity(w_cap), dtype=torch.int32, device=dev)
-    n_words = torch.empty((), dtype=torch.int32, device=dev)
-    states = torch.empty((1, N), dtype=torch.int32, device=dev)
-    err = lib.rans_encode_all(
-        syms.data_ptr(), indexes.data_ptr(), row_n.data_ptr(), T, N,
-        cdfs.data_ptr(), S, L, pairs.data_ptr(), pairs.numel(), w_cap,
-        n_words.data_ptr(), states.data_ptr(), *launch_context(dev))
-    build.check(err, 'rans_encode_all')
-    rans_encode_all.launches += 1
-    return pairs, n_words, states
+    out, launched = _encode('rans_encode_all', syms, indexes, row_n, cdfs,
+                            num_lanes, w_cap)
+    rans_encode_all.launches += int(launched)
+    return out
 
 
 rans_encode_all.launches = 0
+
+
+def rans_encode_all_rowsync(syms, indexes, row_n, cdfs, num_lanes=128,
+                            w_cap=None):
+    """rans_encode_all on the first encode kernel (one thread block an
+    image, a block barrier a row): the byte-for-byte oracle of the encode
+    in chip_smoke.py and the card tests; not on the main path, and not
+    counted in rans_encode_all.launches."""
+    return _encode('rans_encode_all_rowsync', syms, indexes, row_n, cdfs,
+                   num_lanes, w_cap)[0]
 
 
 def rans_encode_all_multi_plain(syms, indexes, row_n, cdfs, w_cap=None):
@@ -192,8 +225,9 @@ def rans_encode_all_multi_plain(syms, indexes, row_n, cdfs, w_cap=None):
 
 def rans_encode_all_multi(syms, indexes, row_n, cdfs, num_lanes=128,
                           w_cap=None):
-    """Encode B same-layout images' symbol rows in one launch (one thread
-    block per image); byte-identical to B `rans_encode_all` calls.
+    """Encode B same-layout images' symbol rows in one call (the encode's
+    launches run over all B images); byte-identical to B `rans_encode_all`
+    calls.
 
     Args:
         syms:    (B, T, N) int32 in-band symbols (prepare_inband)
@@ -204,31 +238,48 @@ def rans_encode_all_multi(syms, indexes, row_n, cdfs, num_lanes=128,
         (pairs (B, pair_capacity(w_cap)) int32, image b's pairs in row b;
          n_words (B,) int32; states (B, N) int32)
     """
-    B, T, N = syms.shape
-    if N != num_lanes:
-        raise ValueError(f'symbols have {N} lanes, expected {num_lanes}')
-    dev = syms.device
-    if dev.type == 'cuda':
-        row_n = torch.as_tensor(row_n, dtype=torch.int32, device=dev)
-    if not launches_kernel('rans_encode_all_multi', dev,
-                           (syms, indexes, row_n, cdfs)):
-        return rans_encode_all_multi_plain(syms, indexes, row_n, cdfs, w_cap)
-    if indexes.shape != syms.shape or row_n.shape != (T,):
-        raise ValueError('rans_encode_all_multi: bad indexes/row_n shape')
-    w_cap = T * N if w_cap is None else int(w_cap)
-    S, L = cdfs.shape
-    lib = build.library()
-    pairs = torch.zeros((B, pair_capacity(w_cap)), dtype=torch.int32,
-                        device=dev)
-    n_words = torch.empty((B,), dtype=torch.int32, device=dev)
-    states = torch.empty((B, N), dtype=torch.int32, device=dev)
-    err = lib.rans_encode_all_multi(
-        syms.data_ptr(), indexes.data_ptr(), row_n.data_ptr(), B, T, N,
-        cdfs.data_ptr(), S, L, pairs.data_ptr(), pairs.shape[1], w_cap,
-        n_words.data_ptr(), states.data_ptr(), *launch_context(dev))
-    build.check(err, 'rans_encode_all_multi')
-    rans_encode_all_multi.launches += 1
-    return pairs, n_words, states
+    out, launched = _encode('rans_encode_all_multi', syms, indexes, row_n,
+                            cdfs, num_lanes, w_cap)
+    rans_encode_all_multi.launches += int(launched)
+    return out
 
 
 rans_encode_all_multi.launches = 0
+
+
+def rans_encode_all_multi_rowsync(syms, indexes, row_n, cdfs, num_lanes=128,
+                                  w_cap=None):
+    """rans_encode_all_multi on the row-sync oracle kernel (as
+    rans_encode_all_rowsync); not counted."""
+    return _encode('rans_encode_all_multi_rowsync', syms, indexes, row_n,
+                   cdfs, num_lanes, w_cap)[0]
+
+
+def encode_scratch(B, T, N, dev):
+    """The scratch of one encode call of B images' (T, N) rows on card
+    `dev`: every symbol's (start, freq), the ballots, the rows' first
+    positions and the dense words (csrc/rans.cu EncodeScratch)."""
+    return torch.empty(build.library().rans_encode_scratch_bytes(B, T, N),
+                       dtype=torch.uint8, device=dev)
+
+
+def chain_phase(syms, indexes, row_n, cdfs, registers_only=False):
+    """For the card checks' timings: runs one uncounted multi-image
+    encode of (B, T, N) card tensors into a scratch kept here, and returns
+    a function that reruns the encode's chain phase alone on it (-> the
+    states); with registers_only, the chain's bound: its rows on values
+    already in registers (csrc/rans.cu rans_encode_chain_kernel)."""
+    B, T, N = syms.shape
+    dev = syms.device
+    scratch = encode_scratch(B, T, N, dev)
+    _, _, states = _encode('rans_encode_all_multi', syms, indexes, row_n,
+                           cdfs, N, None, scratch)[0]
+    lib = build.library()
+
+    def run():
+        build.check(lib.rans_encode_chain_multi(
+            B, T, N, scratch.data_ptr(), scratch.numel(),
+            states.data_ptr(), int(registers_only), *launch_context(dev)),
+            'rans_encode_chain_multi')
+        return states
+    return run

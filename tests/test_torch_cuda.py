@@ -1,11 +1,13 @@
 """The port's CUDA kernels on the card: the rANS kernels against their plain
 versions at every lane count the codec uses, the decode kernel on its
-corner cases, the trunk kernels against theirs at qarv_tiny and qres_tiny
-shapes, dense, conv_kxk_act and mlp_res (the tiled product core) bitwise
-against the old core at ragged shapes, dw_ln_mod and dw_ln_affine (the
-halo-tile stencil) bitwise against the warp-per-pixel kernel, the lossless
-head's two kernels against theirs bitwise, and qarv_tiny, qres_tiny and
-qres_tiny_lossless round trips (legacy and portable) through them.
+corner cases, the encode on its corner cases against its row-sync oracle
+kernel, B single launches and the plain versions, the trunk kernels
+against theirs at qarv_tiny and qres_tiny shapes, dense, conv_kxk_act and
+mlp_res (the tiled product core) bitwise against the old core at ragged
+shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
+against the warp-per-pixel kernel, the lossless head's two kernels against
+theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless round trips
+(legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -573,6 +575,72 @@ def test_decode_corner_cases_match_plain(card, N, table):
         single, multi, _ = chip_smoke.decode_corner_case(torch, case, cdfs,
                                                          offs, N)
         assert single and multi, name
+
+
+# ---- the rANS encode against its row-sync oracle ---------------------------
+
+@pytest.mark.parametrize('table', ['latent', 'head'])
+@pytest.mark.parametrize('N', [1, 16, 31, 32, 33, 48, 64, 100, 128])
+def test_encode_corner_cases_match_rowsync_and_plain(card, N, table):
+    """The four-phase encode on chip_smoke's rans_encode_corner_cases
+    (every lane renormalising, none, empty and tail rows, one row,
+    out-of-range indexes and symbols, w_cap inside a row, 1 and T * N,
+    60,007 rows at N = 1), byte for byte against the row-sync kernel, B
+    single launches (B = 1, 2, 3, 6) and the plain versions."""
+    import chip_smoke
+    scales = chip_smoke.corner_scale_tables()[table]
+    cdfs_np, _ = rd.prepare_device_cdf(cdf.build_cdf_table(scales))
+    cdfs = torch.as_tensor(cdfs_np, device=card)
+    for name, case in chip_smoke.rans_encode_corner_cases(np, cdfs_np, N):
+        assert all(chip_smoke.encode_corner_case(torch, case, cdfs, N)), name
+
+
+@pytest.mark.parametrize('N', [1, 33, 128])
+def test_encode_any_table_matches_rowsync(card, N):
+    """On tables of random int32 entries (frequencies 0 and past 16 bits,
+    negative starts), with indexes and symbols past both ends and random
+    row lengths, the encode writes the row-sync kernel's bytes: the same
+    u32 arithmetic, the division by 0 included (no plain version codes
+    these)."""
+    rng = np.random.default_rng(N)
+    for trial in range(4):
+        table = rng.integers(-2 ** 31, 2 ** 31, (5, 9)).astype(np.int32)
+        if trial == 1:
+            table[:, 4:] = table[:, 4:5]              # frequencies 0
+        table = torch.as_tensor(table, device=card)
+        args = (torch.as_tensor(rng.integers(-3, 12, (2, 77, N)).astype(
+                    np.int32), device=card),
+                torch.as_tensor(rng.integers(-2, 8, (2, 77, N)).astype(
+                    np.int32), device=card),
+                torch.as_tensor(rng.integers(0, N + 1, 77).astype(np.int32),
+                                device=card), table)
+        got = re_.rans_encode_all_multi(*args, num_lanes=N)
+        want = re_.rans_encode_all_multi_rowsync(*args, num_lanes=N)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_encode_counts_one_launch_a_call_and_chain_phase_repeats(card):
+    """A wrapper call counts one launch though the encode makes four; the
+    chain phase rerun alone (chain_phase) gives the encode's states, and
+    its register-only bound runs."""
+    table = cdf.build_cdf_table(cdf.default_gaussian_scale_table())
+    cdfs = torch.as_tensor(rd.prepare_device_cdf(table)[0], device=card)
+    vals, idxs = _blocks(np.random.default_rng(3), [300, 7, 129, 5000])
+    sym_rows, idx_rows, row_n = re_.blocks_to_rows(vals, idxs, 64)
+    syms = torch.as_tensor(np.stack([sym_rows] * 2), device=card).clamp(0, 3)
+    idx = torch.as_tensor(np.stack([idx_rows] * 2), device=card)
+    before = (re_.rans_encode_all.launches, re_.rans_encode_all_multi.launches)
+    _, _, states = re_.rans_encode_all_multi(syms, idx, row_n, cdfs,
+                                             num_lanes=64)
+    re_.rans_encode_all(syms[0], idx[0], row_n, cdfs, num_lanes=64)
+    assert (re_.rans_encode_all.launches,
+            re_.rans_encode_all_multi.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    chain = re_.chain_phase(syms, idx, row_n, cdfs)
+    assert torch.equal(chain(), states) and torch.equal(chain(), states)
+    re_.chain_phase(syms, idx, row_n, cdfs, registers_only=True)()
+    torch.cuda.synchronize()
 
 
 # ---- the lossless pixel head -----------------------------------------------
