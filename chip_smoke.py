@@ -28,16 +28,21 @@
    at N = 1, 16, 31, 32, 33, 48, 64, 100 and 128 with the latent and head
    tables: each image against the row-sync kernel, B = 1, 2, 3 and 6
    against the row-sync kernel and B single launches, and the plain
-   versions, byte for byte. Then it holds dense, conv_kxk_act and
-   mlp_res, the kernels on the tiled product core, bitwise (torch.equal)
-   against their oracle on the old core (dense_act; for the conv on
-   im2col_tapmajor's columns; for mlp_res two dense_act calls and the
-   residual) at synthetic ragged shapes: rows 1, 95 and 385, widths 24, 48,
-   96 and 2048, input channels 8, 10, 14, 48 and 96 at kernel sizes 1, 3 and
-   5, act on and off, dense also from unaligned rows; mlp_res at rows 1, 95
+   versions, byte for byte. Then it holds dense, conv_kxk_act, mlp_res,
+   dense_act and prior_head, the kernels on the tiled product core,
+   bitwise (same_bits) against their oracle on the old core (the _oldcore
+   entry points: dense_act_oldcore, for the conv on im2col_tapmajor's
+   columns, for mlp_res two calls and the residual; prior_head_oldcore)
+   at synthetic ragged shapes: rows 1, 95 and 385, widths 24, 48, 96 and
+   2048, input channels 8, 10, 14, 48 and 96 at kernel sizes 1, 3 and 5,
+   act on and off, dense also from unaligned rows; mlp_res at rows 1, 95
    and 385, widths 128, 192, 384 and 512, hidden ratios 1.5 to 4, one output
-   width unlike the input's, and once from unaligned rows. Then it holds
-   dw_ln_mod and dw_ln_affine, the depthwise stencil pair on the halo-tile
+   width unlike the input's, and once from unaligned rows; dense_act (also
+   dense_act_staged) and prior_head at rows 1, 95, 385 and 6144, depths 10 to 512, widths 24 to
+   2048 (prior_head: Z 1 to 192), act on and off, aligned and unaligned
+   rows, a NaN/inf row and an inf row, and six scale tables (the codecs',
+   ties, one entry, 65, shuffled, one past the shared-memory stage). Then
+   it holds dw_ln_mod and dw_ln_affine, the depthwise stencil pair on the halo-tile
    kernel, bitwise against the warp-per-pixel kernel (the _warp entry
    points) at synthetic ragged shapes: H and W of 1, 3, 5, 13 and 130, C of
    8, 40, 128, 200, 384 and 512, K of 1, 3, 5, 7, 9 and 31 (in bands of
@@ -53,18 +58,20 @@
 4. holds the seven portable-trunk kernels against their plain versions on
    the inputs the main path gives them (captured from one encode and
    decode of each image, every distinct shape), checks that a batch of two
-   gives the first image the bits it gets alone, holds dense and mlp_res
-   bitwise against the old core (as at every later captured shape, for
-   dense, conv_kxk_act and mlp_res, at B = 1 and B = 2) and dw_ln_mod (as
-   dw_ln_affine later) against the warp-per-pixel kernel, and times each
-   kernel, its plain version, for dense and mlp_res the old core
-   (old_core_ms), for the stencil pair the warp-per-pixel kernel
-   (warp_oracle_ms) and the two-call yardstick F.conv2d(groups=C) +
-   F.layer_norm (two_calls_ms), for dense torch.addmm (device times from
-   CUDA-graph replays, and the eager wrapper's time beside them); each qarv
-   decode
-   also reports its rANS decode launches' time and share of dec_ms, as
-   the qres34m and lossless phases do;
+   gives the first image the bits it gets alone, holds dense, mlp_res and
+   prior_head bitwise against the old core (as at every later captured
+   shape, for every kernel of CORE_NAMES, at B = 1 and B = 2) and dw_ln_mod
+   (as dw_ln_affine later) against the warp-per-pixel kernel, and times
+   each kernel, its plain version, for dense, mlp_res, dense_act and
+   prior_head the old core (old_core_ms), for prior_head its product alone
+   (product_ms: dense_act_staged on the same inputs), for dense_act with
+   its GELU pre-pass the one-launch design with the GELU on the staged
+   tile (staged_gelu_ms: dense_act_staged), for the stencil pair the warp-per-pixel kernel (warp_oracle_ms) and the
+   two-call yardstick F.conv2d(groups=C) + F.layer_norm (two_calls_ms),
+   for dense torch.addmm (device times from CUDA-graph replays, and the
+   eager wrapper's time beside them); each qarv decode also reports its
+   rANS decode launches' time and share of dec_ms, as the qres34m and
+   lossless phases do;
 5. holds the two multi-image rANS kernels against their plain versions and
    against B single-kernel launches at N = 16, 64 and 128 and B = 2, 3 and
    6, on random symbols at qarv_base size (the same block layout for every
@@ -103,9 +110,10 @@
    back exactly; compress / decompress bitwise against compress_check; a
    legacy round trip; the B = 2 request as in 7; every call's launches
    against the block list (the head: two 1x1 convs, nll_head, and on
-   decode nll_recon and a 13th rANS decode launch); nll_head, nll_recon
-   and the head's dense convs held against their plain versions at every
-   shape of one encode and decode, nll_head and nll_recon bitwise (also on
+   decode nll_recon and a 13th rANS decode launch); nll_head, nll_recon,
+   the head's dense convs and the trunk's mlp_res, dense_act and
+   prior_head held against their plain versions at every shape of one
+   encode and decode (the last three also against the old core), nll_head and nll_recon bitwise (also on
    photo1-sized synthetic inputs covering the head's table and the pixel
    grid's half-points), B = 1 against B = 2 bitwise, with their times; the
    head block's rANS decode time beside the latent blocks'; enc_ms /
@@ -231,8 +239,10 @@ QARV_BASE_BLOCKS = (3072, 12288, 12288, 147456, 147456, 147456,
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 # the kernels on the tiled product core (csrc/trunk.cu tiled_kernel), held
-# bitwise against their oracle on the old core (core_oracle) at every shape
-CORE_NAMES = ('dense', 'conv_kxk_act', 'mlp_res')
+# bitwise against their oracle on the old core (core_oracle) at every shape;
+# those whose old-core oracle is timed beside them (old_core_ms)
+CORE_NAMES = ('dense', 'conv_kxk_act', 'mlp_res', 'dense_act', 'prior_head')
+OLD_CORE_TIMED = ('dense', 'mlp_res', 'dense_act', 'prior_head')
 # the synthetic ragged shapes of that check: rows M (a B x H x W grid for
 # the conv), widths N, input channels Ci at kernel sizes K (dense: depth
 # K*K*Ci), act on and off
@@ -245,6 +255,16 @@ MLP_CO_CASE = (95, 384, 1536, 192)          # M, C, HID, CO
 # a hidden width that is no multiple of 4: fc2 from the 4-byte copies
 MLP_HID_RAGGED_CASE = (95, 128, 190, 128)
 CORE_SEED = 9
+# dense_act's and prior_head's synthetic shapes: rows M, depths C (10: the
+# 4-byte copies), dense_act's widths N, prior_head's latent widths Z (2Z
+# columns), act on and off, also from rows 4 bytes off 16; prior_head with
+# the codecs' table at every shape, with the other tables of prior_tables
+# at the PRIOR_TABLE_* subset; two rows of every input with M > 1 are
+# non-finite (one NaN, +inf and -inf; one +inf)
+DA_M, DA_C, DA_N = (1, 95, 385, 6144), (10, 48, 96, 256, 384, 512), \
+    (24, 48, 96, 2048)
+PRIOR_Z = (1, 16, 20, 28, 64, 192)
+PRIOR_TABLE_M, PRIOR_TABLE_C, PRIOR_TABLE_Z = (95, 385), (10, 96), (1, 20, 64)
 # the depthwise stencil pair (csrc/trunk.cu dw_tile_kernel), held bitwise
 # against the warp-per-pixel kernel (the _warp entry points) at every shape
 DW_NAMES = ('dw_ln_mod', 'dw_ln_affine')
@@ -1553,7 +1573,7 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
         for sig, args in inputs[name].items():
             got, err, worst, flips, flips_ok = compare_trunk_kernel(
                 torch, name, args)
-            core_ok = (core_bitwise(torch, name, args, got[0])
+            core_ok = (core_bitwise(torch, name, args, got)
                        if name in CORE_NAMES else None)
             warp_ok = (warp_bitwise(torch, name, args, got[0])
                        if name in DW_NAMES else None)
@@ -1742,36 +1762,148 @@ def graph_ms(torch, fn, inner, repeats=5):
 
 
 def core_oracle(torch, name, args):
-    """dense, conv_kxk_act or mlp_res computed by dense_act on the old
-    product core (gemm_kernel): dense as dense_act without its GELU, the
-    conv as dense_act on im2col_tapmajor's columns, mlp_res as fc1 without
-    a GELU, then fc2 with the GELU on its input (the value mlp_res's fc1
-    epilogue stores), then shortcut + y * gamma (two roundings, as the
-    kernel's epilogue). Each output's sum is the same fmaf chain on both
-    cores, so the tiled core must match it bitwise."""
+    """A kernel of CORE_NAMES computed on the old product core
+    (gemm_kernel, the _oldcore entry points): dense_act and prior_head as
+    they are, dense as dense_act without its GELU, the conv as dense_act on
+    im2col_tapmajor's columns, mlp_res as fc1 without a GELU, then fc2
+    with the GELU on its input (the value mlp_res's fc1 epilogue stores),
+    then shortcut + y * gamma (two roundings, as the kernel's epilogue).
+    Each output's sum is the same fmaf chain on both cores, so the tiled
+    core must match it bitwise."""
     from lvae_tpu_torch.ops import trunk
+    if name == 'dense_act':
+        return trunk.dense_act_oldcore(*args)
+    if name == 'prior_head':
+        return trunk.prior_head_oldcore(*args)
     if name == 'dense':
         x, w, b = args
-        return trunk.dense_act(x, w, b, False)
+        return trunk.dense_act_oldcore(x, w, b, False)
     if name == 'mlp_res':
         t, w1, b1, w2, b2, gamma, shortcut = args
-        y = trunk.dense_act(trunk.dense_act(t, w1, b1, False), w2, b2, True)
+        y = trunk.dense_act_oldcore(trunk.dense_act_oldcore(t, w1, b1, False),
+                                    w2, b2, True)
         return shortcut + y * gamma
     x, wk, b = args[:3]
     act = args[3] if len(args) > 3 else True
     B, H, W, Ci = x.shape
     K, Co = wk.shape[0], wk.shape[-1]
     cols = trunk.im2col_tapmajor(x, K)
-    return trunk.dense_act(cols, wk.reshape(K * K * Ci, Co), b,
-                           act).reshape(B, H, W, Co)
+    return trunk.dense_act_oldcore(cols, wk.reshape(K * K * Ci, Co), b,
+                                   act).reshape(B, H, W, Co)
+
+
+def same_bits(torch, a, b):
+    """Whether two tensors hold the same bits, NaNs and the sign of zero
+    included (torch.equal calls a NaN unequal to itself)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
 
 
 def core_bitwise(torch, name, args, got=None):
-    """Whether the kernel's output equals core_oracle's, bit for bit."""
+    """Whether the kernel's outputs (one tensor or a tuple) equal
+    core_oracle's, bit for bit."""
     from lvae_tpu_torch.ops import trunk
     if got is None:
         got = getattr(trunk, name)(*args)
-    return bool(torch.equal(got, core_oracle(torch, name, args)))
+    want = core_oracle(torch, name, args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        same_bits(torch, g, w) for g, w in zip(got, want))
+
+
+def prior_table_smem():
+    """The largest scale table prior_head's tiled kernel stages in shared
+    memory, read from its source (csrc/trunk.cu PRIOR_TABLE_SMEM)."""
+    import re
+    with open(os.path.join(ROOT, 'lvae_tpu_torch', 'csrc', 'trunk.cu')) as f:
+        src = f.read()
+    return int(re.search(r'constexpr int PRIOR_TABLE_SMEM = (\d+);',
+                         src).group(1))
+
+
+def prior_tables(np, seed=CORE_SEED):
+    """prior_head's synthetic scale tables, by label (float32): the codecs'
+    64 entries; 64 with every value twice (ties); one entry; 65 (the
+    run-time count); the codecs' in a shuffled order (the count needs no
+    order); one entry past what the kernel stages in shared memory (counted
+    from global memory)."""
+    from lvae_tpu_torch.ops import cdf
+    codec = cdf.default_gaussian_scale_table()
+    return {k: v.astype(np.float32) for k, v in {
+        'codec': codec, 'ties': np.repeat(codec[::2], 2), 'one': codec[:1],
+        's65': cdf.default_gaussian_scale_table(n=65),
+        'shuffled': np.random.default_rng(seed).permutation(codec),
+        'past_smem': cdf.default_gaussian_scale_table(
+            n=prior_table_smem() + 1)}.items()}
+
+
+def check_prior_dense_act_synthetic(torch, device):
+    """dense_act (also dense_act_staged, the GELU on the staged tile) and
+    prior_head against their _oldcore oracles, bitwise (same_bits: pm, the
+    scale indexes and the non-finite rows), at every M of DA_M, C of DA_C,
+    act on and off, from aligned rows and rows 4 bytes off 16: dense_act at
+    every N of DA_N, prior_head at every Z of PRIOR_Z with the codecs'
+    table and, at the PRIOR_TABLE_* subset, with every other table of
+    prior_tables. Weights at a scale and the index columns' biases spread
+    over -4 .. 5, so that the scales cover the tables and pass both of
+    their ends. -> (cases, mismatches, calls of the counted wrappers)."""
+    import itertools
+    from lvae_tpu_torch.ops import trunk
+    g = torch.Generator(device=device).manual_seed(CORE_SEED)
+    tables = {k: torch.as_tensor(v, device=device)
+              for k, v in prior_tables(np).items()}
+
+    def f(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    def rows(M, C, unaligned):
+        x = f(M * C + 1)[1:] if unaligned else f(M * C)
+        x = x.reshape(1, M, C)
+        if M > 1:                       # the non-finite rows
+            x[0, M // 2, :3] = torch.tensor(
+                [math.nan, math.inf, -math.inf], device=device)[:C]
+            x[0, M - 1, 0] = math.inf
+        return x
+
+    cases, bad, counted = 0, [], 0
+    for M, C in itertools.product(DA_M, DA_C):
+        xs = {u: rows(M, C, u) for u in (False, True)}
+        for N in DA_N:
+            w, b = f(C, N, scale=C ** -0.5), f(N, scale=0.1)
+            for (u, x), act in itertools.product(xs.items(), (True, False)):
+                args = (x, w, b, act)
+                for staged in (False, True):
+                    cases += 1
+                    counted += not staged
+                    got = trunk.dense_act_staged(*args) if staged else None
+                    if not core_bitwise(torch, 'dense_act', args, got):
+                        bad.append(dict(kernel='dense_act', M=M, C=C, N=N,
+                                        act=act, unaligned=u, staged=staged))
+        for Z in PRIOR_Z:
+            w = f(C, 2 * Z, scale=1.5 * C ** -0.5)
+            b = torch.cat([f(Z, scale=0.1),
+                           torch.rand(Z, generator=g, device=device) * 9 - 4])
+            labels = (tables if M in PRIOR_TABLE_M and C in PRIOR_TABLE_C
+                      and Z in PRIOR_TABLE_Z else ('codec',))
+            for (u, x), act, label in itertools.product(
+                    xs.items(), (True, False), labels):
+                cases += 1
+                counted += 1
+                args = (x, w, b, tables[label], act)
+                if not core_bitwise(torch, 'prior_head', args):
+                    bad.append(dict(kernel='prior_head', M=M, C=C, Z=Z,
+                                    act=act, unaligned=u, table=label))
+    # the scales pass both ends of the table: on the finite rows of the
+    # last case the first and the last index occur
+    _, idx = trunk.prior_head(xs[False], w, b, tables['codec'], True)
+    ends = [int(idx[0, :M // 2].min()), int(idx[0, :M // 2].max())]
+    require(ends == [0, 63], f'prior_head synthetic scales reach indexes '
+                             f'{ends} only')
+    return cases, bad, counted + 1
 
 
 def check_core_synthetic(torch, device):
@@ -1819,6 +1951,9 @@ def check_core_synthetic(torch, device):
         if not core_bitwise(torch, 'mlp_res', args):
             bad.append(dict(kernel='mlp_res', M=M, C=C, HID=HID, CO=CO,
                             unaligned=unaligned))
+    more, more_bad, _ = check_prior_dense_act_synthetic(torch, device)
+    cases += more
+    bad += more_bad
     progress(f'tiled core, synthetic shapes: {cases} cases, {len(bad)} not '
              f'bitwise equal to the old core')
     require(not bad, f'tiled core not bitwise equal to the old core at '
@@ -1826,9 +1961,18 @@ def check_core_synthetic(torch, device):
     return dict(cases=cases, bitwise=True, M=list(CORE_M), N=list(CORE_N),
                 Ci=list(CORE_CI), K=list(CORE_K), acts=[True, False],
                 mlp_res_shapes=[list(m) for m in mlp],
-                oracle='dense_act on the old core (conv: on '
-                       'im2col_tapmajor columns; mlp_res: fc1, then fc2 '
-                       'with the GELU on its input, then the residual)')
+                dense_act_prior_head=dict(
+                    cases=more, M=list(DA_M), C=list(DA_C), N=list(DA_N),
+                    Z=list(PRIOR_Z), tables={k: len(v) for k, v in
+                                             prior_tables(np).items()},
+                    table_subset=dict(M=list(PRIOR_TABLE_M),
+                                      C=list(PRIOR_TABLE_C),
+                                      Z=list(PRIOR_TABLE_Z)),
+                    non_finite_rows='M // 2: NaN, +inf, -inf; M - 1: +inf'),
+                oracle='dense_act_oldcore (conv: on im2col_tapmajor '
+                       'columns; mlp_res: fc1, then fc2 with the GELU on '
+                       'its input, then the residual); prior_head: '
+                       'prior_head_oldcore')
 
 
 def warp_oracle(name):
@@ -1905,6 +2049,25 @@ def check_dw_synthetic(torch, device):
                        'trunk_dw_ln_affine_warp)')
 
 
+def product_times(torch, name, args):
+    """(product_ms, staged_gelu_ms) of one main-path call, device times of
+    dense_act_staged on the same (x, w, b, act): for prior_head its product
+    without the index epilogue (its GELU on the staged tile, as prior_head
+    applies it); for dense_act with its GELU, the one-launch design that
+    its pre-pass was measured against; else None."""
+    from lvae_tpu_torch.ops import trunk
+    if name == 'prior_head':
+        x, w, b = args[:3]
+        act = args[4] if len(args) > 4 else False
+        return graph_ms(torch, lambda: trunk.dense_act_staged(x, w, b, act),
+                        TRUNK_INNER), None
+    if name == 'dense_act' and (args[3] if len(args) > 3 else True):
+        x, w, b = args[:3]
+        return None, graph_ms(torch, lambda: trunk.dense_act_staged(
+            x, w, b, True), TRUNK_INNER)
+    return None, None
+
+
 def check_trunk_kernels(torch, names, cases):
     """Each trunk kernel of `names` against its plain version on the card at
     every main-path shape, the B=1 vs B=2 bitwise check, and the times. The
@@ -1943,8 +2106,8 @@ def check_trunk_kernels(torch, names, cases):
             two = two if isinstance(two, tuple) else (two,)
             batch_ok = all(torch.equal(t[:1], g) for t, g in zip(two, got))
             # the tiled core against the old one, at B = 1 and B = 2
-            core_ok = (core_bitwise(torch, name, args, got[0])
-                       and core_bitwise(torch, name, args2, two[0])
+            core_ok = (core_bitwise(torch, name, args, got)
+                       and core_bitwise(torch, name, args2, two)
                        if name in CORE_NAMES else None)
             # the stencil pair against its warp-per-pixel kernel, likewise
             warp_ok = (warp_bitwise(torch, name, args, got[0])
@@ -1957,10 +2120,11 @@ def check_trunk_kernels(torch, names, cases):
             eager_ms = per_call_ms(torch, lambda: fn(*args), TRUNK_INNER)
             plain_ms = graph_ms(torch, lambda: plain(*args),
                                 TRUNK_PLAIN_INNER, repeats=3)
-            # dense and mlp_res on the old core: their oracles' device time
+            # the old core: the oracles' device time
             old_core_ms = (graph_ms(torch, lambda: core_oracle(
                 torch, name, args), TRUNK_INNER)
-                if name in ('dense', 'mlp_res') else None)
+                if name in OLD_CORE_TIMED else None)
+            product_ms, staged_gelu_ms = product_times(torch, name, args)
             library_ms = warp_ms = two_calls_ms = None
             lib = library_call(torch, name, args)
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -1983,6 +2147,7 @@ def check_trunk_kernels(torch, names, cases):
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
                 core_bitwise=core_ok, warp_bitwise=warp_ok, ms=ms,
                 eager_ms=eager_ms, old_core_ms=old_core_ms,
+                product_ms=product_ms, staged_gelu_ms=staged_gelu_ms,
                 warp_oracle_ms=warp_ms, plain_ms=plain_ms,
                 library_ms=library_ms, two_calls_ms=two_calls_ms,
                 bytes=nbytes, ops=ops,
@@ -2016,6 +2181,7 @@ def check_trunk_kernels(torch, names, cases):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / SCALAR_OPS_PER_S * 1e3
         lib_rows = [r for r in shapes if r['library_ms'] is not None]
+        staged_rows = [r for r in shapes if r['staged_gelu_ms'] is not None]
         results[name] = dict(
             ms=per_image('ms'), encode_ms=per_image('ms', dec=0),
             decode_ms=per_image('ms', enc=0), plain_ms=per_image('plain_ms'),
@@ -2028,7 +2194,13 @@ def check_trunk_kernels(torch, names, cases):
             kernel_ms_where_library=per_image('ms', rows=lib_rows)
             if lib_rows else None,
             **({'old_core_ms': per_image('old_core_ms')}
-               if name in ('dense', 'mlp_res') else {}),
+               if name in OLD_CORE_TIMED else {}),
+            **({'product_ms': per_image('product_ms')}
+               if name == 'prior_head' else {}),
+            **({'staged_gelu_ms': per_image('staged_gelu_ms',
+                                            rows=staged_rows),
+                'kernel_ms_where_staged': per_image('ms', rows=staged_rows)}
+               if staged_rows else {}),
             **({'core_bitwise_shapes': len(shapes)}
                if name in CORE_NAMES else {}),
             **({'warp_oracle_ms': per_image('warp_oracle_ms'),
@@ -2427,9 +2599,10 @@ def run_lossless(torch, tmpdir):
 
     # 4. the head's kernels at every shape of one photo1 encode + decode
     # (nll_head, nll_recon bitwise; the head's dense convs and the trunk's
-    # mlp_res as in the qres phase) and on photo1-sized synthetic inputs
-    kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + ('dense',
-                                                          'mlp_res'), [
+    # mlp_res, dense_act and prior_head as in the qres phase) and on
+    # photo1-sized synthetic inputs
+    kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + (
+        'dense', 'mlp_res', 'dense_act', 'prior_head'), [
         ('photo1', lambda: model.compress(im), model.decompress)])
     for name in LOSSLESS_TRUNK:
         require_bitwise(name, kernels[name]['by_shape'])
@@ -2832,8 +3005,9 @@ def main():
                        else f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}'),
             ms=r['ms'], encode_ms=r['encode_ms'], decode_ms=r['decode_ms'],
             eager_ms=r['eager_ms'],
-            **({'old_core_ms': r['old_core_ms']} if 'old_core_ms' in r
-               else {}),
+            **{k: r[k] for k in ('old_core_ms', 'product_ms',
+                                 'staged_gelu_ms', 'kernel_ms_where_staged')
+               if k in r},
             **(dict(warp_oracle_ms=r['warp_oracle_ms'],
                     two_calls_ms=r['two_calls_ms'],
                     two_calls='F.conv2d(groups=C) + F.layer_norm, TF32 off'

@@ -29,12 +29,14 @@
 // The matrix products run on two exact-float32 SIMT cores, no tensor cores
 // (TF32 keeps ~3 digits, and 3xTF32 or FP64 DMMA would change the bits):
 // - gemm_kernel, one 64x64 shared-memory tile with a single buffer:
-//   prior_head, fuse_zproj, dense_act, zadd_dense and res_dense_act, and
-//   the oracle of the other core;
+//   fuse_zproj, zadd_dense and res_dense_act, and the oracle of the other
+//   core (the _oldcore entry points of dense_act and prior_head);
 // - tiled_kernel, built for the H100: tile shapes chosen by (M, N) so that
 //   the grid fills the SMs and no column is wasted, a 3-stage cp.async ring,
-//   and an implicit-conv loader without per-element division: dense,
-//   conv_kxk_act and mlp_res's two products.
+//   an implicit-conv loader without per-element division, a GELU applied to
+//   the staged A tile in shared memory, and prior_head's scale table staged
+//   in shared memory for its index epilogue: dense, conv_kxk_act, mlp_res's
+//   two products, dense_act and prior_head.
 // Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
 // (padded steps add fmaf(0, 0, acc)), so they give the same bits; tiling
 // only moves which thread runs a chain, which may follow M (so the batch
@@ -169,7 +171,7 @@ struct LoadRows {            // x[m, k]
         return __ldg(x + (long long)m * K + k);
     }
 };
-struct LoadGeluRows {        // gelu(x[m, k]): prior_head(act=True)
+struct LoadGeluRows {        // gelu(x[m, k]): res_dense_act, the oracles
     const float* x; int K;
     __device__ float operator()(int m, int k) const {
         return gelu_as(__ldg(x + (long long)m * K + k));
@@ -260,10 +262,18 @@ cudaError_t launch_gemm(int M, int N, int K, Load load, const float* w,
 //   stride and the pointers allow, else 4-byte ones; src-size 0 zero-fills
 //   the taps off the image and the ragged M, N and K edges). Step s + 2's
 //   copies are issued before step s's FMAs, one barrier a step.
-// - Operand sources. DenseSrc reads rows of x; ConvSrc is the implicit K x K
-//   conv: each tile row's pixel (b, h, w) is decoded once before the K loop
-//   and each thread walks its depth k = (di*K + dj)*Ci + ci as a (tap,
-//   channel) cursor advanced by adds, no per-element division.
+// - Operand sources. DenseSrc reads rows of x; GeluRowSrc too, and each
+//   thread then rewrites the A elements it copied itself as gelu_as of
+//   them, once its own copies of the step have landed and before the
+//   step's barrier (gelu_as(+0) == +0: the zero-filled edges stay +0, as
+//   gemm_kernel's); ConvSrc is the implicit K x K conv: each tile row's
+//   pixel (b, h, w) is decoded once before the K loop and each thread
+//   walks its depth k = (di*K + dj)*Ci + ci as a (tap, channel) cursor
+//   advanced by adds, no per-element division.
+// - Epilogue hook. A store functor with a prepare(tid, threads) member
+//   (StorePriorStaged) gets the ring's shared memory once the last copy has
+//   landed and every thread is past the K loop, and stages what its stores
+//   read there.
 // ---------------------------------------------------------------------------
 
 constexpr int PK = BK;          // K step: gemm_kernel's, so the same padding
@@ -293,8 +303,11 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// A operand: rows of x (M, K)
-struct DenseSrc {
+// A operand: rows of x (M, K); ACT: gelu_as of them, applied in shared
+// memory (tiled_kernel)
+template <bool ACT>
+struct RowSrc {
+    static constexpr bool GELU = ACT;
     const float* x; int M, K;
     struct Row { int m; };
     struct Cursor { int k; };
@@ -307,10 +320,13 @@ struct DenseSrc {
     }
     __device__ void advance(Cursor& c) const { c.k += PK; }
 };
+using DenseSrc = RowSrc<false>;
+using GeluRowSrc = RowSrc<true>;
 
 // A operand of conv_kxk_act: x[b, h+di-p, w+dj-p, ci] (0 off the image) at
 // k = (di*K + dj)*Ci + ci, from the NHWC feature x (B, H, W, Ci)
 struct ConvSrc {
+    static constexpr bool GELU = false;
     const float* x; int M, H, W, Ci, K, Ktot;
     struct Row { int m, h, w; };       // h out of range for m >= M
     struct Cursor { int k, ci, di, dj; };
@@ -339,6 +355,77 @@ struct ConvSrc {
             if (++c.dj == K) { c.dj = 0; ++c.di; }
         }
     }
+};
+
+// The block's dynamic shared memory (tiled_kernel's ring), for the epilogue
+__device__ __forceinline__ float* dyn_smem() {
+    extern __shared__ __align__(16) float smem[];
+    return smem;
+}
+
+// #(tb[i] < pv) over a table of S entries, in four independent integer
+// counts (an integer count is the same in any order: the table need not be
+// sorted); S_ > 0 unrolls a compile-time size
+template <int S_>
+__device__ __forceinline__ int count_below(const float* tb, int S, float pv) {
+    const int n = S_ > 0 ? S_ : S;
+    int c0 = 0, c1 = 0, c2 = 0, c3 = 0, i = 0;
+#pragma unroll
+    for (; i + 4 <= n; i += 4) {
+        c0 += tb[i] < pv;
+        c1 += tb[i + 1] < pv;
+        c2 += tb[i + 2] < pv;
+        c3 += tb[i + 3] < pv;
+    }
+    for (; i < n; ++i) c0 += tb[i] < pv;
+    return (c0 + c1) + (c2 + c3);
+}
+
+// prior_head's epilogue on the tiled core: StorePrior's outputs, bit for
+// bit (the same float operations under -fmad=false, the same count), with
+// the table staged once a block into the ring's shared memory (a
+// broadcast read for every lane) where it holds at most PRIOR_TABLE_SMEM
+// entries, else counted from global memory; the codecs' 64-entry table
+// (default_gaussian_scale_table) counts fully unrolled.
+constexpr int PRIOR_TABLE_SMEM = 2048;  // <= the smallest tile's ring (2,400)
+constexpr int CODEC_TABLE = 64;
+struct StorePriorStaged {
+    float* pm; int* idx; const float* b; const float* table; int S; int Z;
+    static constexpr int SMEM_FLOATS = PRIOR_TABLE_SMEM;
+    __device__ void prepare(int tid, int threads) const {
+        if (S > PRIOR_TABLE_SMEM) return;
+        float* tb = dyn_smem();
+        for (int i = tid; i < S; i += threads) tb[i] = __ldg(table + i);
+    }
+    __device__ void operator()(int m, int n, float acc) const {
+        const float v = acc + b[n];
+        if (n < Z) {
+            pm[(long long)m * Z + n] = v;
+            return;
+        }
+        const float pv = expf(softplus_ref(v + 2.3f) - 2.3f);
+        const float* tb = dyn_smem();
+        int count;
+        if (S == CODEC_TABLE) {
+            const float p = fmaxf(pv, tb[0]);
+            count = count_below<CODEC_TABLE>(tb, S, p);
+        } else if (S <= PRIOR_TABLE_SMEM) {
+            const float p = fmaxf(pv, tb[0]);
+            count = count_below<0>(tb, S, p);
+        } else {
+            const float p = fmaxf(pv, __ldg(table));
+            count = count_below<0>(table, S, p);
+        }
+        idx[(long long)m * Z + (n - Z)] = min(count, S - 1);
+    }
+};
+
+// whether a store functor has an epilogue prepare(tid, threads) step
+template <class S, class = void>
+struct HasPrepare { static constexpr bool value = false; };
+template <class S>
+struct HasPrepare<S, decltype(void(&S::prepare))> {
+    static constexpr bool value = true;
 };
 
 // A tile shape: BM x BN outputs a block, TM x TN a thread; MINB blocks an
@@ -418,6 +505,20 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
 
     for (int kt = 0; kt < nk; ++kt) {
         cp_async_wait<STAGES - 2>();   // step kt's copies have landed
+        if constexpr (ASrc::GELU) {    // this thread's own A copies of it
+            float* As = smem + (kt % STAGES) * STAGE;
+#pragma unroll
+            for (int i = 0; i < A_PASSES; ++i) {
+                const int r = r0 + i * RPP;
+                if (BM % RPP == 0 || r < BM) {
+#pragma unroll
+                    for (int v = 0; v < V; ++v) {
+                        float* p = As + r * PLD + kc + v;
+                        *p = gelu_as(*p);
+                    }
+                }
+            }
+        }
         __syncthreads();               // ... for every thread, and step
                                        // kt - 1's slot is free
         if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES);
@@ -480,6 +581,12 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
         }
     }
     cp_async_wait<0>();                // no copy outlives the block
+    if constexpr (HasPrepare<Store>::value) {
+        static_assert(STAGES * STAGE >= Store::SMEM_FLOATS, "");
+        __syncthreads();               // every thread is past the ring
+        store.prepare(tid, THREADS);
+        __syncthreads();
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
         const int gm = m0 + ty + i * TY;
@@ -569,7 +676,47 @@ cudaError_t dispatch_tiled(int M, int N, int K, ASrc a, const float* w,
 #undef TILE
 }
 
+// prior_head's tiles, fitted on the card at its main-path shapes (PERF.md
+// PR 13): 2x2 or 2x3 outputs a thread, so that the index epilogue (~200
+// operations an index output, expf, logf and the 64-entry count) spreads
+// over 128-256 threads a block; 16x32 while the outputs an SM holds stay
+// under ~3k, then 32x48 where N divides (qarv_base's 1536 x 384 -> 384
+// head: 6 index outputs a thread where dispatch_tiled's 32x48 tile gave 24)
+// and 32x32.
+template <int V, class ASrc>
+cudaError_t dispatch_prior(int M, int N, int K, ASrc a, const float* w,
+                           StorePriorStaged st, cudaStream_t s) {
+    if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+    int dev, sms;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    const double per_sm = (double)M * N / sms;
+    if (per_sm <= 3000)
+        return launch_tiled<Tile<16, 32, 2, 2>, V>(M, N, K, a, w, st, s);
+    if (N % 48 == 0)
+        return launch_tiled<Tile<32, 48, 2, 3>, V>(M, N, K, a, w, st, s);
+    return launch_tiled<Tile<32, 32, 2, 2>, V>(M, N, K, a, w, st, s);
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// x (M, K) rows through Src (DenseSrc or GeluRowSrc) @ wt (N, K) on the
+// tiled core: 16-byte copies where K and both pointers allow, else 4-byte
+template <class Src, class Store>
+cudaError_t dispatch_rows(const float* x, int M, int N, int K,
+                          const float* wt, Store st, cudaStream_t s) {
+    const Src src{x, M, K};
+    const bool v4 = K % 4 == 0 && aligned16(x) && aligned16(wt);
+    if constexpr (HasPrepare<Store>::value)
+        return v4 ? dispatch_prior<4>(M, N, K, src, wt, st, s)
+                  : dispatch_prior<1>(M, N, K, src, wt, st, s);
+    else
+        return v4 ? dispatch_tiled<4>(M, N, K, src, wt, st, s)
+                  : dispatch_tiled<1>(M, N, K, src, wt, st, s);
+}
 
 // gelu_as once per element: conv_kxk_act's pre-pass (bitwise the value its
 // loader used to compute per tap; gelu_as(+0) == +0 equals an off-image tap)
@@ -1336,18 +1483,14 @@ extern "C" int trunk_mlp_res(const void* t, int M, int C, int HID, int CO,
                              int device, void* stream) {
     TRY(set_device(device));
     const cudaStream_t st = (cudaStream_t)stream;
-    const DenseSrc src1{x_f(t), M, C};
-    const StoreBiasGelu store1{(float*)hidden, x_f(b1), HID};
-    if (C % 4 == 0 && aligned16(t) && aligned16(w1t))
-        TRY(dispatch_tiled<4>(M, HID, C, src1, x_f(w1t), store1, st));
-    else
-        TRY(dispatch_tiled<1>(M, HID, C, src1, x_f(w1t), store1, st));
-    const DenseSrc src2{(const float*)hidden, M, HID};
-    const StoreLayerScaleRes store2{(float*)out, x_f(b2), x_f(gamma),
-                                    x_f(shortcut), CO};
-    if (HID % 4 == 0 && aligned16(hidden) && aligned16(w2t))
-        return (int)dispatch_tiled<4>(M, CO, HID, src2, x_f(w2t), store2, st);
-    return (int)dispatch_tiled<1>(M, CO, HID, src2, x_f(w2t), store2, st);
+    TRY(dispatch_rows<DenseSrc>(x_f(t), M, HID, C, x_f(w1t),
+                                StoreBiasGelu{(float*)hidden, x_f(b1), HID},
+                                st));
+    return (int)dispatch_rows<DenseSrc>(
+        (const float*)hidden, M, CO, HID, x_f(w2t),
+        StoreLayerScaleRes{(float*)out, x_f(b2), x_f(gamma), x_f(shortcut),
+                           CO},
+        st);
 }
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:257 dense, on the tiled core. wt
@@ -1362,24 +1505,47 @@ extern "C" int trunk_dense(const void* x, int M, int C, int CO,
                            const void* wt, const void* b, void* out,
                            int device, void* stream) {
     TRY(set_device(device));
-    const DenseSrc src{x_f(x), M, C};
-    const StoreBias store{(float*)out, x_f(b), CO};
-    if (C % 4 == 0 && aligned16(x) && aligned16(wt))
-        return (int)dispatch_tiled<4>(M, CO, C, src, x_f(wt), store,
-                                      (cudaStream_t)stream);
-    return (int)dispatch_tiled<1>(M, CO, C, src, x_f(wt), store,
-                                  (cudaStream_t)stream);
+    return (int)dispatch_rows<DenseSrc>(x_f(x), M, CO, C, x_f(wt),
+                                        StoreBias{(float*)out, x_f(b), CO},
+                                        (cudaStream_t)stream);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:302 prior_head. wt (2Z, C); table
-// (S,) ascending scales; act != 0 applies GELU to x first. Bound: bytes
-// (N = 2Z <= 192 outputs a row from C inputs); x is read once per 64
-// output columns (one to three times, the repeats from L2), and the 64-entry
-// compare-count reads the table through the read-only cache.
+// Replaces lvae_tpu/ops/pallas/trunk.py:302 prior_head, on the tiled core.
+// wt (2Z, C); table (S,) scales (the count needs no order); act != 0
+// applies GELU to x first, on the staged A tile (GeluRowSrc). Bound:
+// operations on qarv_base (C = 256-512 into 2Z = 32-384: the product's
+// flops lead, with log2(S) compares an index), bytes on qres34m (C = 48 or
+// 96 into 2Z <= 64). The old core ran a serial loop of 64 dependent table
+// loads through the read-only cache per index output (~20 us a launch,
+// whatever M); StorePriorStaged stages the table in shared memory once a
+// block and counts unrolled in four independent counts, and dispatch_prior
+// gives a thread at most 4 index outputs (6 at 1536 x 384 -> 384). On an
+// H100 the epilogue then costs 1.6-3.7 us over the product alone at
+// qarv_base's shapes, ~7 us at qres34m's 24576 rows (PERF.md PR 13).
 extern "C" int trunk_prior_head(const void* x, int M, int C, int Z,
                                 const void* wt, const void* b,
                                 const void* table, int S, int act, void* pm,
                                 void* idx, int device, void* stream) {
+    if (S < 1 || Z < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const StorePriorStaged store{(float*)pm, (int*)idx, x_f(b), x_f(table),
+                                 S, Z};
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (act)
+        return (int)dispatch_rows<GeluRowSrc>(x_f(x), M, 2 * Z, C, x_f(wt),
+                                              store, st);
+    return (int)dispatch_rows<DenseSrc>(x_f(x), M, 2 * Z, C, x_f(wt), store,
+                                        st);
+}
+
+// prior_head on the old core (gemm_kernel, StorePrior: the table through
+// the read-only cache, GELU in the A-tile load): the tiled core's bitwise
+// oracle (chip_smoke.py, tests/test_torch_cuda.py), not on the main path.
+extern "C" int trunk_prior_head_oldcore(const void* x, int M, int C, int Z,
+                                        const void* wt, const void* b,
+                                        const void* table, int S, int act,
+                                        void* pm, void* idx, int device,
+                                        void* stream) {
     if (S < 1 || Z < 1) return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
     const StorePrior store{(float*)pm, (int*)idx, (const float*)b,
@@ -1452,13 +1618,60 @@ extern "C" int trunk_dw_ln_affine_warp(const void* x, int B, int H, int W,
                                  (float*)out, (cudaStream_t)stream);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:520 dense_act: (gelu(x) or x) @ w +
-// b, the VDBlock 1x1 convs. wt (CO, C). Bound: operations at C = 384
-// (M x 384 x 96), bytes at the 96- and 48-channel convs; the GELU is folded
-// into the A-tile load.
+// gelu_as of n floats of `in` into `scratch`, one launch (16-byte accesses
+// where n and both pointers allow): the pre-pass of conv_kxk_act and
+// dense_act
+static cudaError_t gelu_prepass(const float* in, long long n, void* scratch,
+                                cudaStream_t st) {
+    if (n % 4 == 0 && aligned16(in) && aligned16(scratch))
+        gelu_kernel<<<elementwise_blocks(n / 4), 256, 0, st>>>(
+            (const float4*)in, n / 4, (float4*)scratch);
+    else
+        gelu1_kernel<<<elementwise_blocks(n), 256, 0, st>>>(in, n,
+                                                            (float*)scratch);
+    return cudaGetLastError();
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:520 dense_act, on the tiled core:
+// (gelu(x) or x) @ w + b, the VDBlock 1x1 convs. wt (CO, C). Bound:
+// operations at C = 384 (M x 384 x 96), bytes at the 96- and 48-channel
+// convs. The old core ran one 16-deep K step a barrier pair with no copy in
+// flight on 2-48 blocks (~2 us a step: 45-48 us at C = 384 for any M up to
+// 1536); the tiled core keeps two steps' copies in flight on tiles that
+// fill the SMs. act with a `scratch` of M*C floats: gelu_prepass, then the
+// product, two device launches (the main path); act without one: gelu_as
+// on the staged A tile (GeluRowSrc, one launch; prior_head's product, the
+// yardstick of the pre-pass). On an H100 the staged GELU sits between
+// each K step's wait and barrier, on the step's critical path: ~0.5 us a
+// step at C = 384 (24-26 us a launch against the pre-pass's 11-14 at M <=
+// 1536); it is ahead only at 24576 x 192 -> 48, 27 us against 32, where
+// the pre-pass moves 38 MB more (PERF.md PR 13). What holds the pre-pass
+// back is the tiled core itself: ~0.4 us a K step at 6-96 blocks.
 extern "C" int trunk_dense_act(const void* x, int M, int C, int CO,
                                const void* wt, const void* b, int act,
-                               void* out, int device, void* stream) {
+                               void* scratch, void* out, int device,
+                               void* stream) {
+    TRY(set_device(device));
+    const StoreBias store{(float*)out, x_f(b), CO};
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (act && !scratch)
+        return (int)dispatch_rows<GeluRowSrc>(x_f(x), M, CO, C, x_f(wt),
+                                              store, st);
+    const float* in = x_f(x);
+    if (act) {
+        if (M < 1 || C < 1) return (int)cudaErrorInvalidValue;
+        TRY(gelu_prepass(in, (long long)M * C, scratch, st));
+        in = x_f(scratch);
+    }
+    return (int)dispatch_rows<DenseSrc>(in, M, CO, C, x_f(wt), store, st);
+}
+
+// dense_act on the old core (gemm_kernel, the GELU in the A-tile load): the
+// bitwise oracle of every product on the tiled core (chip_smoke.py
+// core_oracle, tests/test_torch_cuda.py), not on the main path.
+extern "C" int trunk_dense_act_oldcore(const void* x, int M, int C, int CO,
+                                       const void* wt, const void* b, int act,
+                                       void* out, int device, void* stream) {
     TRY(set_device(device));
     const StoreBias store{(float*)out, x_f(b), CO};
     if (act)
@@ -1497,14 +1710,7 @@ extern "C" int trunk_conv_kxk_act(const void* x, int B, int H, int W, int Ci,
     const int M = B * H * W;
     const float* in = x_f(x);
     if (act) {
-        const long long n = (long long)M * Ci;
-        if (n % 4 == 0 && aligned16(in) && aligned16(scratch))
-            gelu_kernel<<<elementwise_blocks(n / 4), 256, 0, st>>>(
-                (const float4*)in, n / 4, (float4*)scratch);
-        else
-            gelu1_kernel<<<elementwise_blocks(n), 256, 0, st>>>(
-                in, n, (float*)scratch);
-        TRY(cudaGetLastError());
+        TRY(gelu_prepass(in, (long long)M * Ci, scratch, st));
         in = (const float*)scratch;
     }
     const ConvSrc src{in, M, H, W, Ci, K, K * K * Ci};

@@ -61,13 +61,16 @@ _SIGNATURES = {
     'trunk_dense': [_P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_prior_head': [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
                          _P],
+    'trunk_prior_head_oldcore': [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
+                                 _I, _P],
     'trunk_fuse_zproj': [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_finish_image': [_P, _LL, _P, _I, _P],
     'trunk_dw_ln_affine': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _P],
     'trunk_dw_ln_affine_warp': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                 _I, _P],
-    'trunk_dense_act': [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P],
+    'trunk_dense_act': [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P],
+    'trunk_dense_act_oldcore': [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P],
     'trunk_conv_kxk_act': [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
                            _I, _P],
     'trunk_zadd_dense': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],

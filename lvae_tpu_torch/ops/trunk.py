@@ -356,13 +356,7 @@ def dense(x, w, b):
     return out
 
 
-def prior_head(x, w, b, table, act=False):
-    """x (B, HW, C) -> pm (B, HW, Z) float32, scale indexes (B, HW, Z)
-    int32: 1x1 conv (w (C, 2Z)) -> softplus(plogv + 2.3) - 2.3 -> exp ->
-    max(., table[0]) -> #(table < scale), capped at the last index. act
-    applies a GELU to x first (the QRes prior's pre-activated conv)."""
-    if not _on_card('prior_head', x, w, b, table):
-        return prior_head_plain(x, w, b, table, act)
+def _prior_head_launch(entry, x, w, b, table, act):
     B, HW, C = x.shape
     if w.shape[0] != C or w.shape[1] % 2:
         raise ValueError('prior_head: bad weight shape')
@@ -371,12 +365,34 @@ def prior_head(x, w, b, table, act=False):
     wt, = _f32('prior_head', _out_major(w))
     pm = torch.empty((B, HW, Z), dtype=torch.float32, device=x.device)
     idx = torch.empty((B, HW, Z), dtype=torch.int32, device=x.device)
-    _launch('prior_head', build.library().trunk_prior_head, x.data_ptr(),
-            B * HW, C, Z, wt.data_ptr(), b.data_ptr(), table.data_ptr(),
-            table.numel(), int(bool(act)), pm.data_ptr(), idx.data_ptr(),
-            device=x.device)
-    prior_head.launches += 1
+    _launch('prior_head', entry, x.data_ptr(), B * HW, C, Z, wt.data_ptr(),
+            b.data_ptr(), table.data_ptr(), table.numel(), int(bool(act)),
+            pm.data_ptr(), idx.data_ptr(), device=x.device)
     return pm, idx
+
+
+def prior_head(x, w, b, table, act=False):
+    """x (B, HW, C) -> pm (B, HW, Z) float32, scale indexes (B, HW, Z)
+    int32: 1x1 conv (w (C, 2Z)) -> softplus(plogv + 2.3) - 2.3 -> exp ->
+    max(., table[0]) -> #(table < scale), capped at the last index. act
+    applies a GELU to x first (the QRes prior's pre-activated conv)."""
+    if not _on_card('prior_head', x, w, b, table):
+        return prior_head_plain(x, w, b, table, act)
+    out = _prior_head_launch(build.library().trunk_prior_head, x, w, b,
+                             table, act)
+    prior_head.launches += 1
+    return out
+
+
+def prior_head_oldcore(x, w, b, table, act=False):
+    """prior_head on the old product core (gemm_kernel, the table read
+    through the read-only cache): the bitwise oracle of prior_head's tiled
+    kernel in chip_smoke.py and the card tests; not on the main path, and
+    not counted in prior_head.launches."""
+    if not _on_card('prior_head', x, w, b, table):
+        return prior_head_plain(x, w, b, table, act)
+    return _prior_head_launch(build.library().trunk_prior_head_oldcore, x, w,
+                              b, table, act)
 
 
 def fuse_zproj(feature, syms, pm, w, b):
@@ -452,10 +468,10 @@ def dw_ln_affine_warp(x, dwk, dwb, scale, bias, kernel_size):
                                 dwk, dwb, scale, bias, kernel_size)
 
 
-def dense_act(x, w, b, act=True):
-    """x (B, HW, C) -> (gelu(x) or x) @ w (C, CO) + b."""
-    if not _on_card('dense_act', x, w, b):
-        return dense_act_plain(x, w, b, act)
+def _dense_act_launch(entry, x, w, b, act, prepass=None):
+    """prepass: whether act runs the GELU pass into a scratch (True) or on
+    the staged tile (False); None for the old core's entry point, which
+    takes no scratch."""
     B, HW, C = x.shape
     if w.shape[0] != C:
         raise ValueError('dense_act: bad weight shape')
@@ -463,11 +479,49 @@ def dense_act(x, w, b, act=True):
     wt, = _f32('dense_act', _out_major(w))
     CO = wt.shape[0]
     out = torch.empty((B, HW, CO), dtype=torch.float32, device=x.device)
-    _launch('dense_act', build.library().trunk_dense_act, x.data_ptr(),
-            B * HW, C, CO, wt.data_ptr(), b.data_ptr(), int(bool(act)),
-            out.data_ptr(), device=x.device)
+    scratch = ()
+    if prepass is not None:
+        # gelu(x), once per element, for the product to read
+        s = torch.empty_like(x) if act and prepass else None
+        scratch = (None if s is None else s.data_ptr(),)
+    _launch('dense_act', entry, x.data_ptr(), B * HW, C, CO, wt.data_ptr(),
+            b.data_ptr(), int(bool(act)), *scratch, out.data_ptr(),
+            device=x.device)
+    return out
+
+
+def dense_act(x, w, b, act=True):
+    """x (B, HW, C) -> (gelu(x) or x) @ w (C, CO) + b. One count a call;
+    with act the call launches a GELU pass and then the product."""
+    if not _on_card('dense_act', x, w, b):
+        return dense_act_plain(x, w, b, act)
+    out = _dense_act_launch(build.library().trunk_dense_act, x, w, b, act,
+                            prepass=True)
     dense_act.launches += 1
     return out
+
+
+def dense_act_staged(x, w, b, act=True):
+    """dense_act in one launch, the GELU applied to the staged A tile in
+    shared memory as prior_head's kernel applies it: prior_head's product
+    without its index epilogue, and the yardstick of dense_act's pre-pass,
+    in chip_smoke.py; not on the main path, not counted."""
+    if not _on_card('dense_act', x, w, b):
+        return dense_act_plain(x, w, b, act)
+    return _dense_act_launch(build.library().trunk_dense_act, x, w, b, act,
+                             prepass=False)
+
+
+def dense_act_oldcore(x, w, b, act=True):
+    """dense_act on the old product core (gemm_kernel, the GELU in its
+    A-tile load): the bitwise oracle of every product on the tiled core
+    (dense, conv_kxk_act on im2col_tapmajor's columns, mlp_res and
+    dense_act itself) in chip_smoke.py and the card tests; not on the main
+    path, and not counted in dense_act.launches."""
+    if not _on_card('dense_act', x, w, b):
+        return dense_act_plain(x, w, b, act)
+    return _dense_act_launch(build.library().trunk_dense_act_oldcore, x, w,
+                             b, act)
 
 
 def conv_kxk_act(x, wk, b, act=True):
@@ -500,9 +554,9 @@ def im2col_tapmajor(x, K):
     """x (B, H, W, Ci) -> (B, H*W, K*K*Ci), column k = (di*K + dj)*Ci + ci
     holding x[b, h + di - p, w + dj - p, ci] (0 outside the image), the
     depth order of conv_kxk_act's kernel. Pure data movement (pad, slices,
-    stack), so value-exact: dense_act on it is the conv, on the
-    matrix-product core that dense_act runs (a bitwise oracle for the
-    kernel; not on the main path)."""
+    stack), so value-exact: dense_act_oldcore on it is the conv on the old
+    product core (a bitwise oracle for the kernel; not on the main
+    path)."""
     B, H, W, Ci = x.shape
     p = (K - 1) // 2
     xp = F.pad(x, (0, 0, p, p, p, p))

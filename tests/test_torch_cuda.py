@@ -2,9 +2,9 @@
 versions at every lane count the codec uses, the decode kernel on its
 corner cases, the encode on its corner cases against its row-sync oracle
 kernel, B single launches and the plain versions, the trunk kernels
-against theirs at qarv_tiny and qres_tiny shapes, dense, conv_kxk_act and
-mlp_res (the tiled product core) bitwise against the old core at ragged
-shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
+against theirs at qarv_tiny and qres_tiny shapes, dense, conv_kxk_act,
+mlp_res, dense_act and prior_head (the tiled product core) bitwise against
+the old core (the _oldcore entry points) at ragged shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
 against the warp-per-pixel kernel, the lossless head's two kernels against
 theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless round trips
 (legacy and portable) through them.
@@ -364,7 +364,7 @@ def test_portable_qres_tiny_roundtrip_on_card(card):
         assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
 
 
-# ---- the tiled product core (dense, conv_kxk_act) ---------------------------
+# ---- the tiled product core (dense, conv_kxk_act, dense_act, prior_head) ----
 
 # ragged rows M (a (B, H, W) grid for the conv), widths N, input channels Ci
 # at kernel sizes K: the depths K*K*Ci include every remainder mod 16 the
@@ -375,18 +375,18 @@ CORE_CASES = [(M, N, Ci, K) for M in CORE_M for N in (24, 48, 96, 2048)
 
 
 def _core_oracle(args):
-    """The same function through dense_act on the old product core: each
-    output's sum is the same fmaf chain, so the tiled core's bits must
+    """The same function through dense_act_oldcore on the old product core:
+    each output's sum is the same fmaf chain, so the tiled core's bits must
     equal it."""
     from lvae_tpu_torch.ops import trunk
     if len(args) == 3:
-        return trunk.dense_act(*args, False)
+        return trunk.dense_act_oldcore(*args, False)
     x, wk, b, act = args
     B, H, W, Ci = x.shape
     K, Co = wk.shape[0], wk.shape[-1]
-    return trunk.dense_act(trunk.im2col_tapmajor(x, K),
-                           wk.reshape(K * K * Ci, Co), b,
-                           act).reshape(B, H, W, Co)
+    return trunk.dense_act_oldcore(trunk.im2col_tapmajor(x, K),
+                                   wk.reshape(K * K * Ci, Co), b,
+                                   act).reshape(B, H, W, Co)
 
 
 def _f(rng, card, *shape, scale=1.0):
@@ -395,8 +395,8 @@ def _f(rng, card, *shape, scale=1.0):
 
 
 def test_tiled_core_dense_equals_old_core(card):
-    """dense on the tiled core is bitwise dense_act(act=False) on the old
-    core at every synthetic shape, also from rows 4 bytes off 16."""
+    """dense on the tiled core is bitwise dense_act_oldcore(act=False) at
+    every synthetic shape, also from rows 4 bytes off 16."""
     from lvae_tpu_torch.ops import trunk
     rng = np.random.default_rng(7)
     for M, N, Ci, K in CORE_CASES:
@@ -412,8 +412,8 @@ def test_tiled_core_dense_equals_old_core(card):
 
 def test_tiled_core_conv_equals_old_core(card):
     """conv_kxk_act on the tiled core (and its GELU pre-pass) is bitwise
-    dense_act on im2col_tapmajor's columns at every synthetic shape, act on
-    and off."""
+    dense_act_oldcore on im2col_tapmajor's columns at every synthetic
+    shape, act on and off."""
     from lvae_tpu_torch.ops import trunk
     rng = np.random.default_rng(8)
     for M, N, Ci, K in CORE_CASES:
@@ -426,39 +426,87 @@ def test_tiled_core_conv_equals_old_core(card):
             assert torch.equal(got, _core_oracle(args)), (M, N, Ci, K, act)
 
 
-@pytest.mark.parametrize('name', ['dense', 'conv_kxk_act'])
+# per kernel: shapes of each tile family (dense: M, C, N; conv_kxk_act: H,
+# W, Ci, Co, act; dense_act: M, C, N, act; prior_head: M, C, Z, act), the
+# main path's among them
+_FAMILY_SHAPES = {
+    'dense': [(96, 512, 2048), (384, 512, 1536), (1536, 384, 1024),
+              (6144, 256, 512), (24576, 128, 48), (95, 90, 24)],
+    'conv_kxk_act': [(16, 24, 96, 96, True), (64, 96, 96, 96, True),
+                     (128, 192, 48, 48, True), (16, 24, 14, 48, False),
+                     (128, 192, 8, 24, False), (5, 19, 10, 24, True)],
+    'dense_act': [(96, 96, 96, True), (96, 384, 96, True),
+                  (1536, 384, 96, True), (6144, 384, 96, True),
+                  (24576, 192, 48, True), (95, 10, 24, False)],
+    'prior_head': [(96, 512, 64, False), (1536, 384, 192, False),
+                   (6144, 256, 16, False), (96, 96, 32, True),
+                   (6144, 96, 20, True), (24576, 48, 16, True),
+                   (95, 10, 1, False)]}
+
+
+@pytest.mark.parametrize('name', sorted(_FAMILY_SHAPES))
 def test_tiled_core_batch_launches_and_repeat(card, name):
     """One launch counted per call, the same bits on a repeat, the first
     image of a batch of two its bits alone (the tile shape may follow the
-    row count; no output's chain does), at shapes of each tile family."""
+    row count; no output's chain does), at shapes of each tile family;
+    dense_act and prior_head also bitwise their _oldcore oracles."""
+    import chip_smoke
     from lvae_tpu_torch.ops import trunk
     rng = np.random.default_rng(9)
     fn = getattr(trunk, name)
-    shapes = ([(96, 512, 2048), (384, 512, 1536), (1536, 384, 1024),
-               (6144, 256, 512), (24576, 128, 48), (95, 90, 24)]
-              if name == 'dense' else
-              [(16, 24, 96, 96, True), (64, 96, 96, 96, True),
-               (128, 192, 48, 48, True), (16, 24, 14, 48, False),
-               (128, 192, 8, 24, False), (5, 19, 10, 24, True)])
-    for shape in shapes:
-        if name == 'dense':
-            M, C, N = shape
-            args = [_f(rng, card, 1, M, C),
-                    _f(rng, card, C, N, scale=C ** -0.5), _f(rng, card, N)]
-        else:
+    table = torch.as_tensor(chip_smoke.prior_tables(np)['codec'],
+                            device=card)
+    for shape in _FAMILY_SHAPES[name]:
+        if name == 'conv_kxk_act':
             H, W, Ci, Co, act = shape
             args = [_f(rng, card, 1, H, W, Ci),
                     _f(rng, card, 3, 3, Ci, Co, scale=(9 * Ci) ** -0.5),
                     _f(rng, card, Co), act]
+        else:
+            M, C, N = shape[:3]
+            N = 2 * N if name == 'prior_head' else N
+            args = [_f(rng, card, 1, M, C),
+                    _f(rng, card, C, N, scale=C ** -0.5), _f(rng, card, N)]
+            args += ([table, shape[3]] if name == 'prior_head'
+                     else list(shape[3:]))
         before = fn.launches
         got = fn(*args)
         assert fn.launches == before + 1, shape
-        assert torch.equal(fn(*args), got), shape
-        torch.testing.assert_close(got, trunk.PLAIN[fn](*args), atol=1e-5,
-                                   rtol=1e-4)
+        again = fn(*args)
+        got_t, again_t = ((got, again) if isinstance(got, tuple)
+                          else ((got,), (again,)))
+        assert all(torch.equal(a, g) for a, g in zip(again_t, got_t)), shape
+        torch.testing.assert_close(got_t[0], trunk.PLAIN[fn](*args)[0]
+                                   if name == 'prior_head'
+                                   else trunk.PLAIN[fn](*args),
+                                   atol=1e-5, rtol=1e-4)
+        if name in ('dense_act', 'prior_head'):
+            assert chip_smoke.core_bitwise(torch, name, args, got), shape
         two = list(args)
         two[0] = torch.cat([args[0], args[0].flip(-1)])
-        assert torch.equal(fn(*two)[:1], got), shape
+        two_t = fn(*two)
+        two_t = two_t if isinstance(two_t, tuple) else (two_t,)
+        assert all(torch.equal(t[:1], g) for t, g in zip(two_t, got_t)), \
+            shape
+
+
+def test_dense_act_and_prior_head_equal_old_core_synthetic(card):
+    """dense_act (its GELU pre-pass and dense_act_staged's GELU on the
+    staged tile) and prior_head on the tiled core are bitwise their
+    _oldcore oracles at chip_smoke's synthetic shapes (rows 1 to 6144,
+    depths 10 to 512, act on and off, unaligned rows, non-finite rows) and
+    scale tables (the codecs', ties, one entry, 65, shuffled, and one past
+    the shared-memory stage); only the main wrappers count launches, one a
+    call."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    counts = trunk.dense_act.launches, trunk.prior_head.launches
+    cases, bad, calls = chip_smoke.check_prior_dense_act_synthetic(torch,
+                                                                   card)
+    assert cases > 1000 and not bad, bad[:5]
+    per_kernel = (trunk.dense_act.launches - counts[0],
+                  trunk.prior_head.launches - counts[1])
+    assert sum(per_kernel) == calls, per_kernel
 
 
 def test_mlp_res_equals_old_core(card):

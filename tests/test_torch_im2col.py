@@ -1,7 +1,7 @@
 """im2col_tapmajor (lvae_tpu_torch/ops/trunk.py), the data movement behind
-the card's bitwise oracle for conv_kxk_act: dense_act on its output runs
-the conv on the product core that dense_act uses, so the kernel's bits can
-be held against it (tests/test_torch_cuda.py, chip_smoke.py).
+the card's bitwise oracle for conv_kxk_act: dense_act_oldcore on its output
+runs the conv on the old product core, so the kernel's bits can be held
+against it (tests/test_torch_cuda.py, chip_smoke.py).
 
 On the CPU: the columns are exactly the JAX kernel's tap stack
 (lvae_tpu/ops/pallas/trunk.py:575-577) with the taps moved next to the

@@ -5,8 +5,8 @@ and its stream in a ring; chip_smoke.py's `rans_corner_cases` holds it at its
 corners on the card against the plain versions. Here those plain versions
 are held byte for byte against the JAX Pallas decode kernels (interpret
 mode) on the same corner cases. mlp_res moved onto the tiled product core,
-whose card oracle is `chip_smoke.core_oracle` (two dense_act calls on the
-old core and the residual); here that oracle's form, run on CPU tensors
+whose card oracle is `chip_smoke.core_oracle` (two dense_act_oldcore calls
+on the old core and the residual); here that oracle's form, run on CPU tensors
 (the plain versions), is held bitwise against `mlp_res_plain`, and both
 against the JAX `mlp_res` in interpret mode.
 """
@@ -97,8 +97,8 @@ def _mlp_args(M, C, HID, CO, B=2):
 def test_core_oracle_mlp_res_equals_plain_bitwise(M, C, HID, CO):
     """The card's old-core oracle form (fc1 without a GELU, fc2 with the
     GELU on its input, then shortcut + y * gamma), run on CPU tensors where
-    dense_act is its plain version, equals mlp_res_plain bit for bit: the
-    two run the same operations in the same order."""
+    dense_act_oldcore is its plain version, equals mlp_res_plain bit for
+    bit: the two run the same operations in the same order."""
     args = tuple(torch.from_numpy(a) for a in _mlp_args(M, C, HID, CO))
     want = trunk.mlp_res_plain(*args)
     assert torch.equal(chip_smoke.core_oracle(torch, 'mlp_res', args), want)
