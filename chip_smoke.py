@@ -29,10 +29,11 @@
    tables: each image against the row-sync kernel, B = 1, 2, 3 and 6
    against the row-sync kernel and B single launches, and the plain
    versions, byte for byte. Then it holds dense, conv_kxk_act, mlp_res,
-   dense_act and prior_head, the kernels on the tiled product core,
-   bitwise (same_bits) against their oracle on the old core (the _oldcore
-   entry points: dense_act_oldcore, for the conv on im2col_tapmajor's
-   columns, for mlp_res two calls and the residual; prior_head_oldcore)
+   dense_act, prior_head, fuse_zproj and res_dense_act, the kernels on the
+   tiled product core, bitwise (same_bits) against their oracle on the old
+   core (the _oldcore entry points: dense_act_oldcore, for the conv on
+   im2col_tapmajor's columns, for mlp_res two calls and the residual;
+   prior_head_oldcore, fuse_zproj_oldcore, res_dense_act_oldcore)
    at synthetic ragged shapes: rows 1, 95 and 385, widths 24, 48, 96 and
    2048, input channels 8, 10, 14, 48 and 96 at kernel sizes 1, 3 and 5,
    act on and off, dense also from unaligned rows; mlp_res at rows 1, 95
@@ -41,7 +42,11 @@
    dense_act_staged) and prior_head at rows 1, 95, 385 and 6144, depths 10 to 512, widths 24 to
    2048 (prior_head: Z 1 to 192), act on and off, aligned and unaligned
    rows, a NaN/inf row and an inf row, and six scale tables (the codecs',
-   ties, one entry, 65, shuffled, one past the shared-memory stage). Then
+   ties, one entry, 65, shuffled, one past the shared-memory stage);
+   fuse_zproj and res_dense_act (both GELU designs) at rows 1 to 24576,
+   depths 1 to 96 (1, 10 and 14: the 4-byte copies), widths 24 to 2048,
+   aligned and unaligned inputs, symbols up to +-(2^24 - 1), NaN/inf rows
+   in pm, t and the feature, -0 in the feature. Then
    it holds dw_ln_mod and dw_ln_affine, the depthwise stencil pair on the halo-tile
    kernel, bitwise against the warp-per-pixel kernel (the _warp entry
    points) at synthetic ragged shapes: H and W of 1, 3, 5, 13 and 130, C of
@@ -58,18 +63,22 @@
 4. holds the seven portable-trunk kernels against their plain versions on
    the inputs the main path gives them (captured from one encode and
    decode of each image, every distinct shape), checks that a batch of two
-   gives the first image the bits it gets alone, holds dense, mlp_res and
-   prior_head bitwise against the old core (as at every later captured
-   shape, for every kernel of CORE_NAMES, at B = 1 and B = 2) and dw_ln_mod
-   (as dw_ln_affine later) against the warp-per-pixel kernel, and times
-   each kernel, its plain version, for dense, mlp_res, dense_act and
-   prior_head the old core (old_core_ms), for prior_head its product alone
-   (product_ms: dense_act_staged on the same inputs), for dense_act with
-   its GELU pre-pass the one-launch design with the GELU on the staged
-   tile (staged_gelu_ms: dense_act_staged), for the stencil pair the warp-per-pixel kernel (warp_oracle_ms) and the
-   two-call yardstick F.conv2d(groups=C) + F.layer_norm (two_calls_ms),
-   for dense torch.addmm (device times from CUDA-graph replays, and the
-   eager wrapper's time beside them); each qarv decode also reports its
+   gives the first image the bits it gets alone, holds dense, mlp_res,
+   prior_head and fuse_zproj bitwise against the old core (as at every
+   later captured shape, for every kernel of CORE_NAMES, at B = 1 and B =
+   2) and dw_ln_mod (as dw_ln_affine later) against the warp-per-pixel
+   kernel, and times each kernel, its plain version, for the kernels of
+   OLD_CORE_TIMED the old core (old_core_ms), for prior_head its product
+   alone (product_ms: dense_act_staged on the same inputs), for dense_act
+   with its GELU pre-pass the one-launch design with the GELU on the staged
+   tile (staged_gelu_ms: dense_act_staged), for res_dense_act the GELU
+   pre-pass design it does not take (prepass_ms), for fuse_zproj
+   and res_dense_act torch.addmm(feature, a, w) on the operand computed
+   beforehand (addmm_ms), for the stencil pair the warp-per-pixel kernel
+   (warp_oracle_ms) and the two-call yardstick F.conv2d(groups=C) +
+   F.layer_norm (two_calls_ms), for dense torch.addmm (device times from
+   CUDA-graph replays, and the eager wrapper's time beside them); each
+   qarv decode also reports its
    rANS decode launches' time and share of dec_ms, as the qres34m and
    lossless phases do;
 5. holds the two multi-image rANS kernels against their plain versions and
@@ -111,9 +120,10 @@
    legacy round trip; the B = 2 request as in 7; every call's launches
    against the block list (the head: two 1x1 convs, nll_head, and on
    decode nll_recon and a 13th rANS decode launch); nll_head, nll_recon,
-   the head's dense convs and the trunk's mlp_res, dense_act and
-   prior_head held against their plain versions at every shape of one
-   encode and decode (the last three also against the old core), nll_head and nll_recon bitwise (also on
+   the head's dense convs and the trunk's mlp_res, dense_act, prior_head
+   and res_dense_act held against their plain versions at every shape of
+   one encode and decode (the last four also against the old core),
+   nll_head and nll_recon bitwise (also on
    photo1-sized synthetic inputs covering the head's table and the pixel
    grid's half-points), B = 1 against B = 2 bitwise, with their times; the
    head block's rANS decode time beside the latent blocks'; enc_ms /
@@ -241,8 +251,10 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 # the kernels on the tiled product core (csrc/trunk.cu tiled_kernel), held
 # bitwise against their oracle on the old core (core_oracle) at every shape;
 # those whose old-core oracle is timed beside them (old_core_ms)
-CORE_NAMES = ('dense', 'conv_kxk_act', 'mlp_res', 'dense_act', 'prior_head')
-OLD_CORE_TIMED = ('dense', 'mlp_res', 'dense_act', 'prior_head')
+CORE_NAMES = ('dense', 'conv_kxk_act', 'mlp_res', 'dense_act', 'prior_head',
+              'fuse_zproj', 'res_dense_act')
+OLD_CORE_TIMED = ('dense', 'mlp_res', 'dense_act', 'prior_head',
+                  'fuse_zproj', 'res_dense_act')
 # the synthetic ragged shapes of that check: rows M (a B x H x W grid for
 # the conv), widths N, input channels Ci at kernel sizes K (dense: depth
 # K*K*Ci), act on and off
@@ -265,6 +277,14 @@ DA_M, DA_C, DA_N = (1, 95, 385, 6144), (10, 48, 96, 256, 384, 512), \
     (24, 48, 96, 2048)
 PRIOR_Z = (1, 16, 20, 28, 64, 192)
 PRIOR_TABLE_M, PRIOR_TABLE_C, PRIOR_TABLE_Z = (95, 385), (10, 96), (1, 20, 64)
+# the residual joins' synthetic shapes (fuse_zproj and res_dense_act, both
+# GELU designs of the latter): rows M, depths K (Z or Ci; 1, 10 and 14 take
+# the 4-byte copies), widths N, from aligned inputs and inputs 4 bytes off
+# 16; symbols up to +-(2^24 - 1), escape-sized ones among them; a NaN/inf
+# row in pm, in t and in the feature, and -0 in the feature
+JUNCTION_M, JUNCTION_K, JUNCTION_N = (1, 95, 385, 6144, 24576), \
+    (1, 8, 10, 14, 24, 32, 48, 96), (24, 192, 256, 384, 512, 2048)
+JUNCTION_SEED = 12
 # the depthwise stencil pair (csrc/trunk.cu dw_tile_kernel), held bitwise
 # against the warp-per-pixel kernel (the _warp entry points) at every shape
 DW_NAMES = ('dw_ln_mod', 'dw_ln_affine')
@@ -1763,18 +1783,17 @@ def graph_ms(torch, fn, inner, repeats=5):
 
 def core_oracle(torch, name, args):
     """A kernel of CORE_NAMES computed on the old product core
-    (gemm_kernel, the _oldcore entry points): dense_act and prior_head as
-    they are, dense as dense_act without its GELU, the conv as dense_act on
+    (gemm_kernel, the _oldcore entry points): dense_act, prior_head,
+    fuse_zproj and res_dense_act as they are, dense as dense_act without
+    its GELU, the conv as dense_act on
     im2col_tapmajor's columns, mlp_res as fc1 without a GELU, then fc2
     with the GELU on its input (the value mlp_res's fc1 epilogue stores),
     then shortcut + y * gamma (two roundings, as the kernel's epilogue).
     Each output's sum is the same fmaf chain on both cores, so the tiled
     core must match it bitwise."""
     from lvae_tpu_torch.ops import trunk
-    if name == 'dense_act':
-        return trunk.dense_act_oldcore(*args)
-    if name == 'prior_head':
-        return trunk.prior_head_oldcore(*args)
+    if name in ('dense_act', 'prior_head', 'fuse_zproj', 'res_dense_act'):
+        return getattr(trunk, name + '_oldcore')(*args)
     if name == 'dense':
         x, w, b = args
         return trunk.dense_act_oldcore(x, w, b, False)
@@ -1906,6 +1925,83 @@ def check_prior_dense_act_synthetic(torch, device):
     return cases, bad, counted + 1
 
 
+def junction_symbols(torch, g, n, device):
+    """n int32 symbols: mostly small (|s| <= 40), one in 16 escape-sized (up
+    to 2^16), one in 64 anywhere in +-(2^24 - 1), the first two at both
+    ends of that range (every one converts to float exactly)."""
+    big = (1 << 24) - 1
+    s = torch.randint(-40, 41, (n,), generator=g, device=device)
+    u = torch.rand(n, generator=g, device=device)
+    esc = torch.randint(-(1 << 16), (1 << 16) + 1, (n,), generator=g,
+                        device=device)
+    far = torch.randint(-big, big + 1, (n,), generator=g, device=device)
+    s = torch.where(u < 1 / 16, esc, s)
+    s = torch.where(u < 1 / 64, far, s)
+    s[:2] = torch.tensor([big, -big], device=device)[:n]
+    return s.to(torch.int32)
+
+
+def check_junction_synthetic(torch, device, Ms=JUNCTION_M, Ks=JUNCTION_K,
+                             Ns=JUNCTION_N):
+    """fuse_zproj and res_dense_act (both GELU designs: the main path's on
+    the staged tile and res_dense_act_prepass) against their _oldcore
+    oracles, bitwise (same_bits: NaNs and the sign of zero), at every M of
+    Ms, K of Ks (Z or Ci) and N of Ns, from
+    aligned inputs and from inputs 4 bytes off 16 (feature, syms, pm and
+    t); symbols from junction_symbols; for M > 1 row M // 2 of pm and of t
+    holds NaN, +inf and -inf, row M - 1 of the feature NaN and +-inf, and
+    every fifth value of its row 0 is -0. -> (cases, mismatches, calls of
+    the counted wrappers)."""
+    import itertools
+    from lvae_tpu_torch.ops import trunk
+    g = torch.Generator(device=device).manual_seed(JUNCTION_SEED)
+    special = torch.tensor([math.nan, math.inf, -math.inf], device=device)
+
+    def buf(n, unaligned):
+        x = torch.randn(n + 1, generator=g, device=device)
+        return x[1:] if unaligned else x[:n]
+
+    cases, bad, counted = 0, [], 0
+    for M, K in itertools.product(Ms, Ks):
+        ins = {}
+        for u in (False, True):
+            s = junction_symbols(torch, g, M * K + 1, device)
+            s = (s[1:] if u else s[:M * K]).reshape(1, M, K)
+            pm, t = buf(M * K, u).reshape(1, M, K), buf(M * K, u).reshape(
+                1, M, K)
+            if M > 1:
+                pm[0, M // 2, :3] = special[:K]
+                t[0, M // 2, :3] = special[:K]
+            ins[u] = (s, pm, t)
+        for N in Ns:
+            w = torch.randn(K, N, generator=g, device=device) * K ** -0.5
+            b = torch.randn(N, generator=g, device=device) * 0.1
+            for u, (s, pm, t) in ins.items():
+                f = buf(M * N, u).reshape(1, M, N)
+                f[0, 0, ::5] = -0.0
+                if M > 1:
+                    f[0, M - 1, :3] = special[:N]
+                # (label, kernel, oracle, whether the kernel is counted)
+                for label, got, oracle, main in (
+                        ('fuse_zproj', lambda: trunk.fuse_zproj(f, s, pm, w, b),
+                         lambda: trunk.fuse_zproj_oldcore(f, s, pm, w, b),
+                         True),
+                        ('res_dense_act', lambda: trunk.res_dense_act(
+                            f, t, w, b),
+                         lambda: trunk.res_dense_act_oldcore(f, t, w, b),
+                         True),
+                        ('res_dense_act_prepass',
+                         lambda: trunk.res_dense_act_prepass(f, t, w, b),
+                         lambda: trunk.res_dense_act_oldcore(f, t, w, b),
+                         False)):
+                    cases += 1
+                    counted += main
+                    if not same_bits(torch, got(), oracle()):
+                        bad.append(dict(kernel=label, M=M, K=K, N=N,
+                                        unaligned=u))
+    return cases, bad, counted
+
+
 def check_core_synthetic(torch, device):
     """dense, conv_kxk_act and mlp_res against core_oracle, bitwise, on
     synthetic ragged shapes: every M of CORE_M, N of CORE_N, Ci of CORE_CI
@@ -1954,6 +2050,11 @@ def check_core_synthetic(torch, device):
     more, more_bad, _ = check_prior_dense_act_synthetic(torch, device)
     cases += more
     bad += more_bad
+    t0 = time.perf_counter()
+    junction, junction_bad, _ = check_junction_synthetic(torch, device)
+    junction_s = time.perf_counter() - t0
+    cases += junction
+    bad += junction_bad
     progress(f'tiled core, synthetic shapes: {cases} cases, {len(bad)} not '
              f'bitwise equal to the old core')
     require(not bad, f'tiled core not bitwise equal to the old core at '
@@ -1969,10 +2070,22 @@ def check_core_synthetic(torch, device):
                                       C=list(PRIOR_TABLE_C),
                                       Z=list(PRIOR_TABLE_Z)),
                     non_finite_rows='M // 2: NaN, +inf, -inf; M - 1: +inf'),
+                fuse_zproj_res_dense_act=dict(
+                    cases=junction, seconds=junction_s, M=list(JUNCTION_M),
+                    K=list(JUNCTION_K), N=list(JUNCTION_N),
+                    unaligned='feature, syms, pm and t 4 bytes off 16',
+                    symbols='|s| <= 40; 1/16 up to 2^16; 1/64 up to '
+                            '2^24 - 1; both ends of +-(2^24 - 1)',
+                    non_finite='pm and t row M // 2: NaN, +inf, -inf; '
+                               'feature row M - 1: NaN, +inf, -inf; '
+                               'feature row 0: -0 every fifth value',
+                    designs='res_dense_act: the GELU on the staged tile '
+                            'and res_dense_act_prepass'),
                 oracle='dense_act_oldcore (conv: on im2col_tapmajor '
                        'columns; mlp_res: fc1, then fc2 with the GELU on '
-                       'its input, then the residual); prior_head: '
-                       'prior_head_oldcore')
+                       'its input, then the residual); prior_head, '
+                       'fuse_zproj, res_dense_act: their _oldcore entry '
+                       'points')
 
 
 def warp_oracle(name):
@@ -2049,23 +2162,44 @@ def check_dw_synthetic(torch, device):
                        'trunk_dw_ln_affine_warp)')
 
 
-def product_times(torch, name, args):
-    """(product_ms, staged_gelu_ms) of one main-path call, device times of
-    dense_act_staged on the same (x, w, b, act): for prior_head its product
-    without the index epilogue (its GELU on the staged tile, as prior_head
-    applies it); for dense_act with its GELU, the one-launch design that
-    its pre-pass was measured against; else None."""
+# the other designs and yardsticks timed beside a main-path call
+DESIGN_KEYS = ('product_ms', 'staged_gelu_ms', 'prepass_ms', 'addmm_ms')
+
+
+def design_times(torch, name, args):
+    """{key of DESIGN_KEYS: device ms} of one main-path call's other
+    designs, on the same inputs: for prior_head its product without the
+    index epilogue (product_ms: dense_act_staged, its GELU on the staged
+    tile as prior_head applies it); for dense_act with its GELU, the
+    one-launch design its pre-pass was measured against (staged_gelu_ms:
+    dense_act_staged); for res_dense_act the GELU design it does not take
+    (prepass_ms: res_dense_act_prepass); for fuse_zproj
+    and res_dense_act the addmm yardstick (addmm_ms: torch.addmm(feature,
+    a, w), TF32 off, on its operand a computed beforehand, syms.float() +
+    pm or the plain _gelu(t): the product and the residual in one library
+    call, without the bias and the prologue)."""
     from lvae_tpu_torch.ops import trunk
+    out = {}
     if name == 'prior_head':
         x, w, b = args[:3]
         act = args[4] if len(args) > 4 else False
-        return graph_ms(torch, lambda: trunk.dense_act_staged(x, w, b, act),
-                        TRUNK_INNER), None
+        out['product_ms'] = graph_ms(
+            torch, lambda: trunk.dense_act_staged(x, w, b, act), TRUNK_INNER)
     if name == 'dense_act' and (args[3] if len(args) > 3 else True):
         x, w, b = args[:3]
-        return None, graph_ms(torch, lambda: trunk.dense_act_staged(
+        out['staged_gelu_ms'] = graph_ms(torch, lambda: trunk.dense_act_staged(
             x, w, b, True), TRUNK_INNER)
-    return None, None
+    if name == 'res_dense_act':
+        out['prepass_ms'] = graph_ms(
+            torch, lambda: trunk.res_dense_act_prepass(*args), TRUNK_INNER)
+    if name in ('fuse_zproj', 'res_dense_act'):
+        f, w = args[0], args[-2]
+        a = (args[1].float() + args[2] if name == 'fuse_zproj'
+             else trunk._gelu(args[1]))
+        f2, a2 = f.reshape(-1, f.shape[-1]), a.reshape(-1, a.shape[-1])
+        out['addmm_ms'] = graph_ms(torch, lambda: torch.addmm(f2, a2, w),
+                                   TRUNK_INNER)
+    return out
 
 
 def check_trunk_kernels(torch, names, cases):
@@ -2124,7 +2258,7 @@ def check_trunk_kernels(torch, names, cases):
             old_core_ms = (graph_ms(torch, lambda: core_oracle(
                 torch, name, args), TRUNK_INNER)
                 if name in OLD_CORE_TIMED else None)
-            product_ms, staged_gelu_ms = product_times(torch, name, args)
+            designs = design_times(torch, name, args)
             library_ms = warp_ms = two_calls_ms = None
             lib = library_call(torch, name, args)
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -2147,7 +2281,7 @@ def check_trunk_kernels(torch, names, cases):
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
                 core_bitwise=core_ok, warp_bitwise=warp_ok, ms=ms,
                 eager_ms=eager_ms, old_core_ms=old_core_ms,
-                product_ms=product_ms, staged_gelu_ms=staged_gelu_ms,
+                **{k: designs.get(k) for k in DESIGN_KEYS},
                 warp_oracle_ms=warp_ms, plain_ms=plain_ms,
                 library_ms=library_ms, two_calls_ms=two_calls_ms,
                 bytes=nbytes, ops=ops,
@@ -2201,6 +2335,8 @@ def check_trunk_kernels(torch, names, cases):
                                             rows=staged_rows),
                 'kernel_ms_where_staged': per_image('ms', rows=staged_rows)}
                if staged_rows else {}),
+            **{k: per_image(k) for k in ('prepass_ms', 'addmm_ms')
+               if all(r[k] is not None for r in shapes)},
             **({'core_bitwise_shapes': len(shapes)}
                if name in CORE_NAMES else {}),
             **({'warp_oracle_ms': per_image('warp_oracle_ms'),
@@ -2599,10 +2735,10 @@ def run_lossless(torch, tmpdir):
 
     # 4. the head's kernels at every shape of one photo1 encode + decode
     # (nll_head, nll_recon bitwise; the head's dense convs and the trunk's
-    # mlp_res, dense_act and prior_head as in the qres phase) and on
-    # photo1-sized synthetic inputs
+    # mlp_res, dense_act, prior_head and res_dense_act as in the qres
+    # phase) and on photo1-sized synthetic inputs
     kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + (
-        'dense', 'mlp_res', 'dense_act', 'prior_head'), [
+        'dense', 'mlp_res', 'dense_act', 'prior_head', 'res_dense_act'), [
         ('photo1', lambda: model.compress(im), model.decompress)])
     for name in LOSSLESS_TRUNK:
         require_bitwise(name, kernels[name]['by_shape'])
@@ -3006,8 +3142,15 @@ def main():
             ms=r['ms'], encode_ms=r['encode_ms'], decode_ms=r['decode_ms'],
             eager_ms=r['eager_ms'],
             **{k: r[k] for k in ('old_core_ms', 'product_ms',
-                                 'staged_gelu_ms', 'kernel_ms_where_staged')
+                                 'staged_gelu_ms', 'kernel_ms_where_staged',
+                                 'prepass_ms', 'addmm_ms')
                if k in r},
+            **({'addmm': 'torch.addmm(feature, a, w), TF32 off, a = '
+                         + ('syms.float() + pm' if name == 'fuse_zproj'
+                            else 'the plain _gelu(t)')
+                         + ' computed beforehand: without the bias and the '
+                           'prologue'}
+               if 'addmm_ms' in r else {}),
             **(dict(warp_oracle_ms=r['warp_oracle_ms'],
                     two_calls_ms=r['two_calls_ms'],
                     two_calls='F.conv2d(groups=C) + F.layer_norm, TF32 off'

@@ -29,18 +29,21 @@
 // The matrix products run on two exact-float32 SIMT cores, no tensor cores
 // (TF32 keeps ~3 digits, and 3xTF32 or FP64 DMMA would change the bits):
 // - gemm_kernel, one 64x64 shared-memory tile with a single buffer:
-//   fuse_zproj, zadd_dense and res_dense_act, and the oracle of the other
-//   core (the _oldcore entry points of dense_act and prior_head);
+//   zadd_dense, and the oracle of the other core (the _oldcore entry points
+//   of dense_act, prior_head, fuse_zproj and res_dense_act);
 // - tiled_kernel, built for the H100: tile shapes chosen by (M, N) so that
 //   the grid fills the SMs and no column is wasted, a 3-stage cp.async ring,
-//   an implicit-conv loader without per-element division, a GELU applied to
-//   the staged A tile in shared memory, and prior_head's scale table staged
-//   in shared memory for its index epilogue: dense, conv_kxk_act, mlp_res's
-//   two products, dense_act and prior_head.
+//   an implicit-conv loader without per-element division, a GELU or the
+//   integer junction's conversion applied to the staged A tile in shared
+//   memory, prior_head's scale table staged in shared memory for its index
+//   epilogue, and the residual joins' feature tile read into shared memory
+//   while the product runs: dense, conv_kxk_act, mlp_res's two products,
+//   dense_act, prior_head, fuse_zproj and res_dense_act.
 // Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
-// (padded steps add fmaf(0, 0, acc)), so they give the same bits; tiling
-// only moves which thread runs a chain, which may follow M (so the batch
-// size) because no chain depends on it.
+// (padded steps add fmaf(0, 0, acc), or are skipped where that returns acc
+// bit for bit), so they give the same bits; tiling only moves which thread
+// runs a chain, which may follow M (so the batch size) because no chain
+// depends on it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -266,14 +269,17 @@ cudaError_t launch_gemm(int M, int N, int K, Load load, const float* w,
 //   thread then rewrites the A elements it copied itself as gelu_as of
 //   them, once its own copies of the step have landed and before the
 //   step's barrier (gelu_as(+0) == +0: the zero-filled edges stay +0, as
-//   gemm_kernel's); ConvSrc is the implicit K x K conv: each tile row's
-//   pixel (b, h, w) is decoded once before the K loop and each thread
-//   walks its depth k = (di*K + dj)*Ci + ci as a (tap, channel) cursor
-//   advanced by adds, no per-element division.
-// - Epilogue hook. A store functor with a prepare(tid, threads) member
+//   gemm_kernel's); SymsPmSrc copies syms and pm into the A slab and an
+//   extra slab and converts them in the same slot; ConvSrc is the implicit
+//   K x K conv: each tile row's pixel (b, h, w) is decoded once before the
+//   K loop and each thread walks its depth k = (di*K + dj)*Ci + ci as a
+//   (tap, channel) cursor advanced by adds, no per-element division.
+// - Epilogue hooks. A store functor with a prepare(tid, threads) member
 //   (StorePriorStaged) gets the ring's shared memory once the last copy has
 //   landed and every thread is past the K loop, and stages what its stores
-//   read there.
+//   read there; one with PREFETCH (StoreResidualStaged) copies a tile of
+//   its own input into shared memory beyond the ring while the K loop runs,
+//   and writes the outputs from there.
 // ---------------------------------------------------------------------------
 
 constexpr int PK = BK;          // K step: gemm_kernel's, so the same padding
@@ -303,11 +309,18 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// A operand: rows of x (M, K); ACT: gelu_as of them, applied in shared
-// memory (tiled_kernel)
+// A operand sources of tiled_kernel. Each names where a thread's copy of
+// A(m, k) comes from (src); EXTRA more A-shaped slabs a stage that it copies
+// beside A (extra: the same m and k); and, where REWRITE, how each thread
+// turns its own landed copies into A's values in shared memory (rewrite(a,
+// x): a the copy in the A slab, x the same element's copy in the extra slab)
+// once they have landed and before the step's barrier.
+
+// rows of x (M, K); ACT: gelu_as of them
 template <bool ACT>
 struct RowSrc {
-    static constexpr bool GELU = ACT;
+    static constexpr bool REWRITE = ACT;
+    static constexpr int EXTRA = 0;
     const float* x; int M, K;
     struct Row { int m; };
     struct Cursor { int k; };
@@ -319,14 +332,49 @@ struct RowSrc {
         return ok ? x + (long long)r.m * K + c.k : x;
     }
     __device__ void advance(Cursor& c) const { c.k += PK; }
+    __device__ void rewrite(float* a, const float*) const {
+        *a = gelu_as(*a);
+    }
 };
 using DenseSrc = RowSrc<false>;
 using GeluRowSrc = RowSrc<true>;
 
+// the integer junction (fuse_zproj): A(m, k) = (float)syms[m, k] + pm[m, k],
+// LoadSymsPlusPm's expression. cp.async copies bytes and cannot convert, so
+// the int32 words of syms land raw in the A slab and pm in the extra slab;
+// the rewrite converts them (round to nearest) and adds, one f32 addition.
+// A zero-filled copy is int 0 and +0.f: (float)0 + 0.f == +0, the old
+// core's padding.
+struct SymsPmSrc {
+    static constexpr bool REWRITE = true;
+    static constexpr int EXTRA = 1;
+    const int* s; const float* pm; int M, K;
+    struct Row { int m; };
+    struct Cursor { int k; };
+    __device__ Row row(int m) const { return {m}; }
+    __device__ Cursor cursor(int k) const { return {k}; }
+    __device__ const float* src(const Row& r, const Cursor& c,
+                                bool& ok) const {
+        ok = r.m < M && c.k < K;
+        return reinterpret_cast<const float*>(
+            s + (ok ? (long long)r.m * K + c.k : 0));
+    }
+    __device__ const float* extra(const Row& r, const Cursor& c,
+                                  bool& ok) const {
+        ok = r.m < M && c.k < K;
+        return ok ? pm + (long long)r.m * K + c.k : pm;
+    }
+    __device__ void advance(Cursor& c) const { c.k += PK; }
+    __device__ void rewrite(float* a, const float* x) const {
+        *a = (float)__float_as_int(*a) + *x;
+    }
+};
+
 // A operand of conv_kxk_act: x[b, h+di-p, w+dj-p, ci] (0 off the image) at
 // k = (di*K + dj)*Ci + ci, from the NHWC feature x (B, H, W, Ci)
 struct ConvSrc {
-    static constexpr bool GELU = false;
+    static constexpr bool REWRITE = false;
+    static constexpr int EXTRA = 0;
     const float* x; int M, H, W, Ci, K, Ktot;
     struct Row { int m, h, w; };       // h out of range for m >= M
     struct Cursor { int k, ci, di, dj; };
@@ -428,17 +476,104 @@ struct HasPrepare<S, decltype(void(&S::prepare))> {
     static constexpr bool value = true;
 };
 
+// the staged tile's row stride, floats: a 16-byte multiple for BN % 4 == 0
+__host__ __device__ constexpr int staged_ld(int bn) { return bn + 4; }
+
+// The residual joins on the tiled core: StoreResidual's f + (acc + b)
+// (fuse_zproj) or, BIAS_LAST, StoreResidualBias's (f + acc) + b
+// (res_dense_act), bit for bit. The block's BM x BN tile of the feature is
+// copied into shared memory beyond the ring (prefetch, its own cp.async
+// group issued after the ring's first copies, so that it lands while the
+// product runs); each thread then turns its outputs' feature values into
+// the outputs in place, and the block writes the tile out as 16-byte row
+// segments (write). vec: 16-byte copies and stores (N % 4 == 0, f and out
+// 16-byte aligned), else 4-byte ones. Rows past M and columns past N are
+// zero-filled and never written.
+template <bool BIAS_LAST>
+struct StoreResidualStaged {
+    static constexpr bool PREFETCH = true;
+    float* out; const float* b; const float* f; int M, N; bool vec;
+    __device__ float operator()(float fv, float acc, int n) const {
+        return BIAS_LAST ? (fv + acc) + b[n] : fv + (acc + b[n]);
+    }
+    template <int BM, int BN>
+    __device__ void prefetch(float* tile, int m0, int n0, int tid,
+                             int threads) const {
+        if (vec) {
+            constexpr int Q = BN / 4;
+            for (int e = tid; e < BM * Q; e += threads) {
+                const int r = e / Q, c = (e - r * Q) * 4;
+                const bool ok = m0 + r < M && n0 + c < N;
+                cp_async<4>(tile + r * staged_ld(BN) + c,
+                            ok ? f + (long long)(m0 + r) * N + n0 + c : f, ok);
+            }
+        } else {
+            for (int e = tid; e < BM * BN; e += threads) {
+                const int r = e / BN, c = e - r * BN;
+                const bool ok = m0 + r < M && n0 + c < N;
+                cp_async<1>(tile + r * staged_ld(BN) + c,
+                            ok ? f + (long long)(m0 + r) * N + n0 + c : f, ok);
+            }
+        }
+    }
+    template <int BM, int BN>
+    __device__ void write(const float* tile, int m0, int n0, int tid,
+                          int threads) const {
+        if (vec) {
+            constexpr int Q = BN / 4;
+            for (int e = tid; e < BM * Q; e += threads) {
+                const int r = e / Q, c = (e - r * Q) * 4;
+                if (m0 + r < M && n0 + c < N)
+                    *reinterpret_cast<float4*>(
+                        out + (long long)(m0 + r) * N + n0 + c) =
+                        *reinterpret_cast<const float4*>(
+                            tile + r * staged_ld(BN) + c);
+            }
+        } else {
+            for (int e = tid; e < BM * BN; e += threads) {
+                const int r = e / BN, c = e - r * BN;
+                if (m0 + r < M && n0 + c < N)
+                    out[(long long)(m0 + r) * N + n0 + c] =
+                        tile[r * staged_ld(BN) + c];
+            }
+        }
+    }
+};
+
+// whether a store functor stages a tile of its own input (prefetch, write)
+template <class S, class = void>
+struct HasPrefetch { static constexpr bool value = false; };
+template <class S>
+struct HasPrefetch<S, decltype(void(S::PREFETCH))> {
+    static constexpr bool value = S::PREFETCH;
+};
+
 // A tile shape: BM x BN outputs a block, TM x TN a thread; MINB blocks an
 // SM asked of the register allocator; STREAM_B loads one column's k-quad at
-// a time (a smaller live set) instead of all TN.
+// a time (a smaller live set) instead of all TN; TAIL runs only the k-quads
+// of the last K step that hold a k < K. A skipped quad would add fmaf(0, 0,
+// acc) four times, which returns acc bit for bit: a chain from +0 is never
+// -0 (an exact zero rounds to +0), inf stays inf, and a NaN acc is already
+// the canonical NaN the card's arithmetic returns.
 template <int BM_, int BN_, int TM_, int TN_, int MINB_ = 1,
-          bool STREAM_B_ = false>
+          bool STREAM_B_ = false, bool TAIL_ = false>
 struct Tile {
     static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
     static constexpr int MINB = MINB_;
-    static constexpr bool STREAM_B = STREAM_B_;
+    static constexpr bool STREAM_B = STREAM_B_, TAIL = TAIL_;
     static constexpr int TX = BN / TN, TY = BM / TM, THREADS = TX * TY;
-    static constexpr int SMEM = STAGES * (BM + BN) * PLD * (int)sizeof(float);
+    // floats a ring stage holds: A, W, then the source's extra slabs
+    template <class ASrc>
+    __host__ __device__ static constexpr int stage() {
+        return ((1 + ASrc::EXTRA) * BM + BN) * PLD;
+    }
+    // dynamic shared memory, bytes: the ring, then a staged store's tile
+    template <class ASrc, class Store>
+    __host__ __device__ static constexpr int smem() {
+        int floats = STAGES * stage<ASrc>();
+        if constexpr (HasPrefetch<Store>::value) floats += BM * staged_ld(BN);
+        return floats * (int)sizeof(float);
+    }
 };
 
 template <class T, int V, class ASrc, class Store>
@@ -451,7 +586,7 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
     constexpr int RPP = THREADS / CPR;           // rows a pass
     constexpr int A_PASSES = (BM + RPP - 1) / RPP;
     constexpr int W_PASSES = (BN + RPP - 1) / RPP;
-    constexpr int STAGE = (BM + BN) * PLD;       // floats
+    constexpr int STAGE = T::template stage<ASrc>();   // floats
     static_assert(THREADS % CPR == 0 && TM * TY == BM && TN * TX == BN, "");
     extern __shared__ __align__(16) float smem[];
 
@@ -476,6 +611,10 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
                 bool ok;
                 const float* s = asrc.src(arow[i], cur, ok);
                 cp_async<V>(As + r * PLD + kc, s, ok);
+                if constexpr (ASrc::EXTRA > 0) {   // the extra slab, after W
+                    s = asrc.extra(arow[i], cur, ok);
+                    cp_async<V>(Ws + (BN + r) * PLD + kc, s, ok);
+                }
             }
         }
 #pragma unroll
@@ -497,6 +636,14 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
         if (s < nk) load(s);
         cp_async_commit();
     }
+    // a staged store's input tile: one more group, in flight beside the
+    // ring's, waited for after the K loop
+    constexpr bool PREFETCH = HasPrefetch<Store>::value;
+    if constexpr (PREFETCH) {
+        store.template prefetch<BM, BN>(smem + STAGES * STAGE, m0, n0, tid,
+                                        THREADS);
+        cp_async_commit();
+    }
     float acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -504,18 +651,26 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
     for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<STAGES - 2>();   // step kt's copies have landed
-        if constexpr (ASrc::GELU) {    // this thread's own A copies of it
+        // step kt's copies have landed (the groups committed after step
+        // kt's: the later ring steps, and the staged tile's while kt <
+        // STAGES - 1)
+        if constexpr (PREFETCH) {
+            if (kt < STAGES - 1) cp_async_wait<STAGES - 1>();
+            else cp_async_wait<STAGES - 2>();
+        } else {
+            cp_async_wait<STAGES - 2>();
+        }
+        if constexpr (ASrc::REWRITE) { // this thread's own A copies of it
             float* As = smem + (kt % STAGES) * STAGE;
+            const float* Xs = As + (BM + BN) * PLD;
 #pragma unroll
             for (int i = 0; i < A_PASSES; ++i) {
                 const int r = r0 + i * RPP;
                 if (BM % RPP == 0 || r < BM) {
 #pragma unroll
-                    for (int v = 0; v < V; ++v) {
-                        float* p = As + r * PLD + kc + v;
-                        *p = gelu_as(*p);
-                    }
+                    for (int v = 0; v < V; ++v)
+                        asrc.rewrite(As + r * PLD + kc + v,
+                                     Xs + r * PLD + kc + v);
                 }
             }
         }
@@ -527,6 +682,9 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
         const float* Ws = As + BM * PLD;
 #pragma unroll
         for (int kq = 0; kq < PK; kq += 4) {
+            if constexpr (T::TAIL) {
+                if (kq >= K - kt * PK) break;
+            }
             // k = kq, kq + 1, kq + 2, kq + 3 in turn: each chain in order
             float4 a[TM];
 #pragma unroll
@@ -581,20 +739,38 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
         }
     }
     cp_async_wait<0>();                // no copy outlives the block
-    if constexpr (HasPrepare<Store>::value) {
-        static_assert(STAGES * STAGE >= Store::SMEM_FLOATS, "");
-        __syncthreads();               // every thread is past the ring
-        store.prepare(tid, THREADS);
+    if constexpr (PREFETCH) {
+        float* staged = smem + STAGES * STAGE;
+        __syncthreads();               // every thread's tile copies landed
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+            const int r = ty + i * TY;
+            if (m0 + r >= M) continue;
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+                const int c = tx + j * TX;
+                float* p = staged + r * staged_ld(BN) + c;
+                if (n0 + c < N) *p = store(*p, acc[i][j], n0 + c);
+            }
+        }
         __syncthreads();
-    }
+        store.template write<BM, BN>(staged, m0, n0, tid, THREADS);
+    } else {
+        if constexpr (HasPrepare<Store>::value) {
+            static_assert(STAGES * STAGE >= Store::SMEM_FLOATS, "");
+            __syncthreads();           // every thread is past the ring
+            store.prepare(tid, THREADS);
+            __syncthreads();
+        }
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int gm = m0 + ty + i * TY;
-        if (gm >= M) continue;
+        for (int i = 0; i < TM; ++i) {
+            const int gm = m0 + ty + i * TY;
+            if (gm >= M) continue;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int gn = n0 + tx + j * TX;
-            if (gn < N) store(gm, gn, acc[i][j]);
+            for (int j = 0; j < TN; ++j) {
+                const int gn = n0 + tx + j * TX;
+                if (gn < N) store(gm, gn, acc[i][j]);
+            }
         }
     }
 }
@@ -602,7 +778,8 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
 template <class T, int V, class ASrc, class Store>
 cudaError_t launch_tiled(int M, int N, int K, ASrc a, const float* w,
                          Store store, cudaStream_t stream) {
-    if (T::SMEM > 48 * 1024) {         // opt in above 48 KB, once a device
+    constexpr int SMEM = T::template smem<ASrc, Store>();
+    if (SMEM > 48 * 1024) {            // opt in above 48 KB, once a device
         static bool opted[64];
         int dev;
         cudaError_t err = cudaGetDevice(&dev);
@@ -611,16 +788,24 @@ cudaError_t launch_tiled(int M, int N, int K, ASrc a, const float* w,
         if (!opted[dev]) {
             err = cudaFuncSetAttribute(
                 tiled_kernel<T, V, ASrc, Store>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
             if (err != cudaSuccess) return err;
             opted[dev] = true;
         }
     }
     const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
     if (grid.y > 65535u) return cudaErrorInvalidValue;
-    tiled_kernel<T, V, ASrc, Store><<<grid, T::THREADS, T::SMEM, stream>>>(
+    tiled_kernel<T, V, ASrc, Store><<<grid, T::THREADS, SMEM, stream>>>(
         M, N, K, a, w, store);
     return cudaGetLastError();
+}
+
+// the current device's SM count, which the dispatchers pick tiles by
+cudaError_t sm_count(int* sms) {
+    int dev;
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // Tile shape from (M, N), fitted to the trunk's shapes on the H100 (the
@@ -637,11 +822,8 @@ template <int V, class ASrc, class Store>
 cudaError_t dispatch_tiled(int M, int N, int K, ASrc a, const float* w,
                            Store st, cudaStream_t s) {
     if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
-    int dev, sms;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
+    int sms;
+    const cudaError_t err = sm_count(&sms);
     if (err != cudaSuccess) return err;
     const double per_sm = (double)M * N / sms;
 #define TILE(...) \
@@ -687,11 +869,8 @@ template <int V, class ASrc>
 cudaError_t dispatch_prior(int M, int N, int K, ASrc a, const float* w,
                            StorePriorStaged st, cudaStream_t s) {
     if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
-    int dev, sms;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
+    int sms;
+    const cudaError_t err = sm_count(&sms);
     if (err != cudaSuccess) return err;
     const double per_sm = (double)M * N / sms;
     if (per_sm <= 3000)
@@ -699,6 +878,37 @@ cudaError_t dispatch_prior(int M, int N, int K, ASrc a, const float* w,
     if (N % 48 == 0)
         return launch_tiled<Tile<32, 48, 2, 3>, V>(M, N, K, a, w, st, s);
     return launch_tiled<Tile<32, 32, 2, 2>, V>(M, N, K, a, w, st, s);
+}
+
+// The residual joins' tiles (StoreResidualStaged: fuse_zproj,
+// res_dense_act), fitted on the card at their main-path shapes (PERF.md,
+// the residual joins). K is a latent width or z_proj_0's (8-96: 1-6 K
+// steps) and the feature is read and written once, so the number of
+// blocks and the bytes each has in flight decide, not the FMAs an operand
+// load feeds. By the outputs an SM
+// holds: 16x32 tiles of 2x2 a thread up to ~1.6k (96-384 rows: 72-96
+// blocks), 32x64 of 4x4 up to ~10k (1536 rows), else 64x64 of 4x4 with 256
+// threads a block; a deeper ring (4 or 6 steps) was no faster. The tiles
+// run the last K step's k-quads only up to K (TAIL: K = 8 and 24 on the
+// main path left half or a third of their FMAs to padding). 4-byte copies
+// take one tile.
+template <int V, class ASrc, class Store>
+cudaError_t dispatch_junction(int M, int N, int K, ASrc a, const float* w,
+                              Store st, cudaStream_t s) {
+    if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+    int sms;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const double per_sm = (double)M * N / sms;
+#define TILE(...) \
+    return launch_tiled<Tile<__VA_ARGS__>, V>(M, N, K, a, w, st, s)
+    if constexpr (V == 4) {
+        if (per_sm <= 1600) TILE(16, 32, 2, 2, 1, false, true);
+        if (per_sm <= 10000) TILE(32, 64, 4, 4, 1, false, true);
+        TILE(64, 64, 4, 4, 1, false, true);
+    }
+    TILE(32, 32, 2, 2, 1, false, true);
+#undef TILE
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
@@ -710,7 +920,10 @@ cudaError_t dispatch_rows(const float* x, int M, int N, int K,
                           const float* wt, Store st, cudaStream_t s) {
     const Src src{x, M, K};
     const bool v4 = K % 4 == 0 && aligned16(x) && aligned16(wt);
-    if constexpr (HasPrepare<Store>::value)
+    if constexpr (HasPrefetch<Store>::value)
+        return v4 ? dispatch_junction<4>(M, N, K, src, wt, st, s)
+                  : dispatch_junction<1>(M, N, K, src, wt, st, s);
+    else if constexpr (HasPrepare<Store>::value)
         return v4 ? dispatch_prior<4>(M, N, K, src, wt, st, s)
                   : dispatch_prior<1>(M, N, K, src, wt, st, s);
     else
@@ -1557,13 +1770,51 @@ extern "C" int trunk_prior_head_oldcore(const void* x, int M, int C, int Z,
                             (const float*)wt, store, (cudaStream_t)stream);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:343 fuse_zproj. syms int32 (M, Z);
-// wt (C, Z). Bound: bytes (K = Z; the feature is read and written once);
-// the int32 + pm prologue is folded into the A-tile load.
+// the residual joins' epilogue for an (M, N) output: 16-byte copies and
+// stores where N and both pointers allow
+template <bool BIAS_LAST>
+static StoreResidualStaged<BIAS_LAST> staged_residual(void* out, const void* b,
+                                               const void* feature, int M,
+                                               int N) {
+    return {(float*)out, x_f(b), x_f(feature), M, N,
+            N % 4 == 0 && aligned16(out) && aligned16(feature)};
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:343 fuse_zproj, on the tiled core:
+// feature + ((float)syms + pm) @ w + b. syms int32 (M, Z); wt (C, Z).
+// Bound: bytes (K = Z = 8-96; the feature is read and written once).
+// SymsPmSrc copies the int32 words and pm raw into the ring and converts
+// them in shared memory; StoreResidualStaged reads the feature tile while
+// the product runs and writes the outputs as 16-byte row segments;
+// dispatch_junction's tiles fill the SMs at 96-384 rows. The old core
+// (trunk_fuse_zproj_oldcore) loaded each step element by element with no
+// copy in flight, read the feature only after the product, stored scalars
+// 4 columns apart and ran 12-48 blocks at 96-384 rows. On an H100: 3.5-4.1
+// us a launch at 96-384 rows, 10.5 at 1536 x 96 -> 384, 7.0 at 6144 x 8 ->
+// 256, against the old core's 5.7-6.1 / 13.1 / 12.5 (PERF.md, the residual
+// joins). What holds it back is the tiled core itself: a block runs its
+// copies, K steps and epilogue in turn, and issues about as many
+// instructions as its bytes take.
 extern "C" int trunk_fuse_zproj(const void* feature, const void* syms,
                                 const void* pm, int M, int Z, int C,
                                 const void* wt, const void* b, void* out,
                                 int device, void* stream) {
+    TRY(set_device(device));
+    const SymsPmSrc src{(const int*)syms, x_f(pm), M, Z};
+    const auto store = staged_residual<false>(out, b, feature, M, C);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (Z % 4 == 0 && aligned16(syms) && aligned16(pm) && aligned16(wt))
+        return (int)dispatch_junction<4>(M, C, Z, src, x_f(wt), store, st);
+    return (int)dispatch_junction<1>(M, C, Z, src, x_f(wt), store, st);
+}
+
+// fuse_zproj on the old core (gemm_kernel, LoadSymsPlusPm, StoreResidual):
+// the tiled kernel's bitwise oracle (chip_smoke.py, tests/test_torch_cuda.py),
+// not on the main path.
+extern "C" int trunk_fuse_zproj_oldcore(const void* feature, const void* syms,
+                                        const void* pm, int M, int Z, int C,
+                                        const void* wt, const void* b,
+                                        void* out, int device, void* stream) {
     TRY(set_device(device));
     return (int)launch_gemm(
         M, C, Z, LoadSymsPlusPm{(const int*)syms, (const float*)pm, Z},
@@ -1745,14 +1996,44 @@ extern "C" int trunk_zadd(const void* syms, const void* pm, long long n,
     return (int)cudaGetLastError();
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:663 res_dense_act: feature +
-// gelu(t) @ w + b, added in the JAX kernel's order ((feature + acc) + b),
-// the z_proj_1 residual join. t (M, Ci); wt (C, Ci). Bound: bytes (K = Ci
-// = 48 or 24; the feature is read and written once).
+// Replaces lvae_tpu/ops/pallas/trunk.py:663 res_dense_act, on the tiled
+// core: feature + gelu(t) @ w + b, added in the JAX kernel's order
+// ((feature + acc) + b), the z_proj_1 residual join. t (M, Ci); wt (C, Ci).
+// Bound: bytes (K = Ci = 48 or 24; the feature is read and written once).
+// Without a `scratch`: gelu_as on the staged A tile (GeluRowSrc), one
+// launch; each block applies it once to each element of its A tile, so an
+// element N / BN times in all, as the old core's A-tile load did. With a
+// scratch of M*Ci floats: gelu_prepass, once an element, then the product
+// (DenseSrc), two launches and a round trip of the scratch. Both with
+// StoreResidualStaged and dispatch_junction's tiles, as fuse_zproj. The
+// main path takes the staged GELU (ops/trunk.py res_dense_act): on
+// an H100 it was ahead at every main-path shape but 6144 x 48 -> 384
+// (within 1 %), 4.1-22.4 us a launch against the old core's 9.2-41.2
+// (PERF.md, the residual joins).
 extern "C" int trunk_res_dense_act(const void* feature, const void* t, int M,
                                    int Ci, int C, const void* wt,
-                                   const void* b, void* out, int device,
-                                   void* stream) {
+                                   const void* b, void* scratch, void* out,
+                                   int device, void* stream) {
+    TRY(set_device(device));
+    const auto store = staged_residual<true>(out, b, feature, M, C);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (!scratch)
+        return (int)dispatch_rows<GeluRowSrc>(x_f(t), M, C, Ci, x_f(wt),
+                                              store, st);
+    if (M < 1 || Ci < 1) return (int)cudaErrorInvalidValue;
+    TRY(gelu_prepass(x_f(t), (long long)M * Ci, scratch, st));
+    return (int)dispatch_rows<DenseSrc>(x_f(scratch), M, C, Ci, x_f(wt),
+                                        store, st);
+}
+
+// res_dense_act on the old core (gemm_kernel, LoadGeluRows,
+// StoreResidualBias): the tiled kernel's bitwise oracle, not on the main
+// path.
+extern "C" int trunk_res_dense_act_oldcore(const void* feature, const void* t,
+                                           int M, int Ci, int C,
+                                           const void* wt, const void* b,
+                                           void* out, int device,
+                                           void* stream) {
     TRY(set_device(device));
     return (int)launch_gemm(
         M, C, Ci, LoadGeluRows{x_f(t), Ci}, x_f(wt),

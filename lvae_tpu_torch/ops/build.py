@@ -64,6 +64,8 @@ _SIGNATURES = {
     'trunk_prior_head_oldcore': [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
                                  _I, _P],
     'trunk_fuse_zproj': [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_fuse_zproj_oldcore': [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+                                 _P],
     'trunk_finish_image': [_P, _LL, _P, _I, _P],
     'trunk_dw_ln_affine': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _P],
@@ -75,7 +77,9 @@ _SIGNATURES = {
                            _I, _P],
     'trunk_zadd_dense': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_zadd': [_P, _P, _LL, _P, _I, _P],
-    'trunk_res_dense_act': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_res_dense_act': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    'trunk_res_dense_act_oldcore': [_P, _P, _I, _I, _I, _P, _P, _P, _I,
+                                    _P],
     'trunk_nll_head': [_P, _P, _LL, _P, _I, _F, _F, _P, _P, _I, _P],
     'trunk_nll_recon': [_P, _P, _LL, _F, _P, _I, _P],
 }

@@ -395,11 +395,7 @@ def prior_head_oldcore(x, w, b, table, act=False):
                               b, table, act)
 
 
-def fuse_zproj(feature, syms, pm, w, b):
-    """feature (B, HW, C) + (syms + pm) @ w + b; syms int32 (B, HW, Z): the
-    junction where the decoded integers re-enter the trunk."""
-    if not _on_card('fuse_zproj', feature, syms, pm, w, b):
-        return fuse_zproj_plain(feature, syms, pm, w, b)
+def _fuse_zproj_launch(entry, feature, syms, pm, w, b):
     B, HW, C = feature.shape
     Z = w.shape[0]
     if (syms.dtype != torch.int32 or syms.shape != (B, HW, Z)
@@ -409,12 +405,32 @@ def fuse_zproj(feature, syms, pm, w, b):
     wt, = _f32('fuse_zproj', _out_major(w))
     syms = syms.contiguous()
     out = torch.empty_like(feature)
-    _launch('fuse_zproj', build.library().trunk_fuse_zproj,
-            feature.data_ptr(), syms.data_ptr(), pm.data_ptr(), B * HW, Z, C,
-            wt.data_ptr(), b.data_ptr(), out.data_ptr(),
-            device=feature.device)
+    _launch('fuse_zproj', entry, feature.data_ptr(), syms.data_ptr(),
+            pm.data_ptr(), B * HW, Z, C, wt.data_ptr(), b.data_ptr(),
+            out.data_ptr(), device=feature.device)
+    return out
+
+
+def fuse_zproj(feature, syms, pm, w, b):
+    """feature (B, HW, C) + (syms + pm) @ w + b; syms int32 (B, HW, Z): the
+    junction where the decoded integers re-enter the trunk."""
+    if not _on_card('fuse_zproj', feature, syms, pm, w, b):
+        return fuse_zproj_plain(feature, syms, pm, w, b)
+    out = _fuse_zproj_launch(build.library().trunk_fuse_zproj, feature, syms,
+                             pm, w, b)
     fuse_zproj.launches += 1
     return out
+
+
+def fuse_zproj_oldcore(feature, syms, pm, w, b):
+    """fuse_zproj on the old product core (gemm_kernel, the conversion in
+    its A-tile load): the bitwise oracle of fuse_zproj's tiled kernel in
+    chip_smoke.py and the card tests; not on the main path, and not counted
+    in fuse_zproj.launches."""
+    if not _on_card('fuse_zproj', feature, syms, pm, w, b):
+        return fuse_zproj_plain(feature, syms, pm, w, b)
+    return _fuse_zproj_launch(build.library().trunk_fuse_zproj_oldcore,
+                              feature, syms, pm, w, b)
 
 
 def finish_image(x):
@@ -601,11 +617,10 @@ def zadd(syms, pm):
     return out
 
 
-def res_dense_act(f, t, w, b):
-    """f + gelu(t) @ w + b, added as (f + product) + b; f (B, HW, C), t
-    (B, HW, Ci), w (Ci, C): the z_proj_1 residual join."""
-    if not _on_card('res_dense_act', f, t, w, b):
-        return res_dense_act_plain(f, t, w, b)
+def _res_dense_act_launch(entry, f, t, w, b, prepass=None):
+    """prepass: whether the GELU runs as a pass into a scratch (True) or on
+    the staged tile (False); None for the old core's entry point, which
+    takes no scratch."""
     B, HW, C = f.shape
     Ci = t.shape[2]
     if t.shape != (B, HW, Ci) or w.shape != (Ci, C):
@@ -613,11 +628,48 @@ def res_dense_act(f, t, w, b):
     f, t, b = _f32('res_dense_act', f, t, b)
     wt, = _f32('res_dense_act', _out_major(w))
     out = torch.empty_like(f)
-    _launch('res_dense_act', build.library().trunk_res_dense_act,
-            f.data_ptr(), t.data_ptr(), B * HW, Ci, C, wt.data_ptr(),
-            b.data_ptr(), out.data_ptr(), device=f.device)
+    scratch = ()
+    if prepass is not None:
+        # gelu(t), once per element, for the product to read
+        s = torch.empty_like(t) if prepass else None
+        scratch = (None if s is None else s.data_ptr(),)
+    _launch('res_dense_act', entry, f.data_ptr(), t.data_ptr(), B * HW, Ci,
+            C, wt.data_ptr(), b.data_ptr(), *scratch, out.data_ptr(),
+            device=f.device)
+    return out
+
+
+def res_dense_act(f, t, w, b):
+    """f + gelu(t) @ w + b, added as (f + product) + b; f (B, HW, C), t
+    (B, HW, Ci), w (Ci, C): the z_proj_1 residual join. One launch, the
+    GELU on the staged tile (ahead of the pre-pass design on the card;
+    PERF.md)."""
+    if not _on_card('res_dense_act', f, t, w, b):
+        return res_dense_act_plain(f, t, w, b)
+    out = _res_dense_act_launch(build.library().trunk_res_dense_act, f, t, w,
+                                b, prepass=False)
     res_dense_act.launches += 1
     return out
+
+
+def res_dense_act_prepass(f, t, w, b):
+    """res_dense_act with its GELU as a pass into a scratch first, then the
+    product (two launches): the design the main path does not take, timed
+    and checked beside it in chip_smoke.py; not counted."""
+    if not _on_card('res_dense_act', f, t, w, b):
+        return res_dense_act_plain(f, t, w, b)
+    return _res_dense_act_launch(build.library().trunk_res_dense_act, f, t,
+                                 w, b, prepass=True)
+
+
+def res_dense_act_oldcore(f, t, w, b):
+    """res_dense_act on the old product core (gemm_kernel, the GELU in its
+    A-tile load): the bitwise oracle of res_dense_act's tiled kernel in
+    chip_smoke.py and the card tests; not on the main path, not counted."""
+    if not _on_card('res_dense_act', f, t, w, b):
+        return res_dense_act_plain(f, t, w, b)
+    return _res_dense_act_launch(build.library().trunk_res_dense_act_oldcore,
+                                 f, t, w, b)
 
 
 # ---- the lossless pixel head (lvae_tpu/ops/pallas/trunk.py:740-822) -------

@@ -3,8 +3,9 @@ versions at every lane count the codec uses, the decode kernel on its
 corner cases, the encode on its corner cases against its row-sync oracle
 kernel, B single launches and the plain versions, the trunk kernels
 against theirs at qarv_tiny and qres_tiny shapes, dense, conv_kxk_act,
-mlp_res, dense_act and prior_head (the tiled product core) bitwise against
-the old core (the _oldcore entry points) at ragged shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
+mlp_res, dense_act, prior_head, fuse_zproj and res_dense_act (the tiled
+product core) bitwise against the old core (the _oldcore entry points) at
+ragged shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
 against the warp-per-pixel kernel, the lossless head's two kernels against
 theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless round trips
 (legacy and portable) through them.
@@ -427,8 +428,8 @@ def test_tiled_core_conv_equals_old_core(card):
 
 
 # per kernel: shapes of each tile family (dense: M, C, N; conv_kxk_act: H,
-# W, Ci, Co, act; dense_act: M, C, N, act; prior_head: M, C, Z, act), the
-# main path's among them
+# W, Ci, Co, act; dense_act: M, C, N, act; prior_head: M, C, Z, act;
+# fuse_zproj: M, Z, C; res_dense_act: M, Ci, C), the main path's among them
 _FAMILY_SHAPES = {
     'dense': [(96, 512, 2048), (384, 512, 1536), (1536, 384, 1024),
               (6144, 256, 512), (24576, 128, 48), (95, 90, 24)],
@@ -441,7 +442,11 @@ _FAMILY_SHAPES = {
     'prior_head': [(96, 512, 64, False), (1536, 384, 192, False),
                    (6144, 256, 16, False), (96, 96, 32, True),
                    (6144, 96, 20, True), (24576, 48, 16, True),
-                   (95, 10, 1, False)]}
+                   (95, 10, 1, False)],
+    'fuse_zproj': [(96, 32, 512), (384, 32, 512), (1536, 96, 384),
+                   (6144, 8, 256), (95, 10, 24)],
+    'res_dense_act': [(96, 48, 384), (1536, 48, 384), (6144, 48, 384),
+                      (24576, 24, 192), (95, 14, 24)]}
 
 
 @pytest.mark.parametrize('name', sorted(_FAMILY_SHAPES))
@@ -449,7 +454,8 @@ def test_tiled_core_batch_launches_and_repeat(card, name):
     """One launch counted per call, the same bits on a repeat, the first
     image of a batch of two its bits alone (the tile shape may follow the
     row count; no output's chain does), at shapes of each tile family;
-    dense_act and prior_head also bitwise their _oldcore oracles."""
+    dense_act, prior_head, fuse_zproj and res_dense_act also bitwise their
+    _oldcore oracles."""
     import chip_smoke
     from lvae_tpu_torch.ops import trunk
     rng = np.random.default_rng(9)
@@ -462,6 +468,14 @@ def test_tiled_core_batch_launches_and_repeat(card, name):
             args = [_f(rng, card, 1, H, W, Ci),
                     _f(rng, card, 3, 3, Ci, Co, scale=(9 * Ci) ** -0.5),
                     _f(rng, card, Co), act]
+        elif name in ('fuse_zproj', 'res_dense_act'):
+            M, K, C = shape
+            args = [_f(rng, card, 1, M, C), _f(rng, card, 1, M, K),
+                    _f(rng, card, K, C, scale=K ** -0.5), _f(rng, card, C)]
+            if name == 'fuse_zproj':
+                syms = torch.as_tensor(rng.integers(-40, 41, (1, M, K)),
+                                       dtype=torch.int32, device=card)
+                args[1:2] = [syms, _f(rng, card, 1, M, K)]
         else:
             M, C, N = shape[:3]
             N = 2 * N if name == 'prior_head' else N
@@ -480,10 +494,12 @@ def test_tiled_core_batch_launches_and_repeat(card, name):
                                    if name == 'prior_head'
                                    else trunk.PLAIN[fn](*args),
                                    atol=1e-5, rtol=1e-4)
-        if name in ('dense_act', 'prior_head'):
+        if name in ('dense_act', 'prior_head', 'fuse_zproj',
+                    'res_dense_act'):
             assert chip_smoke.core_bitwise(torch, name, args, got), shape
         two = list(args)
-        two[0] = torch.cat([args[0], args[0].flip(-1)])
+        for i in chip_smoke.PER_IMAGE_ARGS[name]:
+            two[i] = torch.cat([args[i], args[i].flip(-1)])
         two_t = fn(*two)
         two_t = two_t if isinstance(two_t, tuple) else (two_t,)
         assert all(torch.equal(t[:1], g) for t, g in zip(two_t, got_t)), \
@@ -507,6 +523,25 @@ def test_dense_act_and_prior_head_equal_old_core_synthetic(card):
     per_kernel = (trunk.dense_act.launches - counts[0],
                   trunk.prior_head.launches - counts[1])
     assert sum(per_kernel) == calls, per_kernel
+
+
+def test_fuse_zproj_and_res_dense_act_equal_old_core_synthetic(card):
+    """fuse_zproj and res_dense_act (both GELU designs) on the tiled core are
+    bitwise their _oldcore oracles on a smaller copy of chip_smoke's
+    synthetic check (rows 1 to 6144, depths 1 to 96 with the 4-byte
+    copies, widths 24 to 512, unaligned inputs, symbols up to 2^24 - 1,
+    NaN/inf rows, -0 in the feature); only the main wrappers count
+    launches, one a call."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    counts = trunk.fuse_zproj.launches, trunk.res_dense_act.launches
+    cases, bad, calls = chip_smoke.check_junction_synthetic(
+        torch, card, Ms=(1, 95, 385, 6144), Ks=(1, 8, 10, 14, 24, 48, 96),
+        Ns=(24, 192, 512))
+    assert cases == 3 * 4 * 7 * 3 * 2 and not bad, bad[:5]
+    per_kernel = (trunk.fuse_zproj.launches - counts[0],
+                  trunk.res_dense_act.launches - counts[1])
+    assert per_kernel == (calls // 2, calls // 2), per_kernel
 
 
 def test_mlp_res_equals_old_core(card):
