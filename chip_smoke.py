@@ -51,7 +51,18 @@
    kernel, bitwise against the warp-per-pixel kernel (the _warp entry
    points) at synthetic ragged shapes: H and W of 1, 3, 5, 13 and 130, C of
    8, 40, 128, 200, 384 and 512, K of 1, 3, 5, 7, 9 and 31 (in bands of
-   tap rows), and at 13 x 130 a B = 2 input 4 bytes off 16-byte alignment;
+   tap rows), and at 13 x 130 a B = 2 input 4 bytes off 16-byte alignment.
+   Then it holds emb_mlp's thread-block cluster kernel bitwise against the
+   one-block kernel it replaced (emb_mlp_oneblock) at widths 32, 256, 34 x
+   36, 6 x 5 and 2048 (weights past shared memory), B = 1, 2, 6, 7 and 200
+   (rows in chunks at 256 and 2048), clusters of 8 and 16 CTAs, and zadd_conv_kxk
+   (z_proj_0 with the integer junction on its staged taps) bitwise against
+   zadd then conv_kxk_act(act=False) at qres34m's four z_proj_0 shapes (B =
+   1, 2 and 6) and on H and W of 1 to 13 with Z of 1 to 17, symbols up to
+   +-(2^24 - 1), -0, NaN and +-inf in pm, and unaligned inputs, with the
+   fused conv and its plain version each within the float32 rounding bound
+   of the float64 value (f64_witness); and times emb_mlp at qarv_base's
+   widths, B = 1 and 6, at both cluster sizes beside the one-block kernel;
 3. runs qarv_base with the committed weights on images/photo1_512x768.png
    through compress_file / decompress_file at lambda 16, 512 and 2048, on
    the legacy trunk and on the portable trunk (the main path: files are
@@ -66,8 +77,11 @@
    gives the first image the bits it gets alone, holds dense, mlp_res,
    prior_head and fuse_zproj bitwise against the old core (as at every
    later captured shape, for every kernel of CORE_NAMES, at B = 1 and B =
-   2) and dw_ln_mod (as dw_ln_affine later) against the warp-per-pixel
-   kernel, and times each kernel, its plain version, for the kernels of
+   2), dw_ln_mod (as dw_ln_affine later) against the warp-per-pixel
+   kernel and emb_mlp (as zadd_conv_kxk later) against the design it
+   replaced (REDESIGN_ORACLES: oracle_ms; emb_mlp's portable cluster of 8
+   CTAs, cluster8_ms; zadd_conv_kxk's conv alone, conv_alone_ms), and times each
+   kernel, its plain version, for the kernels of
    OLD_CORE_TIMED the old core (old_core_ms), for prior_head its product
    alone (product_ms: dense_act_staged on the same inputs), for dense_act
    with its GELU pre-pass the one-launch design with the GELU on the staged
@@ -110,7 +124,9 @@
    batch; the six QRes kernels, and the four kernels it shares with qarv,
    held against their plain versions at every shape of one encode and
    decode (B = 1 against B = 2 bitwise, CUDA-graph, plain and library
-   times); bench.py's qres34m enc_ms / dec_ms on both trunks; then, with
+   times), and zadd, off the main path since z_proj_0 runs as
+   zadd_conv_kxk, on the (syms, pm) of zadd_conv_kxk's calls (zadd_oracle);
+   bench.py's qres34m enc_ms / dec_ms on both trunks; then, with
    one channel of the last latent block's posterior scaled x3000 so that
    escapes occur, a portable, a legacy and a B = 2 round trip bitwise;
 8. runs qres34m_lossless at full width (random weights as in 7, N = 128,
@@ -137,7 +153,8 @@
    against the PNG's).
 
 Standard output: one JSON object per line (build, card, multi_kernels,
-rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, codec, trunk, batch, qres,
+rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
+codec, trunk, batch, qres,
 qres_trunk, lossless, lossless_trunk, fresh_process), the card line of
 nvidia-smi, the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -185,7 +202,7 @@ QARV_TRUNK = ('emb_mlp', 'dw_ln_mod', 'mlp_res', 'dense', 'prior_head',
 # the QRes-VAE trunk's own kernels (it also runs mlp_res, dense, prior_head
 # and finish_image)
 QRES_TRUNK = ('dw_ln_affine', 'dense_act', 'conv_kxk_act', 'zadd_dense',
-              'zadd', 'res_dense_act')
+              'zadd_conv_kxk', 'res_dense_act')
 TRUNK_NAMES = QARV_TRUNK + QRES_TRUNK
 QRES_PATH_TRUNK = QRES_TRUNK + ('mlp_res', 'dense', 'prior_head',
                                 'finish_image')
@@ -195,7 +212,9 @@ LOSSLESS_TRUNK = ('nll_head', 'nll_recon')
 TRUNK_NAMES = TRUNK_NAMES + LOSSLESS_TRUNK
 RANS_NAMES = ('rans_encode_all', 'rans_decode_block',
               'rans_encode_all_multi', 'rans_decode_block_multi')
-_NONE = dict.fromkeys(RANS_NAMES + TRUNK_NAMES, 0)
+# every counted kernel; zadd is counted but runs on no main path (with
+# conv_kxk_act(act=False) after it, zadd_conv_kxk's oracle: zadd_oracle)
+_NONE = dict.fromkeys(RANS_NAMES + TRUNK_NAMES + ('zadd',), 0)
 EXPECTED_LAUNCHES = {
     False: (dict(_NONE, rans_encode_all=1), dict(_NONE, rans_decode_block=9)),
     True: (dict(_NONE, rans_encode_all=1, emb_mlp=1, dw_ln_mod=24,
@@ -207,11 +226,11 @@ EXPECTED_LAUNCHES = {
 # 512x768 image: 12 latent blocks (one at kernel size 1, eleven at 3/5/7),
 # each 2 plain ConvNeXt blocks (dw_ln_affine + mlp_res), a prior (dense_act,
 # then two 3x3 conv_kxk_act or at size 1 two more dense_act, then
-# prior_head) and a fuse (zadd + 3x3 conv_kxk_act, or zadd_dense; then
-# res_dense_act); 4 upsample convs between the stages, and on decode the
-# tail's upsample conv and the finish
+# prior_head) and a fuse (the 3x3 z_proj_0 as zadd_conv_kxk, or
+# zadd_dense; then res_dense_act); 4 upsample convs between the stages, and
+# on decode the tail's upsample conv and the finish. zadd launches nowhere
 _QRES = dict(_NONE, dw_ln_affine=24, mlp_res=24, dense_act=14,
-             conv_kxk_act=33, prior_head=12, zadd=11, zadd_dense=1,
+             conv_kxk_act=22, prior_head=12, zadd_conv_kxk=11, zadd_dense=1,
              res_dense_act=12, dense=4)
 EXPECTED_QRES_LAUNCHES = (
     dict(_QRES, rans_encode_all=1),
@@ -296,6 +315,26 @@ DW_NAMES = ('dw_ln_mod', 'dw_ln_affine')
 DW_HW, DW_C, DW_K = (1, 3, 5, 13, 130), (8, 40, 128, 200, 384, 512), \
     (1, 3, 5, 7, 9, 31)
 DW_SEED = 11
+# emb_mlp's cluster kernel against its one-block oracle: (E0, E) widths
+# (qarv_tiny's 32, qarv_base's 256; 34 x 36 and 6 x 5, ragged against the
+# lanes and the cluster, 5 below it; 2048, whose weight rows do not fit in
+# shared memory), batch sizes (200: more rows than shared memory holds at
+# 256 and 2048, so they run in chunks), clusters of 8 and 16 CTAs, lambdas
+# over [1, 8192]
+EMB_WIDTHS = ((32, 32), (256, 256), (34, 36), (6, 5), (2048, 2048))
+EMB_B = (1, 2, 6, 7, 200)
+# the cluster kernel's entries by CTAs: the main path's, the 8-CTA yardstick
+EMB_CLUSTERS = {16: 'emb_mlp', 8: 'emb_mlp_cluster8'}
+EMB_LAMBDAS = (776.0468820533245, 16.0, 512.0, 2048.0, 1.0, 8192.0, 37.5)
+# zadd_conv_kxk against zadd then conv_kxk_act(act=False): qres34m's z_proj_0
+# shapes (H, W, Z) at B of ZCONV_B and Co of ZCONV_CO, then every H and W of
+# ZCONV_HW (below 3 too) with Z of ZCONV_Z, and Z % 4 == 0 also from inputs
+# 4 bytes off 16 (the 4-byte copies); pm holds -0 in every fifth value and,
+# where there are two pixels or more, NaN, +inf and -inf in the middle one
+ZCONV_MAIN = ((16, 24, 14), (32, 48, 12), (64, 96, 10), (128, 192, 8))
+ZCONV_B, ZCONV_CO = (1, 2, 6), (24, 48)
+ZCONV_HW, ZCONV_Z = (1, 2, 3, 5, 13), tuple(range(1, 18))
+ZCONV_SEED = 15
 # timing: medians of 5 kernel runs; the plain versions are host-bound
 # references taking seconds, so theirs are medians of 3, the first of which
 # is the run whose output the kernel is compared with
@@ -1468,6 +1507,7 @@ PER_IMAGE_ARGS = {'emb_mlp': (0,), 'dw_ln_mod': (0, 5), 'mlp_res': (0, 6),
                   'finish_image': (0,), 'dw_ln_affine': (0,),
                   'dense_act': (0,), 'conv_kxk_act': (0,),
                   'zadd_dense': (0, 1), 'zadd': (0, 1),
+                  'zadd_conv_kxk': (0, 1),
                   'res_dense_act': (0, 1), 'nll_head': (0, 1),
                   'nll_recon': (0, 1)}
 
@@ -1514,14 +1554,14 @@ def capture_trunk_inputs(encode, decode, names=QARV_TRUNK):
     return inputs, calls
 
 
-def compare_trunk_kernel(torch, name, args):
-    """One trunk kernel against its plain version on `args`: -> (outputs,
-    max abs err, largest err over the tolerance, index flips, whether every
-    flip lies at a table entry)."""
+def compare_trunk_kernel(torch, name, args, fn=None):
+    """One trunk kernel (or `fn`, another design of the same function)
+    against its plain version on `args`: -> (outputs, max abs err, largest
+    err over the tolerance, index flips, whether every flip lies at a table
+    entry)."""
     from lvae_tpu_torch.ops import trunk
-    fn = getattr(trunk, name)
-    got = fn(*args)
-    want = trunk.PLAIN[fn](*args)
+    got = (fn or getattr(trunk, name))(*args)
+    want = trunk.PLAIN[getattr(trunk, name)](*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err, worst, flips, flips_ok = 0.0, 0.0, 0, True
@@ -1597,9 +1637,12 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
                        if name in CORE_NAMES else None)
             warp_ok = (warp_bitwise(torch, name, args, got[0])
                        if name in DW_NAMES else None)
+            oracle_ok = (oracle_bitwise(torch, name, args, got)
+                         if name in REDESIGN_ORACLES else None)
             rows.append(dict(images=sig[0][0][0], max_abs_err=err,
                              err_over_tolerance=worst, index_flips=flips,
-                             core_bitwise=core_ok, warp_bitwise=warp_ok))
+                             core_bitwise=core_ok, warp_bitwise=warp_ok,
+                             oracle_bitwise=oracle_ok))
             require_trunk_match(f'{name} at batch shapes {sig} (max abs err '
                                 f'{err:.3g})', worst, flips_ok)
             require(core_ok is not False, f'{name} at batch shapes {sig}: '
@@ -1608,6 +1651,9 @@ def check_trunk_batch_shapes(torch, model, ims, lmbs):
             require(warp_ok is not False, f'{name} at batch shapes {sig}: '
                                           f'not bitwise equal to the '
                                           f'warp-per-pixel kernel')
+            require(oracle_ok is not False, f'{name} at batch shapes {sig}: '
+                                            f'not bitwise equal to the '
+                                            f'design it replaced')
         # every kernel runs on the whole chunk: its first argument leads
         # with the chunk's image count
         batches = sorted({r['images'] for r in rows})
@@ -1703,6 +1749,11 @@ def work(name, args):
     if name == 'zadd':
         syms, pm = args
         return 4 * 3 * n(pm), n(pm)
+    if name == 'zadd_conv_kxk':
+        syms, pm, wk, b = args
+        M = syms.shape[0] * syms.shape[1] * syms.shape[2]
+        return (4 * (n(syms) + n(pm) + M * wk.shape[-1] + n(wk) + n(b)),
+                2 * M * n(wk) + n(pm))
     if name == 'res_dense_act':
         f, t, w, b = args
         M = f.shape[0] * f.shape[1]
@@ -1722,9 +1773,12 @@ def work(name, args):
 
 LIBRARY_CALLS = {
     'dense': 'torch.addmm(b, x, w), TF32 off',
-    'conv_kxk_act': 'F.conv2d (cuDNN, TF32 off) on the launches without '
-                    'GELU (z_proj_0); none computes the GELU-first conv',
-    'zadd': 'torch.add(syms, pm) (int32 + float32 promotes to float32)'}
+    'conv_kxk_act': 'F.conv2d (cuDNN, TF32 off) on launches without GELU, '
+                    'of which the main path has none (z_proj_0 runs as '
+                    'zadd_conv_kxk); none computes the GELU-first conv',
+    'zadd': 'torch.add(syms, pm) (int32 + float32 promotes to float32)',
+    'zadd_conv_kxk': 'F.conv2d (cuDNN, TF32 off) on z = syms.float() + pm '
+                     'computed beforehand'}
 
 
 # operations of one GELU (the A&S erf polynomial: |x|, the reciprocal, ten
@@ -1736,16 +1790,19 @@ def library_call(torch, name, args):
     """One PyTorch call computing the same function on the same inputs,
     where there is one: torch.addmm for dense (and dense_act without its
     GELU), F.conv2d for conv_kxk_act without its GELU (NHWC views, weight
-    in torch's layout prepared outside the call), torch.add for zadd; else
-    None."""
+    in torch's layout prepared outside the call), the same on z =
+    syms.float() + pm computed beforehand for zadd_conv_kxk, torch.add for
+    zadd; else None."""
     import torch.nn.functional as F
     if name == 'dense' or (name == 'dense_act' and len(args) > 3
                            and not args[3]):
         x, w, b = args[:3]
         x2 = x.reshape(-1, x.shape[-1])
         return lambda: torch.addmm(b, x2, w)
-    if name == 'conv_kxk_act' and len(args) > 3 and not args[3]:
-        x, wk, b = args[:3]
+    if name == 'zadd_conv_kxk' or (name == 'conv_kxk_act' and len(args) > 3
+                                   and not args[3]):
+        x, wk, b = ((args[0].float() + args[1], *args[2:])
+                    if name == 'zadd_conv_kxk' else args[:3])
         xc = x.permute(0, 3, 1, 2)
         wc = wk.permute(3, 2, 0, 1).contiguous()
         return lambda: F.conv2d(xc, wc, b, padding=(wk.shape[0] - 1) // 2)
@@ -1832,6 +1889,39 @@ def core_bitwise(torch, name, args, got=None):
     want = want if isinstance(want, tuple) else (want,)
     return len(got) == len(want) and all(
         same_bits(torch, g, w) for g, w in zip(got, want))
+
+
+# kernels held bitwise against the design they replaced, which stays as
+# their oracle: emb_mlp's cluster kernel against the one-block kernel (also
+# at the portable cluster of 8 CTAs), zadd_conv_kxk against zadd then the
+# conv
+REDESIGN_ORACLES = ('emb_mlp', 'zadd_conv_kxk')
+
+
+def replaced_design(torch, name, args):
+    """The design a kernel of REDESIGN_ORACLES replaced, on the same inputs:
+    emb_mlp_oneblock; zadd then conv_kxk_act(act=False), z written and read
+    back."""
+    from lvae_tpu_torch.ops import trunk
+    if name == 'emb_mlp':
+        return trunk.emb_mlp_oneblock(*args)
+    syms, pm, wk, b = args
+    return trunk.conv_kxk_act(trunk.zadd(syms, pm), wk, b, False)
+
+
+def oracle_bitwise(torch, name, args, got=None):
+    """Whether the kernel's outputs equal replaced_design's bit for bit
+    (same_bits); for emb_mlp also at a cluster of 8 CTAs."""
+    from lvae_tpu_torch.ops import trunk
+    fn = getattr(trunk, name)
+    runs = [fn(*args) if got is None else got]
+    if name == 'emb_mlp':
+        runs.append(trunk.emb_mlp_cluster8(*args))
+    want = replaced_design(torch, name, args)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(len(g) == len(want) and all(
+        same_bits(torch, a, w) for a, w in zip(g, want))
+        for g in (r if isinstance(r, tuple) else (r,) for r in runs))
 
 
 def prior_table_smem():
@@ -2162,8 +2252,166 @@ def check_dw_synthetic(torch, device):
                        'trunk_dw_ln_affine_warp)')
 
 
+def zconv_args(torch, g, B, H, W, Z, Co, unaligned, device):
+    """zadd_conv_kxk's arguments (syms, pm, wk, b) at (B, H, W, Z) into Co
+    channels, 3x3, from the generator g: junction_symbols; pm normal with
+    -0 in every fifth value and, where there are two pixels or more, NaN,
+    +inf and -inf at the middle pixel; syms and pm 4 bytes off 16 where
+    `unaligned`."""
+    n = B * H * W * Z
+    s = junction_symbols(torch, g, n + 1, device)
+    pm = torch.randn(n + 1, generator=g, device=device)
+    s, pm = (s[1:], pm[1:]) if unaligned else (s[:n], pm[:n])
+    pm[::5] = -0.0
+    if B * H * W > 1:
+        mid = (B * H * W // 2) * Z
+        pm[mid:mid + min(Z, 3)] = torch.tensor(
+            [math.nan, math.inf, -math.inf], device=device)[:Z]
+    wk = torch.randn(3, 3, Z, Co, generator=g, device=device) * (
+        9 * Z) ** -0.5
+    return (s.reshape(B, H, W, Z), pm.reshape(B, H, W, Z), wk,
+            torch.randn(Co, generator=g, device=device) * 0.1)
+
+
+def f64_witness(torch, args, outs):
+    """Where the outputs `outs` of zadd_conv_kxk's function on `args` lie
+    against its float64 value: z = syms + pm in float32 (zadd), then the
+    conv in float64. Any float32 summation order of the n = K*K*Z + 1 terms
+    (products and the bias) lies within gamma_n * (sum |w||z| + |b|) of it,
+    gamma_n = n*u / (1 - n*u), u = 2^-24 (Higham, the inner product bound;
+    plus float64's own). -> [(largest share of that bound, max abs err)]
+    an output; where the float64 value is not finite, the output must be
+    the same NaN or infinity, else the share is inf."""
+    import torch.nn.functional as F
+    from lvae_tpu_torch.ops import trunk
+    syms, pm, wk, b = args
+    z = trunk.zadd_plain(syms, pm).double()
+    B, H, W, _ = z.shape
+    K, Z, Co = wk.shape[0], wk.shape[2], wk.shape[3]
+    p = (K - 1) // 2
+    zp = F.pad(z, (0, 0, p, p, p, p))
+    exact = b.double().expand(B, H, W, Co).clone()
+    mag = exact.abs()
+    for di in range(K):
+        for dj in range(K):
+            tap, w = zp[:, di:di + H, dj:dj + W], wk[di, dj].double()
+            exact += tap @ w
+            mag += tap.abs() @ w.abs()
+    n = K * K * Z + 1
+    bound = sum(n * u / (1 - n * u) for u in (2.0 ** -24, 2.0 ** -53)) * mag
+    fin = torch.isfinite(exact)
+    res = []
+    for y in outs:
+        y = y.double()
+        inf = torch.isinf(exact)
+        same = bool(torch.equal(torch.isnan(y), torch.isnan(exact))
+                    and torch.equal(y[inf], exact[inf]))
+        d, bd = (y - exact)[fin].abs(), bound[fin]
+        share = torch.where(bd > 0, d / bd.clamp_min(1e-300),
+                            (d > 0).double() * math.inf)
+        res.append((float(share.max()) if same and d.numel() else
+                    (0.0 if same else math.inf),
+                    float(d.max()) if d.numel() else 0.0))
+    return res
+
+
+def zconv_cases():
+    """(B, H, W, Z, Co, unaligned) of zadd_conv_kxk's synthetic check."""
+    import itertools
+    cases = [(B, H, W, Z, Co, False) for (H, W, Z), B, Co in
+             itertools.product(ZCONV_MAIN, ZCONV_B, ZCONV_CO)]
+    return cases + [(1, H, W, Z, Co, u) for H, W, Z, Co in itertools.product(
+        ZCONV_HW, ZCONV_HW, ZCONV_Z, ZCONV_CO)
+        for u in ((False, True) if Z % 4 == 0 else (False,))]
+
+
+def check_emb_zadd_synthetic(torch, device):
+    """emb_mlp (cluster kernel) against emb_mlp_oneblock and zadd_conv_kxk
+    against zadd then conv_kxk_act(act=False), bitwise (same_bits), at the
+    shapes of EMB_* and ZCONV_* (inputs from seeded generators on the
+    card); emb_mlp's device times at qarv_base's widths, B = 1 and 6."""
+    import itertools
+    from lvae_tpu_torch.ops import trunk
+    g = torch.Generator(device=device).manual_seed(ZCONV_SEED)
+
+    def f(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    cases, bad, times = 0, [], {}
+    for E0, E in EMB_WIDTHS:
+        # the weights as the model passes them: .t() views of torch's
+        # (out, in) Linear weights, which the wrapper reads without a copy
+        w = (torch.as_tensor(trunk.emb_freqs(E0, 64), device=device),
+             f(E, E0, scale=E0 ** -0.5).t(), f(E, scale=0.1),
+             f(E, E, scale=E ** -0.5).t(), f(E, scale=0.1), 64)
+        for B, cl in itertools.product(EMB_B, EMB_CLUSTERS):
+            lmb = torch.tensor([EMB_LAMBDAS[i % len(EMB_LAMBDAS)]
+                                for i in range(B)], device=device)
+            cases += 1
+            got = getattr(trunk, EMB_CLUSTERS[cl])(lmb, *w)
+            want = trunk.emb_mlp_oneblock(lmb, *w)
+            if not all(same_bits(torch, a, b) for a, b in zip(got, want)):
+                bad.append(dict(kernel='emb_mlp', E0=E0, E=E, B=B,
+                                cluster=cl))
+        if (E0, E) == (256, 256):
+            for B in (1, 6):
+                lmb = torch.tensor(EMB_LAMBDAS[:B], device=device)
+                times[f'B{B}'] = {
+                    f'cluster{cl}_ms': graph_ms(
+                        torch, lambda: getattr(trunk, fn)(lmb, *w),
+                        TRUNK_INNER) for cl, fn in EMB_CLUSTERS.items()}
+                times[f'B{B}']['oneblock_ms'] = graph_ms(
+                    torch, lambda: trunk.emb_mlp_oneblock(lmb, *w),
+                    TRUNK_INNER)
+    zcases = zconv_cases()
+    # the kernel and the plain version against the float64 value (their
+    # summation orders differ, so they differ by rounding): the largest
+    # share of the rounding bound and the max abs err, each
+    f64 = dict(kernel=[0.0, 0.0], plain=[0.0, 0.0])
+    for c in zcases:
+        cases += 1
+        args = zconv_args(torch, g, *c, device)
+        got = trunk.zadd_conv_kxk(*args)
+        if not oracle_bitwise(torch, 'zadd_conv_kxk', args, got):
+            bad.append(dict(zip(('kernel', 'B', 'H', 'W', 'Z', 'Co',
+                                 'unaligned'), ('zadd_conv_kxk',) + c)))
+        for key, r in zip(f64, f64_witness(
+                torch, args, (got, trunk.zadd_conv_kxk_plain(*args)))):
+            f64[key] = [max(a, b) for a, b in zip(f64[key], r)]
+    torch.cuda.synchronize()
+    progress(f'emb_mlp and zadd_conv_kxk, synthetic shapes: {cases} cases, '
+             f'{len(bad)} not bitwise equal to their oracles; emb_mlp at '
+             f'256: {times}; zadd_conv_kxk against float64: {f64}')
+    require(not bad, f'emb_mlp / zadd_conv_kxk not bitwise equal to their '
+                     f'oracles at {bad[:5]}')
+    require(all(r[0] <= 1.0 for r in f64.values()),
+            f'zadd_conv_kxk or its plain version past the float32 rounding '
+            f'bound of the float64 value: {f64}')
+    return dict(cases=cases, bitwise=True,
+                emb_mlp=dict(widths=[list(w) for w in EMB_WIDTHS],
+                             B=list(EMB_B), clusters=list(EMB_CLUSTERS),
+                             lambdas=list(EMB_LAMBDAS),
+                             oracle='emb_mlp_oneblock',
+                             qarv_base_times=times),
+                zadd_conv_kxk=dict(
+                    cases=len(zcases), main_shapes=[list(m) for m in
+                                                    ZCONV_MAIN],
+                    B=list(ZCONV_B), Co=list(ZCONV_CO), H=list(ZCONV_HW),
+                    W=list(ZCONV_HW), Z=list(ZCONV_Z), K=3,
+                    unaligned='Z % 4 == 0: syms and pm 4 bytes off 16',
+                    symbols='junction_symbols: up to +-(2^24 - 1)',
+                    pm='-0 every fifth value; NaN, +inf, -inf at the '
+                       'middle pixel',
+                    oracle='zadd then conv_kxk_act(act=False)',
+                    f64_witness={k: dict(bound_share=v[0], max_abs_err=v[1])
+                                 for k, v in f64.items()},
+                    f64_bound='gamma_n (sum |w||z| + |b|), n = K*K*Z + 1, '
+                              'u = 2^-24, z = syms + pm in float32'))
+
+
 # the other designs and yardsticks timed beside a main-path call
-DESIGN_KEYS = ('product_ms', 'staged_gelu_ms', 'prepass_ms', 'addmm_ms')
+DESIGN_KEYS = ('product_ms', 'staged_gelu_ms', 'prepass_ms', 'addmm_ms',
+               'cluster8_ms', 'conv_alone_ms')
 
 
 def design_times(torch, name, args):
@@ -2177,9 +2425,19 @@ def design_times(torch, name, args):
     and res_dense_act the addmm yardstick (addmm_ms: torch.addmm(feature,
     a, w), TF32 off, on its operand a computed beforehand, syms.float() +
     pm or the plain _gelu(t): the product and the residual in one library
-    call, without the bias and the prologue)."""
+    call, without the bias and the prologue); for emb_mlp its cluster kernel
+    at the portable 8 CTAs (cluster8_ms); for zadd_conv_kxk the conv alone on z
+    computed beforehand (conv_alone_ms: conv_kxk_act(act=False), the launch
+    it replaced without zadd's)."""
     from lvae_tpu_torch.ops import trunk
     out = {}
+    if name == 'emb_mlp':
+        out['cluster8_ms'] = graph_ms(
+            torch, lambda: trunk.emb_mlp_cluster8(*args), TRUNK_INNER)
+    if name == 'zadd_conv_kxk':
+        z = trunk.zadd_plain(*args[:2])
+        out['conv_alone_ms'] = graph_ms(torch, lambda: trunk.conv_kxk_act(
+            z, *args[2:], False), TRUNK_INNER)
     if name == 'prior_head':
         x, w, b = args[:3]
         act = args[4] if len(args) > 4 else False
@@ -2202,6 +2460,37 @@ def design_times(torch, name, args):
     return out
 
 
+def zadd_oracle(torch, args):
+    """zadd, which zadd_conv_kxk replaced (with conv_kxk_act(act=False)
+    after it, that kernel's oracle), on the (syms, pm) of one of its calls:
+    its error against zadd_plain, its device time, the plain version's and
+    torch.add's, and its work. zadd runs on no main path."""
+    from lvae_tpu_torch.ops import trunk
+    sub = args[:2]
+    _, err, worst, _, _ = compare_trunk_kernel(torch, 'zadd', sub)
+    require(worst <= 1.0, 'zadd disagrees with its plain version')
+    nbytes, ops = work('zadd', sub)
+    return dict(max_abs_err=err, ms=graph_ms(
+        torch, lambda: trunk.zadd(*sub), TRUNK_INNER), plain_ms=graph_ms(
+        torch, lambda: trunk.zadd_plain(*sub), TRUNK_PLAIN_INNER, repeats=3),
+        library_ms=graph_ms(torch, library_call(torch, 'zadd', sub),
+                            TRUNK_INNER), bytes=nbytes, ops=ops)
+
+
+def zadd_per_image(shapes):
+    """zadd_oracle's rows of zadd_conv_kxk's shapes over one image's calls:
+    the times and work summed, the error's maximum, the bound."""
+    calls = [r['encode_calls'] + r['decode_calls'] for r in shapes]
+    out = {k: sum(r['zadd'][k] * n for r, n in zip(shapes, calls))
+           for k in ('ms', 'plain_ms', 'library_ms', 'bytes', 'ops')}
+    bytes_ms = out['bytes'] / HBM_BYTES_PER_S * 1e3
+    ops_ms = out['ops'] / SCALAR_OPS_PER_S * 1e3
+    return dict(out, calls=sum(calls),
+                max_abs_err=max(r['zadd']['max_abs_err'] for r in shapes),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+
+
 def check_trunk_kernels(torch, names, cases):
     """Each trunk kernel of `names` against its plain version on the card at
     every main-path shape, the B=1 vs B=2 bitwise check, and the times. The
@@ -2209,7 +2498,10 @@ def check_trunk_kernels(torch, names, cases):
     decode) of `cases` (decode takes what encode returns); the per-image
     launch and time sums count the first case's calls, the others add the
     shapes it lacks. Library times (one PyTorch call computing the same
-    function, TF32 off) are summed over the launches that have one."""
+    function, TF32 off) are summed over the launches that have one. The
+    redesigns' oracles are held against the plain version too
+    (oracle_max_abs_err); zadd_conv_kxk's calls also check and time zadd
+    on their (syms, pm) (zadd_oracle)."""
     from lvae_tpu_torch.ops import trunk
 
     label, encode, decode = cases[0]
@@ -2247,6 +2539,10 @@ def check_trunk_kernels(torch, names, cases):
             warp_ok = (warp_bitwise(torch, name, args, got[0])
                        and warp_bitwise(torch, name, args2, two[0])
                        if name in DW_NAMES else None)
+            # the redesigns against the design they replaced, likewise
+            oracle_ok = (oracle_bitwise(torch, name, args, got)
+                         and oracle_bitwise(torch, name, args2, two)
+                         if name in REDESIGN_ORACLES else None)
             # device times from CUDA-graph replays; the eager time (what
             # the codec pays, host launch time included) beside the
             # kernel's
@@ -2258,6 +2554,17 @@ def check_trunk_kernels(torch, names, cases):
             old_core_ms = (graph_ms(torch, lambda: core_oracle(
                 torch, name, args), TRUNK_INNER)
                 if name in OLD_CORE_TIMED else None)
+            oracle_ms = oracle_err = None
+            if name in REDESIGN_ORACLES:
+                oracle_ms = graph_ms(torch, lambda: replaced_design(
+                    torch, name, args), TRUNK_INNER)
+                _, oracle_err, oracle_worst, _, _ = compare_trunk_kernel(
+                    torch, name, args,
+                    lambda *a: replaced_design(torch, name, a))
+                require(oracle_worst <= 1.0, f'{name}\'s oracle disagrees '
+                                             f'with the plain version')
+            zadd = (zadd_oracle(torch, args) if name == 'zadd_conv_kxk'
+                    else None)
             designs = design_times(torch, name, args)
             library_ms = warp_ms = two_calls_ms = None
             lib = library_call(torch, name, args)
@@ -2279,8 +2586,10 @@ def check_trunk_kernels(torch, names, cases):
                 decode_calls=n_dec, max_abs_err=err,
                 err_over_tolerance=worst, index_flips=flips,
                 flips_at_table_entries=flips_ok, batch_independent=batch_ok,
-                core_bitwise=core_ok, warp_bitwise=warp_ok, ms=ms,
-                eager_ms=eager_ms, old_core_ms=old_core_ms,
+                core_bitwise=core_ok, warp_bitwise=warp_ok,
+                oracle_bitwise=oracle_ok, ms=ms, eager_ms=eager_ms,
+                old_core_ms=old_core_ms, oracle_ms=oracle_ms,
+                oracle_max_abs_err=oracle_err, zadd=zadd,
                 **{k: designs.get(k) for k in DESIGN_KEYS},
                 warp_oracle_ms=warp_ms, plain_ms=plain_ms,
                 library_ms=library_ms, two_calls_ms=two_calls_ms,
@@ -2305,6 +2614,8 @@ def check_trunk_kernels(torch, names, cases):
                     f'{what}: not bitwise equal to the old product core')
             require(r['warp_bitwise'] is not False,
                     f'{what}: not bitwise equal to the warp-per-pixel kernel')
+            require(r['oracle_bitwise'] is not False,
+                    f'{what}: not bitwise equal to the design it replaced')
 
         def per_image(key, enc=1, dec=1, rows=shapes):
             """key summed over one image's launches (encode, decode)."""
@@ -2335,8 +2646,16 @@ def check_trunk_kernels(torch, names, cases):
                                             rows=staged_rows),
                 'kernel_ms_where_staged': per_image('ms', rows=staged_rows)}
                if staged_rows else {}),
-            **{k: per_image(k) for k in ('prepass_ms', 'addmm_ms')
+            **{k: per_image(k) for k in ('prepass_ms', 'addmm_ms',
+                                         'cluster8_ms', 'conv_alone_ms',
+                                         'oracle_ms')
                if all(r[k] is not None for r in shapes)},
+            **({'oracle_bitwise_shapes': len(shapes),
+                'oracle_max_abs_err': max(r['oracle_max_abs_err']
+                                          for r in shapes)}
+               if name in REDESIGN_ORACLES else {}),
+            **({'zadd': zadd_per_image(shapes)}
+               if name == 'zadd_conv_kxk' else {}),
             **({'core_bitwise_shapes': len(shapes)}
                if name in CORE_NAMES else {}),
             **({'warp_oracle_ms': per_image('warp_oracle_ms'),
@@ -2436,7 +2755,8 @@ def run_qres(torch, tmpdir):
 
     # 4. every trunk kernel of the path (the six QRes kernels and the four
     # it shares with qarv) against its plain version at every shape of one
-    # photo1 encode + decode, B = 1 against B = 2; the trunk's device time
+    # photo1 encode + decode, B = 1 against B = 2 (zadd_conv_kxk's calls
+    # also check zadd); the trunk's device time
     kernels = check_trunk_kernels(torch, QRES_PATH_TRUNK, [
         ('photo1', lambda: model.compress(im), model.decompress)])
     trunk_ms = {d: sum(r[f'{d}_ms'] for r in kernels.values())
@@ -2972,6 +3292,7 @@ def main():
     emit({'rans_encode_checks': rans_encode_checks(torch, device)})
     emit({'tiled_core': check_core_synthetic(torch, device)})
     emit({'dw_tile': check_dw_synthetic(torch, device)})
+    emit({'emb_zadd': check_emb_zadd_synthetic(torch, device)})
 
     t = time.perf_counter()
     model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
@@ -3046,7 +3367,10 @@ def main():
         require(launches[name] == 0 and qres_launches[name] == 0,
                 f'a lossy file path launched {name}')
         launches[name] = lossless_launches[name]
-    require(all(v > 0 for v in launches.values()),
+    require(launches['zadd'] == qres_launches['zadd']
+            == lossless_launches['zadd'] == 0,
+            'zadd, an oracle, was launched on a main path')
+    require(all(v > 0 for n, v in launches.items() if n != 'zadd'),
             f'a kernel was not launched on its main path: {launches}')
     rans_sources = {
         'rans_encode_all': 'lvae_tpu/ops/pallas/rans_encode.py:217',
@@ -3066,6 +3390,7 @@ def main():
         'conv_kxk_act': 'lvae_tpu/ops/pallas/trunk.py:563',
         'zadd_dense': 'lvae_tpu/ops/pallas/trunk.py:609',
         'zadd': 'lvae_tpu/ops/pallas/trunk.py:636',
+        'zadd_conv_kxk': 'lvae_tpu/ops/pallas/trunk.py:636 + :563',
         'res_dense_act': 'lvae_tpu/ops/pallas/trunk.py:663',
         'nll_head': 'lvae_tpu/ops/pallas/trunk.py:767',
         'nll_recon': 'lvae_tpu/ops/pallas/trunk.py:807'}
@@ -3143,8 +3468,15 @@ def main():
             eager_ms=r['eager_ms'],
             **{k: r[k] for k in ('old_core_ms', 'product_ms',
                                  'staged_gelu_ms', 'kernel_ms_where_staged',
-                                 'prepass_ms', 'addmm_ms')
+                                 'prepass_ms', 'addmm_ms', 'oracle_ms',
+                                 'oracle_bitwise_shapes',
+                                 'oracle_max_abs_err', 'cluster8_ms',
+                                 'conv_alone_ms')
                if k in r},
+            **({'oracle': {'emb_mlp': 'emb_mlp_oneblock (one block a row)',
+                           'zadd_conv_kxk': 'zadd, then conv_kxk_act('
+                                            'act=False)'}[name]}
+               if name in REDESIGN_ORACLES else {}),
             **({'addmm': 'torch.addmm(feature, a, w), TF32 off, a = '
                          + ('syms.float() + pm' if name == 'fuse_zproj'
                             else 'the plain _gelu(t)')
@@ -3167,6 +3499,35 @@ def main():
             library_call=LIBRARY_CALLS.get(name),
             library_launches=r['library_launches'],
             kernel_ms_where_library=r['kernel_ms_where_library']))
+    # the oracles off the main path, on the inputs of the main-path calls
+    # they replaced, as often: emb_mlp's one-block kernel (plain_ms and
+    # bound_ms: the same function on the same inputs as emb_mlp's), and zadd
+    # on zadd_conv_kxk's (syms, pm)
+    emb = trunk['emb_mlp']
+    entries.append(dict(
+        name='emb_mlp_oneblock', route='cuda',
+        source='lvae_tpu_torch/csrc/trunk.cu',
+        replaces=trunk_sources['emb_mlp'], launches=0, on_main_path=False,
+        oracle_of='emb_mlp', timed_on="the inputs of emb_mlp's calls, as "
+                                      "often", launches_unit=unit,
+        max_abs_err=emb['oracle_max_abs_err'],
+        tolerance=f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}',
+        ms=emb['oracle_ms'], plain_ms=emb['plain_ms'],
+        bound_ms=emb['bound_ms'], bound_by=emb['bound_by'],
+        library_ms=None))
+    za = qres_kernels['zadd_conv_kxk']['zadd']
+    entries.append(dict(
+        name='zadd', route='cuda', source='lvae_tpu_torch/csrc/trunk.cu',
+        replaces=trunk_sources['zadd'], launches=launches['zadd'],
+        launches_encode=0, launches_decode=0, on_main_path=False,
+        oracle_of='zadd_conv_kxk', timed_on="the (syms, pm) of "
+                                            "zadd_conv_kxk's calls, as often",
+        calls_timed=za['calls'], launches_unit=qres_unit,
+        max_abs_err=za['max_abs_err'],
+        tolerance=f'atol {TRUNK_ATOL:g} + rtol {TRUNK_RTOL:g}',
+        ms=za['ms'], plain_ms=za['plain_ms'], bound_ms=za['bound_ms'],
+        bound_by=za['bound_by'], library_ms=za['library_ms'],
+        library_call=LIBRARY_CALLS['zadd']))
     print(smi, flush=True)
     emit({'kernels': entries})
     print(json.dumps({'ok': True, 'device': {

@@ -38,13 +38,15 @@
 //   memory, prior_head's scale table staged in shared memory for its index
 //   epilogue, and the residual joins' feature tile read into shared memory
 //   while the product runs: dense, conv_kxk_act, mlp_res's two products,
-//   dense_act, prior_head, fuse_zproj and res_dense_act.
+//   dense_act, prior_head, fuse_zproj, res_dense_act and zadd_conv_kxk
+//   (z_proj_0 with the integer junction converted on its staged taps).
 // Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
 // (padded steps add fmaf(0, 0, acc), or are skipped where that returns acc
 // bit for bit), so they give the same bits; tiling only moves which thread
 // runs a chain, which may follow M (so the batch size) because no chain
 // depends on it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -273,7 +275,8 @@ cudaError_t launch_gemm(int M, int N, int K, Load load, const float* w,
 //   extra slab and converts them in the same slot; ConvSrc is the implicit
 //   K x K conv: each tile row's pixel (b, h, w) is decoded once before the
 //   K loop and each thread walks its depth k = (di*K + dj)*Ci + ci as a
-//   (tap, channel) cursor advanced by adds, no per-element division.
+//   (tap, channel) cursor advanced by adds, no per-element division;
+//   ConvSymsPmSrc is ConvSrc over syms and pm with SymsPmSrc's conversion.
 // - Epilogue hooks. A store functor with a prepare(tid, threads) member
 //   (StorePriorStaged) gets the ring's shared memory once the last copy has
 //   landed and every thread is past the K loop, and stages what its stores
@@ -402,6 +405,37 @@ struct ConvSrc {
             c.ci -= Ci;
             if (++c.dj == K) { c.dj = 0; ++c.di; }
         }
+    }
+};
+
+// z_proj_0's A operand with the integer junction folded in (zadd_conv_kxk):
+// A(m, k) = (float)syms[b, h+di-p, w+dj-p, ci] + pm[the same], 0 off the
+// image. ConvSrc's cursor and padding walk the int32 syms words (its x),
+// which land raw in the A slab; pm's copy of the same element lands in the
+// extra slab; the rewrite is zadd_kernel's expression. A zero-filled copy
+// (off the image, the ragged edges) is int 0 and +0.f: (float)0 + 0.f ==
+// +0, ConvSrc's padding, so the conv's outputs are bitwise those of zadd
+// then conv_kxk_act(act=False).
+struct ConvSymsPmSrc {
+    static constexpr bool REWRITE = true;
+    static constexpr int EXTRA = 1;
+    ConvSrc conv; const float* pm;
+    using Row = ConvSrc::Row;
+    using Cursor = ConvSrc::Cursor;
+    __device__ Row row(int m) const { return conv.row(m); }
+    __device__ Cursor cursor(int k) const { return conv.cursor(k); }
+    __device__ const float* src(const Row& r, const Cursor& c,
+                                bool& ok) const {
+        return conv.src(r, c, ok);
+    }
+    __device__ const float* extra(const Row& r, const Cursor& c,
+                                  bool& ok) const {
+        const float* s = conv.src(r, c, ok);
+        return pm + (s - conv.x);      // conv.x itself where not ok
+    }
+    __device__ void advance(Cursor& c) const { conv.advance(c); }
+    __device__ void rewrite(float* a, const float* x) const {
+        *a = (float)__float_as_int(*a) + *x;
     }
 };
 
@@ -951,15 +985,179 @@ __global__ void gelu1_kernel(const float* __restrict__ x, long long n,
 }
 
 // ---------------------------------------------------------------------------
-// emb_mlp. Replaces lvae_tpu/ops/pallas/trunk.py:122 emb_mlp. One block per
-// batch row: log-lambda sinusoid -> Linear -> GELU -> Linear, then gelu(emb),
-// each output of the two products by one warp (warp_dot).
-// Bound: bytes (two 256x256 weight reads, 0.5 MB); the warps read the
-// weight rows coalesced, so the launch dominates a function that runs once
-// per image.
+// emb_mlp. Replaces lvae_tpu/ops/pallas/trunk.py:122 emb_mlp: log-lambda
+// sinusoid -> Linear -> GELU -> Linear, then gelu(emb), each output of the
+// two products one warp_dot. Bound: bytes (two 256x256 weight reads, 0.5
+// MB: 0.16 us on the card), but a function that runs once an image is
+// latency: what counts is how many dependent trips to device memory it
+// makes, on how many SMs.
+// Two kernels compute it with the same arithmetic, so the same bits:
+// - emb_mlp_cluster_kernel, the one the wrapper launches: one thread-block
+//   cluster (EMB_CLUSTER = 16 CTAs, the largest, non-portable size) for the
+//   whole batch, 16 warps a CTA. CTA r owns outputs
+//   [r*E/CL, (r+1)*E/CL) of both products and copies its rows of both
+//   weights into shared memory at entry (cp.async, two groups), so both
+//   products' weight traffic is in flight at once on CL SMs, while every
+//   CTA computes the sinusoid of all rows itself. Each warp runs its
+//   outputs' chains for up to EMB_ROWS batch rows at once, each weight
+//   read once from shared memory for all of them. The first product's
+//   slices go to every CTA's shared memory through distributed shared
+//   memory (lane p stores into CTA p), a cluster barrier, the second
+//   product, and a second barrier before the next chunk of rows (or the
+//   exit). A split cluster barrier (arrive at entry, wait before the first
+//   product) keeps every store into a peer from coming before that peer
+//   has started. Where a CTA's weight rows do not fit in shared memory beside
+//   one row of x and h, they are read from device memory instead; where
+//   the batch's x and h do not fit beside the weights, the rows run in
+//   chunks. On an H100 (PERF.md row 5; chip_smoke.py's emb_zadd line) a
+//   launch at qarv_base's widths takes 7.8 us at B = 1 and 10.8 at B = 6
+//   with 16 CTAs, 10.2 / 13.8 with 8. The time is a chain of latencies:
+//   the cluster launch, the weight copies, in each product one output's
+//   chain of dependent shared loads, shuffle tree and GELU a warp, and
+//   the two cluster barriers.
+// - emb_mlp_kernel, one 512-thread block per batch row reading the weight
+//   rows from device memory, one dependent trip an output (0.066 ms a
+//   qarv_base image on an H100, PERF.md): the cluster kernel's bitwise
+//   oracle (trunk_emb_mlp_oneblock), off the main path.
 // ---------------------------------------------------------------------------
 
 constexpr int EMB_THREADS = 512;
+constexpr int EMB_CLUSTER_THREADS = 512;
+constexpr int EMB_ROWS = 8;      // batch rows a warp's chains run at once
+// CTAs of the cluster: 16 ran ~25 % faster than the portable 8 on an H100
+// (PERF.md row 5; trunk_emb_mlp_cluster8 is the 8-CTA yardstick)
+constexpr int EMB_CLUSTER = 16;
+
+// first output of CTA r's slice of E outputs, in a cluster of CL
+__host__ __device__ __forceinline__ int emb_slice(int r, int E, int CL) {
+    return (int)((long long)r * E / CL);
+}
+
+// warp_dot of up to R rows of x (row stride ldx, nr of them) with one
+// weight row: lane l runs each row's chain k = l, l + 32, ... in order, the
+// weight element read once for every row, then warp_sum; each sum has
+// warp_dot's bits
+template <int R>
+__device__ __forceinline__ void rows_dot(const float* x, int ldx, int nr,
+                                         const float* w, int K, int lane,
+                                         float (&acc)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    for (int k = lane; k < K; k += 32) {
+        const float wk = w[k];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+            if (i < nr) acc[i] = fmaf(x[i * ldx + k], wk, acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = warp_sum(acc[i]);
+}
+
+// n floats from src into shared dst by cp.async, V floats a copy
+template <int V>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int n, int tid, int threads) {
+    for (int e = tid * V; e < n; e += threads * V)
+        cp_async<V>(dst + e, src + e, true);
+}
+
+__global__ void __launch_bounds__(EMB_CLUSTER_THREADS)
+emb_mlp_cluster_kernel(const float* __restrict__ lmb, int B,
+                       const float* __restrict__ freqs,
+                       const float* __restrict__ w0t,
+                       const float* __restrict__ b0,
+                       const float* __restrict__ w1t,
+                       const float* __restrict__ b1, int E0, int E,
+                       float scale, int chunk, int staged, int vec,
+                       float* __restrict__ emb, float* __restrict__ gemb) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int CL = (int)cluster.num_blocks();
+    const int lo = emb_slice((int)cluster.block_rank(), E, CL);
+    const int rows = emb_slice((int)cluster.block_rank() + 1, E, CL) - lo;
+    const int rows_max = (E + CL - 1) / CL;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int nwarps = blockDim.x / 32, half = E0 / 2;
+    // shared: [w0 rows_max x E0][w1 rows_max x E] where staged, then the
+    // chunk's x (chunk x E0) and h (chunk x E)
+    extern __shared__ __align__(16) float sm[];
+    float* x = sm + (staged ? (long long)rows_max * (E0 + E) : 0);
+    float* h = x + (long long)chunk * E0;
+    const float* w0 = w0t + (long long)lo * E0;   // this CTA's rows
+    const float* w1 = w1t + (long long)lo * E;
+    if (staged) {
+        float* w1s = sm + (long long)rows_max * E0;
+        if (vec) copy_rows<4>(sm, w0, rows * E0, tid, blockDim.x);
+        else copy_rows<1>(sm, w0, rows * E0, tid, blockDim.x);
+        cp_async_commit();
+        if (vec) copy_rows<4>(w1s, w1, rows * E, tid, blockDim.x);
+        else copy_rows<1>(w1s, w1, rows * E, tid, blockDim.x);
+        cp_async_commit();
+        w0 = sm;
+        w1 = w1s;
+    }
+    // no CTA stores into a peer's shared memory before every CTA of the
+    // cluster has started: arrive here, wait before the first product
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    for (int c0 = 0; c0 < B; c0 += chunk) {
+        const int nb = min(chunk, B - c0);
+        // the sinusoid of the chunk's rows: emb_mlp_kernel's expressions
+        for (int e = tid; e < nb * half; e += blockDim.x) {
+            const int b = e / half, j = e - b * half;
+            const float scaled = logf(lmb[c0 + b]) * scale;
+            const float arg = scaled * freqs[j];
+            x[b * E0 + j] = cosf(arg);
+            x[b * E0 + half + j] = sinf(arg);
+        }
+        if (staged && c0 == 0) cp_async_wait<1>();     // w0's rows
+        __syncthreads();
+        if (c0 == 0)                 // every CTA of the cluster has started
+            asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+        // h = gelu(x @ w0 + b0) on this CTA's outputs, into every CTA
+        for (int n = warp; n < rows; n += nwarps) {
+            const float bias = b0[lo + n];
+            for (int g = 0; g < nb; g += EMB_ROWS) {
+                float acc[EMB_ROWS];
+                rows_dot<EMB_ROWS>(x + g * E0, E0, nb - g, w0 + n * E0, E0,
+                                   lane, acc);
+#pragma unroll
+                for (int i = 0; i < EMB_ROWS; ++i) {
+                    if (g + i >= nb) break;
+                    const float v = gelu_as(acc[i] + bias);
+                    if (lane < CL)
+                        cluster.map_shared_rank(h, lane)[(g + i) * E + lo + n]
+                            = v;
+                }
+            }
+        }
+        if (staged && c0 == 0) {
+            cp_async_wait<0>();                         // w1's rows
+            __syncthreads();
+        }
+        cluster.sync();              // every slice of h is in every CTA
+        for (int n = warp; n < rows; n += nwarps) {
+            const float bias = b1[lo + n];
+            for (int g = 0; g < nb; g += EMB_ROWS) {
+                float acc[EMB_ROWS];
+                rows_dot<EMB_ROWS>(h + g * E, E, nb - g, w1 + n * E, E, lane,
+                                   acc);
+                if (lane == 0) {
+#pragma unroll
+                    for (int i = 0; i < EMB_ROWS; ++i) {
+                        if (g + i >= nb) break;
+                        const float e = acc[i] + bias;
+                        const long long o = (long long)(c0 + g + i) * E + lo + n;
+                        emb[o] = e;
+                        gemb[o] = gelu_as(e);
+                    }
+                }
+            }
+        }
+        // no CTA rewrites a peer's h (next chunk) or exits while a peer
+        // may still read its own
+        cluster.sync();
+    }
+}
 
 __global__ void __launch_bounds__(EMB_THREADS)
 emb_mlp_kernel(const float* __restrict__ lmb, const float* __restrict__ freqs,
@@ -1523,7 +1721,9 @@ __global__ void finish_kernel(const float* __restrict__ x, long long n,
 // zadd. Replaces lvae_tpu/ops/pallas/trunk.py:636 zadd: float(syms) + pm,
 // the decoded integers re-entering the QRes trunk before its 3x3 z_proj_0.
 // Bound: bytes (4 + 4 read, 4 written an element); a grid-stride loop of
-// coalesced accesses.
+// coalesced accesses. Off the main path: qres_fuse runs z_proj_0 as
+// trunk_zadd_conv_kxk, which converts the staged tile itself; this kernel
+// followed by trunk_conv_kxk_act is that entry's bitwise oracle.
 // ---------------------------------------------------------------------------
 
 __global__ void zadd_kernel(const int* __restrict__ s,
@@ -1607,11 +1807,93 @@ const float* x_f(const void* p) { return (const float*)p; }
         if (err_ != cudaSuccess) return (int)err_;   \
     } while (0)
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:122 emb_mlp. w0t (E, E0), w1t (E, E).
+// emb_mlp on one thread-block cluster of `cluster` CTAs (at most 16; above
+// 8 the non-portable sizes). w0t (E, E0), w1t (E, E).
+static int emb_mlp_cluster(const void* lmb, int B, const void* freqs,
+                           const void* w0t, const void* b0, const void* w1t,
+                           const void* b1, int E0, int E, float scale,
+                           int cluster, void* emb, void* gemb, int device,
+                           void* stream) {
+    if (B < 1 || E0 < 2 || E0 % 2 || E < 1) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    int dev;
+    TRY(cudaGetDevice(&dev));
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    static int limit[64];            // opt-in shared memory, once a device
+    if (!limit[dev]) {
+        int l;
+        TRY(cudaDeviceGetAttribute(
+            &l, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+        TRY(cudaFuncSetAttribute(emb_mlp_cluster_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 l));
+        TRY(cudaFuncSetAttribute(
+            emb_mlp_cluster_kernel,
+            cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+        limit[dev] = l;
+    }
+    // the weights' rows where they fit beside one row of x and h, then as
+    // many rows of x and h as fit
+    const long long row_bytes = (long long)(E0 + E) * sizeof(float);
+    const long long w_bytes = (long long)((E + cluster - 1) / cluster)
+                              * row_bytes;
+    const int staged = w_bytes + row_bytes <= limit[dev];
+    const long long room = limit[dev] - (staged ? w_bytes : 0);
+    long long chunk = room / row_bytes;
+    if (chunk < 1) return (int)cudaErrorInvalidValue;
+    if (chunk > B) chunk = B;
+    const int vec = E0 % 4 == 0 && E % 4 == 0 && aligned16(w0t)
+                    && aligned16(w1t);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster);
+    cfg.blockDim = dim3(EMB_CLUSTER_THREADS);
+    cfg.dynamicSmemBytes = (size_t)((staged ? w_bytes : 0) + chunk * row_bytes);
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    TRY(cudaLaunchKernelEx(&cfg, emb_mlp_cluster_kernel, x_f(lmb), B,
+                           x_f(freqs), x_f(w0t), x_f(b0), x_f(w1t), x_f(b1),
+                           E0, E, scale, (int)chunk, staged, vec,
+                           (float*)emb, (float*)gemb));
+    return (int)cudaGetLastError();
+}
+
+// Replaces lvae_tpu/ops/pallas/trunk.py:122 emb_mlp: one cluster of
+// EMB_CLUSTER CTAs.
 extern "C" int trunk_emb_mlp(const void* lmb, int B, const void* freqs,
                              const void* w0t, const void* b0, const void* w1t,
                              const void* b1, int E0, int E, float scale,
                              void* emb, void* gemb, int device, void* stream) {
+    return emb_mlp_cluster(lmb, B, freqs, w0t, b0, w1t, b1, E0, E, scale,
+                           EMB_CLUSTER, emb, gemb, device, stream);
+}
+
+// The same kernel on the portable cluster of 8 CTAs: the yardstick of
+// EMB_CLUSTER and a second partition for the bitwise checks (chip_smoke.py,
+// tests/test_torch_cuda.py), not on the main path.
+extern "C" int trunk_emb_mlp_cluster8(const void* lmb, int B,
+                                      const void* freqs, const void* w0t,
+                                      const void* b0, const void* w1t,
+                                      const void* b1, int E0, int E,
+                                      float scale, void* emb, void* gemb,
+                                      int device, void* stream) {
+    return emb_mlp_cluster(lmb, B, freqs, w0t, b0, w1t, b1, E0, E, scale, 8,
+                           emb, gemb, device, stream);
+}
+
+// emb_mlp on the one-block-a-row kernel: the cluster kernel's bitwise
+// oracle (chip_smoke.py, tests/test_torch_cuda.py), not on the main path.
+extern "C" int trunk_emb_mlp_oneblock(const void* lmb, int B,
+                                      const void* freqs, const void* w0t,
+                                      const void* b0, const void* w1t,
+                                      const void* b1, int E0, int E,
+                                      float scale, void* emb, void* gemb,
+                                      int device, void* stream) {
     if (B < 1 || E0 < 2 || E0 % 2 || E < 1) return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
     emb_mlp_kernel<<<B, EMB_THREADS, (E0 + E) * sizeof(float),
@@ -1972,6 +2254,35 @@ extern "C" int trunk_conv_kxk_act(const void* x, int B, int H, int W, int Ci,
     return (int)dispatch_tiled<1>(M, Co, K * K * Ci, src, x_f(wt), store, st);
 }
 
+// Replaces lvae_tpu/ops/pallas/trunk.py:636 zadd together with the
+// :563 conv_kxk_act(act=False) that reads its output: z_proj_0 of a QRes
+// latent block at kernel size >= 3, a 'same' K x K conv of float(syms) +
+// pm. syms int32 and pm (B, H, W, Z); wt (Co, K*K*Z) tap-major as
+// trunk_conv_kxk_act's; out (B, H, W, Co). z is never written: the
+// conversion runs on the staged A tile (ConvSymsPmSrc), so one launch
+// replaces zadd's elementwise pass, its write and the conv's read of z.
+// The same tiles (dispatch_tiled) and bias-after-chain order as
+// trunk_conv_kxk_act, so bitwise its outputs on zadd's z; the staged A
+// bytes double (the extra slab), which at Z <= 16 into 24-48 channels
+// (qres34m) sit beside a chain of K*K*Z FMAs an output.
+extern "C" int trunk_zadd_conv_kxk(const void* syms, const void* pm, int B,
+                                   int H, int W, int Z, int K, int Co,
+                                   const void* wt, const void* b, void* out,
+                                   int device, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || Z < 1 || K < 1 || K % 2 != 1 || Co < 1)
+        return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int M = B * H * W;
+    const ConvSymsPmSrc src{ConvSrc{(const float*)syms, M, H, W, Z, K,
+                                    K * K * Z}, x_f(pm)};
+    const StoreBias store{(float*)out, x_f(b), Co};
+    if (Z % 4 == 0 && aligned16(syms) && aligned16(pm) && aligned16(wt))
+        return (int)dispatch_tiled<4>(M, Co, K * K * Z, src, x_f(wt), store,
+                                      st);
+    return (int)dispatch_tiled<1>(M, Co, K * K * Z, src, x_f(wt), store, st);
+}
+
 // Replaces lvae_tpu/ops/pallas/trunk.py:609 zadd_dense: (syms + pm) @ w + b,
 // the 1x1 z_proj_0 of a kernel-size-1 block. syms int32 (M, Z); wt (CO, Z).
 // Bound: bytes (K = Z); the int32 + pm prologue is folded into the A-tile
@@ -1986,7 +2297,8 @@ extern "C" int trunk_zadd_dense(const void* syms, const void* pm, int M,
                             (cudaStream_t)stream);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:636 zadd.
+// Replaces lvae_tpu/ops/pallas/trunk.py:636 zadd (the oracle of
+// trunk_zadd_conv_kxk's conversion; not on the main path).
 extern "C" int trunk_zadd(const void* syms, const void* pm, long long n,
                           void* out, int device, void* stream) {
     if (n < 1) return (int)cudaErrorInvalidValue;

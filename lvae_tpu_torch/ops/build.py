@@ -52,6 +52,10 @@ _SIGNATURES = {
                                       _P, _LL, _LL, _P, _P, _I, _P],
     'trunk_emb_mlp': [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I,
                       _P],
+    'trunk_emb_mlp_cluster8': [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P,
+                               _P, _I, _P],
+    'trunk_emb_mlp_oneblock': [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P,
+                               _P, _I, _P],
     'trunk_dw_ln_mod': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                         _P, _I, _P],
     'trunk_dw_ln_mod_warp': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
@@ -77,6 +81,8 @@ _SIGNATURES = {
                            _I, _P],
     'trunk_zadd_dense': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_zadd': [_P, _P, _LL, _P, _I, _P],
+    'trunk_zadd_conv_kxk': [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                            _P],
     'trunk_res_dense_act': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     'trunk_res_dense_act_oldcore': [_P, _P, _I, _I, _I, _P, _P, _P, _I,
                                     _P],

@@ -250,11 +250,7 @@ def _launch(name, fn, *args, device):
     build.check(err, name)
 
 
-def emb_mlp(lmb, freqs, w0, b0, w1, b1, sin_period):
-    """lmb (B,) -> (emb (B, E), gelu(emb) (B, E)): log-lambda sinusoid ->
-    Linear -> GELU -> Linear. freqs (1, E0/2); w0 (E0, E); w1 (E, E)."""
-    if not _on_card('emb_mlp', lmb, freqs, w0, b0, w1, b1):
-        return emb_mlp_plain(lmb, freqs, w0, b0, w1, b1, sin_period)
+def _emb_mlp_launch(entry, lmb, freqs, w0, b0, w1, b1, sin_period):
     B = lmb.numel()
     E0, E = w0.shape
     if freqs.numel() * 2 != E0 or w1.shape != (E, E):
@@ -264,12 +260,46 @@ def emb_mlp(lmb, freqs, w0, b0, w1, b1, sin_period):
     emb = torch.empty((B, E), dtype=torch.float32, device=lmb.device)
     gemb = torch.empty_like(emb)
     scale = float(sin_period) / math.log(8192.0)
-    _launch('emb_mlp', build.library().trunk_emb_mlp, lmb.data_ptr(), B,
-            freqs.data_ptr(), w0t.data_ptr(), b0.data_ptr(), w1t.data_ptr(),
-            b1.data_ptr(), E0, E, scale, emb.data_ptr(), gemb.data_ptr(),
+    _launch('emb_mlp', entry, lmb.data_ptr(), B, freqs.data_ptr(),
+            w0t.data_ptr(), b0.data_ptr(), w1t.data_ptr(), b1.data_ptr(), E0,
+            E, scale, emb.data_ptr(), gemb.data_ptr(),
             device=lmb.device)
-    emb_mlp.launches += 1
     return emb, gemb
+
+
+def emb_mlp(lmb, freqs, w0, b0, w1, b1, sin_period):
+    """lmb (B,) -> (emb (B, E), gelu(emb) (B, E)): log-lambda sinusoid ->
+    Linear -> GELU -> Linear. freqs (1, E0/2); w0 (E0, E); w1 (E, E). On the
+    card one launch of a thread-block cluster of 16 CTAs, each holding a
+    slice of both weights in shared memory."""
+    if not _on_card('emb_mlp', lmb, freqs, w0, b0, w1, b1):
+        return emb_mlp_plain(lmb, freqs, w0, b0, w1, b1, sin_period)
+    out = _emb_mlp_launch(build.library().trunk_emb_mlp, lmb, freqs, w0, b0,
+                          w1, b1, sin_period)
+    emb_mlp.launches += 1
+    return out
+
+
+def emb_mlp_cluster8(lmb, freqs, w0, b0, w1, b1, sin_period):
+    """emb_mlp's cluster kernel on the portable cluster of 8 CTAs: the
+    yardstick of the main path's 16 and a second partition for its bitwise
+    checks (chip_smoke.py, the card tests); not on the main path, and not
+    counted in emb_mlp.launches."""
+    if not _on_card('emb_mlp', lmb, freqs, w0, b0, w1, b1):
+        return emb_mlp_plain(lmb, freqs, w0, b0, w1, b1, sin_period)
+    return _emb_mlp_launch(build.library().trunk_emb_mlp_cluster8, lmb,
+                           freqs, w0, b0, w1, b1, sin_period)
+
+
+def emb_mlp_oneblock(lmb, freqs, w0, b0, w1, b1, sin_period):
+    """emb_mlp on the one-block-a-row kernel (the weight rows read from
+    device memory, one dependent trip an output): the bitwise oracle of
+    emb_mlp's cluster kernel in chip_smoke.py and the card tests; not on the
+    main path, and not counted in emb_mlp.launches."""
+    if not _on_card('emb_mlp', lmb, freqs, w0, b0, w1, b1):
+        return emb_mlp_plain(lmb, freqs, w0, b0, w1, b1, sin_period)
+    return _emb_mlp_launch(build.library().trunk_emb_mlp_oneblock, lmb,
+                           freqs, w0, b0, w1, b1, sin_period)
 
 
 def _dw_ln_mod_launch(entry, x, dwk, dwb, ew, eb, gemb, kernel_size):
@@ -602,8 +632,39 @@ def zadd_dense(syms, pm, w, b):
     return out
 
 
+def zadd_conv_kxk_plain(syms, pm, wk, b):
+    return conv_kxk_act_plain(zadd_plain(syms, pm), wk, b, False)
+
+
+def zadd_conv_kxk(syms, pm, wk, b):
+    """z_proj_0 of a QRes latent block at kernel size >= 3: the 'same' K x K
+    conv (zero padding, no GELU) of z = syms + pm, in one launch that never
+    writes z. syms int32 and pm (B, H, W, Z); wk (K, K, Z, Co) (the flax
+    layout) -> (B, H, W, Co). Bitwise conv_kxk_act(zadd(syms, pm), wk, b,
+    False) on the card."""
+    if not _on_card('zadd_conv_kxk', syms, pm, wk, b):
+        return zadd_conv_kxk_plain(syms, pm, wk, b)
+    B, H, W, Z = syms.shape
+    K, Co = wk.shape[0], wk.shape[-1]
+    if (syms.dtype != torch.int32 or pm.shape != syms.shape
+            or wk.shape != (K, K, Z, Co) or K % 2 != 1):
+        raise ValueError('zadd_conv_kxk: bad symbols/prior/weight shapes')
+    pm, b = _f32('zadd_conv_kxk', pm, b)
+    # the tap-major (Co, K*K*Z) of conv_kxk_act; free for _kxk_w's view
+    wt, = _f32('zadd_conv_kxk', wk.permute(3, 0, 1, 2).reshape(Co, -1))
+    syms = syms.contiguous()
+    out = torch.empty((B, H, W, Co), dtype=torch.float32, device=pm.device)
+    _launch('zadd_conv_kxk', build.library().trunk_zadd_conv_kxk,
+            syms.data_ptr(), pm.data_ptr(), B, H, W, Z, K, Co, wt.data_ptr(),
+            b.data_ptr(), out.data_ptr(), device=pm.device)
+    zadd_conv_kxk.launches += 1
+    return out
+
+
 def zadd(syms, pm):
-    """syms (int32) + pm as float32, (B, HW, Z): feeds the 3x3 z_proj_0."""
+    """syms (int32) + pm as float32, any shape: with conv_kxk_act(act=False)
+    after it, the bitwise oracle of zadd_conv_kxk (chip_smoke.py, the card
+    tests); off the main path, which never writes z."""
     if not _on_card('zadd', syms, pm):
         return zadd_plain(syms, pm)
     if syms.dtype != torch.int32 or syms.shape != pm.shape:
@@ -717,14 +778,15 @@ def nll_recon(syms, pm, bin_size):
 
 KERNELS = (emb_mlp, dw_ln_mod, mlp_res, dense, prior_head, fuse_zproj,
            finish_image, dw_ln_affine, dense_act, conv_kxk_act, zadd_dense,
-           zadd, res_dense_act, nll_head, nll_recon)
+           zadd, zadd_conv_kxk, res_dense_act, nll_head, nll_recon)
 PLAIN = {emb_mlp: emb_mlp_plain, dw_ln_mod: dw_ln_mod_plain,
          mlp_res: mlp_res_plain, dense: dense_plain,
          prior_head: prior_head_plain, fuse_zproj: fuse_zproj_plain,
          finish_image: lambda x: finish_image_plain(x).to(torch.float16),
          dw_ln_affine: dw_ln_affine_plain, dense_act: dense_act_plain,
          conv_kxk_act: conv_kxk_act_plain, zadd_dense: zadd_dense_plain,
-         zadd: zadd_plain, res_dense_act: res_dense_act_plain,
+         zadd: zadd_plain, zadd_conv_kxk: zadd_conv_kxk_plain,
+         res_dense_act: res_dense_act_plain,
          nll_head: nll_head_plain, nll_recon: nll_recon_plain}
 for _k in KERNELS:
     _k.launches = 0
@@ -838,9 +900,8 @@ def qres_fuse(feature, syms, pm, blk):
     Z = syms.shape[-1]
     s2, pm2 = syms.reshape(B, H * W, Z), pm.reshape(B, H * W, Z)
     z0 = blk.z_proj_0
-    if blk.kernel_size >= 3:
-        z = zadd(s2, pm2).reshape(B, H, W, Z)
-        t = conv_kxk_act(z, _kxk_w(z0), z0.bias, False)     # no GELU
+    if blk.kernel_size >= 3:            # the 3x3 conv, no GELU, z unwritten
+        t = zadd_conv_kxk(syms, pm, _kxk_w(z0), z0.bias)
         t = t.reshape(B, H * W, z0.out_channels)
     else:
         t = zadd_dense(s2, pm2, _dense_w(z0), z0.bias)

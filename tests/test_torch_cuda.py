@@ -6,7 +6,9 @@ against theirs at qarv_tiny and qres_tiny shapes, dense, conv_kxk_act,
 mlp_res, dense_act, prior_head, fuse_zproj and res_dense_act (the tiled
 product core) bitwise against the old core (the _oldcore entry points) at
 ragged shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
-against the warp-per-pixel kernel, the lossless head's two kernels against
+against the warp-per-pixel kernel, emb_mlp's thread-block cluster kernel
+bitwise against the one-block kernel (emb_mlp_oneblock) and zadd_conv_kxk
+against zadd then conv_kxk_act(act=False), the lossless head's two kernels against
 theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless round trips
 (legacy and portable) through them.
 Skips without a card. On the card (which has no JAX, so the suite's
@@ -293,6 +295,9 @@ def _qres_cases(rng, card):
     syms = torch.as_tensor(rng.integers(-900, 900, (1, 63, 4)).astype(
         np.int32), device=card)
     return [
+        ('zadd_conv_kxk', trunk.zadd_conv_kxk,
+         (syms.reshape(1, 9, 7, 4), f(1, 9, 7, 4), f(3, 3, 4, 8, scale=0.01),
+          f(8))),
         ('dw_ln_affine', trunk.dw_ln_affine,
          (f(1, 16, 16, 16), f(7, 7, 16, scale=0.2), f(16), f(16), f(16), 7)),
         ('dw_ln_affine', trunk.dw_ln_affine,
@@ -324,7 +329,7 @@ def test_qres_trunk_kernels_match_plain(card):
     from lvae_tpu_torch.ops import trunk
     per_image = {'dw_ln_affine': (0,), 'dense_act': (0,),
                  'conv_kxk_act': (0,), 'zadd_dense': (0, 1), 'zadd': (0, 1),
-                 'res_dense_act': (0, 1)}
+                 'zadd_conv_kxk': (0, 1), 'res_dense_act': (0, 1)}
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, fn, args in _qres_cases(np.random.default_rng(1), card):
         before = fn.launches
@@ -342,7 +347,8 @@ def test_qres_trunk_kernels_match_plain(card):
 def test_portable_qres_tiny_roundtrip_on_card(card):
     """qres_tiny at 128x192 on the portable trunk: bit-exact, and the QRes
     kernels launched as the block list says (3 latent blocks: 1x1, 3x3 and
-    7x7; 2 upsamples in the trunk, 1 in the tail) once in compress_check and
+    7x7; 2 upsamples in the trunk, 1 in the tail; z_proj_0 of the 3x3 and
+    7x7 blocks as zadd_conv_kxk, zadd never) once in compress_check and
     once in decompress."""
     from lvae_tpu_torch.ops import trunk
     torch.manual_seed(0)
@@ -357,8 +363,9 @@ def test_portable_qres_tiny_roundtrip_on_card(card):
     obj, recon = model.compress_check(im)
     assert np.array_equal(model.decompress(obj), recon)
     per_image = {'dw_ln_affine': 6, 'mlp_res': 6, 'dense_act': 5,
-                 'conv_kxk_act': 6, 'prior_head': 3, 'zadd': 2,
-                 'zadd_dense': 1, 'res_dense_act': 3, 'dense': 3,
+                 'conv_kxk_act': 4, 'prior_head': 3, 'zadd': 0,
+                 'zadd_conv_kxk': 2, 'zadd_dense': 1, 'res_dense_act': 3,
+                 'dense': 3,
                  'finish_image': 1, 'emb_mlp': 0, 'dw_ln_mod': 0,
                  'fuse_zproj': 0, 'nll_head': 0, 'nll_recon': 0}
     for k in trunk.KERNELS:
@@ -635,6 +642,90 @@ def test_dw_tile_quarter_grid(card, name, C):
     for i in per_image:
         two[i] = torch.cat([args[i], args[i].flip(-1)])
     assert torch.equal(fn(*two)[:1], got)
+
+
+# ---- emb_mlp on its cluster, zadd folded into z_proj_0 ----------------------
+
+def _same_bits(a, b):
+    import chip_smoke
+    return chip_smoke.same_bits(torch, a, b)
+
+
+@pytest.mark.parametrize('E', [32, 256, 2048])
+def test_emb_mlp_cluster_equals_oneblock(card, E):
+    """emb_mlp's cluster kernel is bitwise the one-block kernel at qarv_tiny's
+    and qarv_base's widths and at 2048 (whose weight rows do not fit in
+    shared memory), B = 1, 2, 6, 7 and 200 (rows in chunks at 256 and
+    2048), clusters of 16 CTAs (emb_mlp) and 8 (emb_mlp_cluster8), lambdas
+    over [1, 8192]; one launch counted a call of emb_mlp, none for the
+    8-CTA yardstick or the oracle; within tolerance of the plain version;
+    the first row of a batch gets the bits it gets alone."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(E)
+    w = (torch.as_tensor(trunk.emb_freqs(E, 64), device=card),
+         _f(rng, card, E, E, scale=E ** -0.5), _f(rng, card, E, scale=0.1),
+         _f(rng, card, E, E, scale=E ** -0.5), _f(rng, card, E, scale=0.1),
+         64)
+    for B in chip_smoke.EMB_B:
+        lmb = torch.tensor([chip_smoke.EMB_LAMBDAS[i % 7] for i in range(B)],
+                           device=card)
+        want = trunk.emb_mlp_oneblock(lmb, *w)
+        for cluster, fn in chip_smoke.EMB_CLUSTERS.items():
+            before = trunk.emb_mlp.launches
+            got = getattr(trunk, fn)(lmb, *w)
+            assert trunk.emb_mlp.launches == before + (fn == 'emb_mlp')
+            assert all(_same_bits(g, o) for g, o in zip(got, want)), \
+                (B, cluster)
+        for g, p in zip(got, trunk.emb_mlp_plain(lmb, *w)):
+            torch.testing.assert_close(g, p, atol=1e-5, rtol=1e-4)
+        alone = trunk.emb_mlp(lmb[:1], *w)
+        assert all(_same_bits(g[:1], a) for g, a in zip(got, alone))
+
+
+def test_zadd_conv_kxk_equals_zadd_then_conv(card):
+    """zadd_conv_kxk is bitwise zadd then conv_kxk_act(act=False) at
+    chip_smoke's cases: qres34m's four z_proj_0 shapes at B = 1, 2 and 6,
+    and H, W of 1 to 13 with Z of 1 to 17 (symbols up to 2^24 - 1, -0, NaN
+    and +-inf in pm, unaligned inputs at Z % 4 == 0); one launch counted a
+    call (zadd's and the conv's count their own); the first image of a
+    batch of two gets the bits it gets alone."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    g = torch.Generator(device=card).manual_seed(chip_smoke.ZCONV_SEED)
+    cases = chip_smoke.zconv_cases()
+    before = trunk.zadd_conv_kxk.launches
+    bad = [c for c in cases if not chip_smoke.oracle_bitwise(
+        torch, 'zadd_conv_kxk', chip_smoke.zconv_args(torch, g, *c, card))]
+    assert len(cases) > 800 and not bad, bad[:5]
+    assert trunk.zadd_conv_kxk.launches == before + len(cases)
+    # its check against the plain version, to a tolerance, is the
+    # zadd_conv_kxk case of test_qres_trunk_kernels_match_plain
+    args = chip_smoke.zconv_args(torch, g, 2, 32, 48, 12, 48, False, card)
+    got = trunk.zadd_conv_kxk(*args)
+    one = trunk.zadd_conv_kxk(args[0][:1], args[1][:1], *args[2:])
+    assert _same_bits(got[:1], one)
+
+
+def test_zadd_conv_kxk_and_plain_within_rounding_of_float64(card):
+    """zadd_conv_kxk and its plain version sum z_proj_0's taps in different
+    orders, so they differ (by 0.78 near symbols of 2^24, by 1.3e-5 where
+    sums of small symbols cancel): each lies within the float32 rounding
+    bound of any summation order of the float64 value
+    (chip_smoke.f64_witness) at every chip_smoke case, NaN and infinities
+    where the float64 value has them."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(chip_smoke.ZCONV_SEED)
+    worst = 0.0
+    for c in chip_smoke.zconv_cases():
+        args = chip_smoke.zconv_args(torch, g, *c, card)
+        shares = chip_smoke.f64_witness(torch, args, (
+            trunk.zadd_conv_kxk(*args), trunk.zadd_conv_kxk_plain(*args)))
+        worst = max([worst] + [r[0] for r in shares])
+        assert all(r[0] <= 1.0 for r in shares), (c, shares)
+    assert worst > 0.0          # the witness saw rounding, not nothing
 
 
 # ---- the rANS decode kernel at its corners ---------------------------------
