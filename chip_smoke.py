@@ -62,7 +62,15 @@
    +-(2^24 - 1), -0, NaN and +-inf in pm, and unaligned inputs, with the
    fused conv and its plain version each within the float32 rounding bound
    of the float64 value (f64_witness); and times emb_mlp at qarv_base's
-   widths, B = 1 and 6, at both cluster sizes beside the one-block kernel;
+   widths, B = 1 and 6, at both cluster sizes beside the one-block kernel.
+   Then it holds nll_head's search bitwise against the linear count it
+   replaced (nll_head_linear) and its plain version (pm and indexes) at
+   table sizes 1 to 1024 (NLL_S) on exp-linspace tables, tables with a
+   scale at, one ulp below and one ulp above every entry, tied tables,
+   raw scales +inf, NaN, overflowing and -inf, from aligned inputs (the
+   16-byte path), n % 4 != 0 and inputs 4 bytes off 16; and zadd_dense on
+   the tiled core bitwise against zadd_dense_oldcore at rows 1 to 576, Z
+   1, 3, 16 and 17, widths 1, 48 and 50, aligned and unaligned inputs;
 3. runs qarv_base with the committed weights on images/photo1_512x768.png
    through compress_file / decompress_file at lambda 16, 512 and 2048, on
    the legacy trunk and on the portable trunk (the main path: files are
@@ -126,6 +134,8 @@
    decode (B = 1 against B = 2 bitwise, CUDA-graph, plain and library
    times), and zadd, off the main path since z_proj_0 runs as
    zadd_conv_kxk, on the (syms, pm) of zadd_conv_kxk's calls (zadd_oracle);
+   zadd_dense bitwise against the old core also at the B = 2 request's
+   shapes, each image against its bits alone (hold_redesigns);
    bench.py's qres34m enc_ms / dec_ms on both trunks; then, with
    one channel of the last latent block's posterior scaled x3000 so that
    escapes occur, a portable, a legacy and a B = 2 round trip bitwise;
@@ -141,7 +151,11 @@
    one encode and decode (the last four also against the old core),
    nll_head and nll_recon bitwise (also on
    photo1-sized synthetic inputs covering the head's table and the pixel
-   grid's half-points), B = 1 against B = 2 bitwise, with their times; the
+   grid's half-points), B = 1 against B = 2 bitwise, with their times
+   (nll_head beside nll_head_linear, oracle_ms, and the count alone by
+   torch.searchsorted, search_library_ms; zadd_dense beside the old core);
+   nll_head and zadd_dense bitwise against their oracles also at the
+   shapes of the B = 2 request and of the spread crop below; the
    head block's rANS decode time beside the latent blocks'; enc_ms /
    dec_ms on both trunks; and a 256x256 crop with the head's scales spread
    over its table (conv_scale re-drawn from the measured spread of its raw
@@ -152,9 +166,11 @@
    cudnn.benchmark on, and checks the pixels bitwise (the lossless file's
    against the PNG's).
 
-Standard output: one JSON object per line (build, card, multi_kernels,
+Standard output: one JSON object per line (build, card (the card's name,
+power limit, driver version, nvcc's version, torch and its CUDA),
+multi_kernels,
 rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
-codec, trunk, batch, qres,
+nll_zadd, codec, trunk, batch, qres,
 qres_trunk, lossless, lossless_trunk, fresh_process), the card line of
 nvidia-smi, the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -271,9 +287,9 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 # bitwise against their oracle on the old core (core_oracle) at every shape;
 # those whose old-core oracle is timed beside them (old_core_ms)
 CORE_NAMES = ('dense', 'conv_kxk_act', 'mlp_res', 'dense_act', 'prior_head',
-              'fuse_zproj', 'res_dense_act')
+              'fuse_zproj', 'res_dense_act', 'zadd_dense')
 OLD_CORE_TIMED = ('dense', 'mlp_res', 'dense_act', 'prior_head',
-                  'fuse_zproj', 'res_dense_act')
+                  'fuse_zproj', 'res_dense_act', 'zadd_dense')
 # the synthetic ragged shapes of that check: rows M (a B x H x W grid for
 # the conv), widths N, input channels Ci at kernel sizes K (dense: depth
 # K*K*Ci), act on and off
@@ -335,6 +351,17 @@ ZCONV_MAIN = ((16, 24, 14), (32, 48, 12), (64, 96, 10), (128, 192, 8))
 ZCONV_B, ZCONV_CO = (1, 2, 6), (24, 48)
 ZCONV_HW, ZCONV_Z = (1, 2, 3, 5, 13), tuple(range(1, 18))
 ZCONV_SEED = 15
+# nll_head's search against the linear count: table sizes NLL_S (1 entry to
+# the kernel's 1024, around the head's 128), NLL_N elements a case
+# (nll_search_cases); zadd_dense against the old core: rows ZDENSE_M (the
+# main path's 96 and 192 at B = 1 and 2, around them, 576), latent widths
+# ZDENSE_Z (1, 3 and 17: the 4-byte copies), widths ZDENSE_CO (48: the main
+# path's), from aligned and unaligned inputs
+NLL_S = (1, 2, 3, 64, 127, 128, 129, 1000, 1024)
+NLL_N, NLL_SEED = 6144, 16
+ZDENSE_M, ZDENSE_Z, ZDENSE_CO = (1, 95, 96, 97, 192, 576), (1, 3, 16, 17), \
+    (1, 48, 50)
+ZDENSE_SEED = 17
 # timing: medians of 5 kernel runs; the plain versions are host-bound
 # references taking seconds, so theirs are medians of 3, the first of which
 # is the run whose output the kernel is compared with
@@ -1777,6 +1804,8 @@ LIBRARY_CALLS = {
                     'of which the main path has none (z_proj_0 runs as '
                     'zadd_conv_kxk); none computes the GELU-first conv',
     'zadd': 'torch.add(syms, pm) (int32 + float32 promotes to float32)',
+    'zadd_dense': 'torch.addmm(b, z, w), TF32 off, on z = syms.float() + pm '
+                  'computed beforehand',
     'zadd_conv_kxk': 'F.conv2d (cuDNN, TF32 off) on z = syms.float() + pm '
                      'computed beforehand'}
 
@@ -1792,7 +1821,7 @@ def library_call(torch, name, args):
     GELU), F.conv2d for conv_kxk_act without its GELU (NHWC views, weight
     in torch's layout prepared outside the call), the same on z =
     syms.float() + pm computed beforehand for zadd_conv_kxk, torch.add for
-    zadd; else None."""
+    zadd, torch.addmm on that z for zadd_dense; else None."""
     import torch.nn.functional as F
     if name == 'dense' or (name == 'dense_act' and len(args) > 3
                            and not args[3]):
@@ -1809,6 +1838,10 @@ def library_call(torch, name, args):
     if name == 'zadd':
         syms, pm = args
         return lambda: torch.add(syms, pm)
+    if name == 'zadd_dense':
+        syms, pm, w, b = args
+        z2 = (syms.float() + pm).reshape(-1, syms.shape[-1])
+        return lambda: torch.addmm(b, z2, w)
     return None
 
 
@@ -1841,15 +1874,16 @@ def graph_ms(torch, fn, inner, repeats=5):
 def core_oracle(torch, name, args):
     """A kernel of CORE_NAMES computed on the old product core
     (gemm_kernel, the _oldcore entry points): dense_act, prior_head,
-    fuse_zproj and res_dense_act as they are, dense as dense_act without
-    its GELU, the conv as dense_act on
+    fuse_zproj, res_dense_act and zadd_dense as they are, dense as
+    dense_act without its GELU, the conv as dense_act on
     im2col_tapmajor's columns, mlp_res as fc1 without a GELU, then fc2
     with the GELU on its input (the value mlp_res's fc1 epilogue stores),
     then shortcut + y * gamma (two roundings, as the kernel's epilogue).
     Each output's sum is the same fmaf chain on both cores, so the tiled
     core must match it bitwise."""
     from lvae_tpu_torch.ops import trunk
-    if name in ('dense_act', 'prior_head', 'fuse_zproj', 'res_dense_act'):
+    if name in ('dense_act', 'prior_head', 'fuse_zproj', 'res_dense_act',
+                'zadd_dense'):
         return getattr(trunk, name + '_oldcore')(*args)
     if name == 'dense':
         x, w, b = args
@@ -1894,17 +1928,19 @@ def core_bitwise(torch, name, args, got=None):
 # kernels held bitwise against the design they replaced, which stays as
 # their oracle: emb_mlp's cluster kernel against the one-block kernel (also
 # at the portable cluster of 8 CTAs), zadd_conv_kxk against zadd then the
-# conv
-REDESIGN_ORACLES = ('emb_mlp', 'zadd_conv_kxk')
+# conv, nll_head's search against its linear count
+REDESIGN_ORACLES = ('emb_mlp', 'zadd_conv_kxk', 'nll_head')
 
 
 def replaced_design(torch, name, args):
     """The design a kernel of REDESIGN_ORACLES replaced, on the same inputs:
     emb_mlp_oneblock; zadd then conv_kxk_act(act=False), z written and read
-    back."""
+    back; nll_head_linear."""
     from lvae_tpu_torch.ops import trunk
     if name == 'emb_mlp':
         return trunk.emb_mlp_oneblock(*args)
+    if name == 'nll_head':
+        return trunk.nll_head_linear(*args)
     syms, pm, wk, b = args
     return trunk.conv_kxk_act(trunk.zadd(syms, pm), wk, b, False)
 
@@ -2409,9 +2445,179 @@ def check_emb_zadd_synthetic(torch, device):
                               'u = 2^-24, z = syms + pm in float32'))
 
 
+# ---- nll_head's search and zadd_dense on the tiled core ---------------------
+
+def nll_search_cases(torch, S, device):
+    """nll_head's synthetic cases at table size S: -> [(label, (p_mean,
+    p_scale_raw, table, bin_size 1/127.5))]. Raw scales r normal (sd 4)
+    about -4.5, the first four +inf, NaN, 100 (its scale overflows to +inf)
+    and -inf (below any table); means on the pixel grid's half-points, two
+    of them +-inf.
+    Tables: 'linspace' (exp of a linspace, as the head's); 'at_scales', S
+    sorted scales of these r (from the middle 90 %, so that some lie below
+    the first entry and some above the last): a scale at every entry;
+    'ulp_up' and 'ulp_down', each of its entries one ulp up or down: a
+    scale one ulp below or above every entry; 'ties', every third entry of
+    at_scales three times in a row. Each table with NLL_N elements from
+    aligned pointers (the four-element path), the first NLL_N - 3 (n % 4
+    != 0) and those 4 bytes off 16 (the one-element path)."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(NLL_SEED + S)
+    n = NLL_N
+    r = rng.normal(-4.5, 4.0, n).astype(np.float32)
+    r[:4] = [math.inf, math.nan, 100.0, -math.inf]
+    m = ((rng.integers(-3, 259, n) + 0.5) / 127.5 - 1).astype(np.float32)
+    m += rng.integers(-3, 4, n) * np.spacing(m)
+    m[4:6] = [math.inf, -math.inf]
+    r_t = torch.as_tensor(r, device=device)
+    # the scales the kernel compares, before the clamp by the first entry
+    scales = trunk.nll_scales_plain(
+        r_t, r_t, torch.zeros(1, device=device), 1 / 127.5)[1]
+    pool = scales.cpu().numpy()
+    pool = np.sort(pool[np.isfinite(pool)])
+    pool = pool[len(pool) // 20:len(pool) - len(pool) // 20]
+    at = np.sort(rng.choice(pool, S, replace=False)).astype(np.float32)
+    tables = {'linspace': np.exp(np.linspace(math.log(0.11), math.log(20.0),
+                                             S)).astype(np.float32),
+              'at_scales': at,
+              'ulp_up': np.nextafter(at, np.float32(np.inf)),
+              'ulp_down': np.nextafter(at, np.float32(-np.inf)),
+              'ties': np.repeat(at[::3], 3)[:S]}
+    out = []
+    for label, table in tables.items():
+        trunk.require_nondecreasing(table)
+        tb = torch.as_tensor(table, device=device)
+        for path, lo, k in (('aligned', 0, n), ('odd_n', 0, n - 3),
+                            ('unaligned', 1, n - 3)):
+            bufs = []
+            for a in (m, r):
+                buf = torch.empty(n + 1, device=device)
+                buf[lo:lo + k] = torch.as_tensor(a[:k], device=device)
+                bufs.append(buf[lo:lo + k])
+            out.append((f'{label} {path}', (*bufs, tb, 1 / 127.5)))
+    return out
+
+
+def zadd_dense_args(torch, g, B, M, Z, CO, unaligned, device):
+    """zadd_dense's arguments (syms, pm, w, b) at (B, M, Z) into CO columns
+    from the generator g: junction_symbols; pm normal with -0 in every fifth
+    value and, where M > 1, NaN, +inf and -inf in row M // 2 of the first
+    image; syms and pm 4 bytes off 16 where `unaligned`."""
+    n = B * M * Z
+    s = junction_symbols(torch, g, n + 1, device)
+    pm = torch.randn(n + 1, generator=g, device=device)
+    s, pm = (s[1:], pm[1:]) if unaligned else (s[:n], pm[:n])
+    pm[::5] = -0.0
+    if M > 1:
+        row = (M // 2) * Z
+        pm[row:row + min(Z, 3)] = torch.tensor(
+            [math.nan, math.inf, -math.inf], device=device)[:Z]
+    # w (Z, CO) as the model passes it: the .t() view of a (CO, Z) weight
+    w = torch.randn(CO, Z, generator=g, device=device).t() * Z ** -0.5
+    return (s.reshape(B, M, Z), pm.reshape(B, M, Z), w,
+            torch.randn(CO, generator=g, device=device) * 0.1)
+
+
+def zadd_dense_cases():
+    """(B, M, Z, CO, unaligned) of zadd_dense's synthetic check."""
+    import itertools
+    return [(1, M, Z, CO, u) for M, Z, CO, u in itertools.product(
+        ZDENSE_M, ZDENSE_Z, ZDENSE_CO, (False, True))]
+
+
+def nll_head_bitwise(torch, args, got=None):
+    """Whether nll_head (or its outputs `got`), nll_head_linear and
+    nll_head_plain give the same pm (same_bits) and indexes on args."""
+    from lvae_tpu_torch.ops import trunk
+    outs = [trunk.nll_head(*args) if got is None else got]
+    outs += [fn(*args) for fn in (trunk.nll_head_linear, trunk.nll_head_plain)]
+    return all(same_bits(torch, a, b) for o in outs[1:]
+               for a, b in zip(outs[0], o))
+
+
+def hold_redesigns(torch, names, cases):
+    """zadd_dense (against the old core) and nll_head (against
+    nll_head_linear and its plain version), bitwise, at every shape captured
+    from one encode and decode of each (label, encode, decode) of `cases`;
+    where a shape holds B >= 2 images, each image also against its bits
+    alone. -> {name: {label: shapes held}}."""
+    from lvae_tpu_torch.ops import trunk
+    out = {n: {} for n in names}
+    for label, encode, decode in cases:
+        inputs, _ = capture_trunk_inputs(encode, decode, names)
+        for name in names:
+            fn = getattr(trunk, name)
+            for sig, args in inputs[name].items():
+                got = fn(*args)
+                ok = (nll_head_bitwise(torch, args, got) if name == 'nll_head'
+                      else core_bitwise(torch, name, args, got))
+                got = got if isinstance(got, tuple) else (got,)
+                for b in range(1, args[0].shape[0]):
+                    one = [a[b:b + 1] if i in PER_IMAGE_ARGS[name] else a
+                           for i, a in enumerate(args)]
+                    alone = fn(*one)
+                    alone = alone if isinstance(alone, tuple) else (alone,)
+                    ok = ok and all(same_bits(torch, g[b:b + 1], a)
+                                    for g, a in zip(got, alone))
+                require(ok, f'{name} at {label} shapes {sig}: not bitwise '
+                            f'equal to its oracle, or an image of the batch '
+                            f'not to its bits alone')
+            out[name][label] = len(inputs[name])
+            require(inputs[name], f'{name}: no call captured in {label}')
+    progress(f'redesigns held at captured shapes: {out}')
+    return out
+
+
+def check_nll_zadd_synthetic(torch, device):
+    """nll_head against nll_head_linear and nll_head_plain (pm and indexes
+    bitwise) on nll_search_cases at every S of NLL_S, and zadd_dense against
+    zadd_dense_oldcore (same_bits) on zadd_dense_cases, each counted
+    wrapper one launch a call."""
+    from lvae_tpu_torch.ops import trunk
+    cases, bad = 0, []
+    before = trunk.nll_head.launches, trunk.zadd_dense.launches
+    for S in NLL_S:
+        for label, args in nll_search_cases(torch, S, device):
+            cases += 1
+            if not nll_head_bitwise(torch, args):
+                bad.append(dict(kernel='nll_head', S=S, case=label))
+    n_nll = cases
+    g = torch.Generator(device=device).manual_seed(ZDENSE_SEED)
+    for c in zadd_dense_cases():
+        cases += 1
+        args = zadd_dense_args(torch, g, *c, device)
+        if not same_bits(torch, trunk.zadd_dense(*args),
+                         trunk.zadd_dense_oldcore(*args)):
+            bad.append(dict(zip(('kernel', 'B', 'M', 'Z', 'CO', 'unaligned'),
+                                ('zadd_dense',) + c)))
+    torch.cuda.synchronize()
+    launches = (trunk.nll_head.launches - before[0],
+                trunk.zadd_dense.launches - before[1])
+    progress(f'nll_head and zadd_dense, synthetic cases: {cases}, '
+             f'{len(bad)} not bitwise equal to their oracles; launches '
+             f'{launches}')
+    require(not bad, f'nll_head / zadd_dense not bitwise equal to their '
+                     f'oracles at {bad[:5]}')
+    require(launches == (n_nll, cases - n_nll),
+            f'nll_head / zadd_dense launches {launches}, expected one a '
+            f'call')
+    return dict(
+        cases=cases, bitwise=True,
+        nll_head=dict(cases=n_nll, S=list(NLL_S), n=NLL_N,
+                      tables=['linspace', 'at_scales', 'ulp_up',
+                              'ulp_down', 'ties'],
+                      paths=['aligned', 'odd_n', 'unaligned'],
+                      oracle='nll_head_linear and nll_head_plain'),
+        zadd_dense=dict(cases=cases - n_nll, M=list(ZDENSE_M),
+                        Z=list(ZDENSE_Z), CO=list(ZDENSE_CO),
+                        unaligned='syms and pm 4 bytes off 16',
+                        symbols='junction_symbols: up to +-(2^24 - 1)',
+                        oracle='zadd_dense_oldcore'))
+
+
 # the other designs and yardsticks timed beside a main-path call
 DESIGN_KEYS = ('product_ms', 'staged_gelu_ms', 'prepass_ms', 'addmm_ms',
-               'cluster8_ms', 'conv_alone_ms')
+               'cluster8_ms', 'conv_alone_ms', 'search_library_ms')
 
 
 def design_times(torch, name, args):
@@ -2428,12 +2634,20 @@ def design_times(torch, name, args):
     call, without the bias and the prologue); for emb_mlp its cluster kernel
     at the portable 8 CTAs (cluster8_ms); for zadd_conv_kxk the conv alone on z
     computed beforehand (conv_alone_ms: conv_kxk_act(act=False), the launch
-    it replaced without zadd's)."""
+    it replaced without zadd's); for nll_head the library's search alone
+    (search_library_ms: torch.searchsorted(table[:-1], scales), the scales
+    computed beforehand: a yardstick of the index count, not of the
+    function)."""
     from lvae_tpu_torch.ops import trunk
     out = {}
     if name == 'emb_mlp':
         out['cluster8_ms'] = graph_ms(
             torch, lambda: trunk.emb_mlp_cluster8(*args), TRUNK_INNER)
+    if name == 'nll_head':
+        _, pv, _ = trunk.nll_scales_plain(*args)
+        head = args[2][:-1]
+        out['search_library_ms'] = graph_ms(
+            torch, lambda: torch.searchsorted(head, pv), TRUNK_INNER)
     if name == 'zadd_conv_kxk':
         z = trunk.zadd_plain(*args[:2])
         out['conv_alone_ms'] = graph_ms(torch, lambda: trunk.conv_kxk_act(
@@ -2648,7 +2862,7 @@ def check_trunk_kernels(torch, names, cases):
                if staged_rows else {}),
             **{k: per_image(k) for k in ('prepass_ms', 'addmm_ms',
                                          'cluster8_ms', 'conv_alone_ms',
-                                         'oracle_ms')
+                                         'search_library_ms', 'oracle_ms')
                if all(r[k] is not None for r in shapes)},
             **({'oracle_bitwise_shapes': len(shapes),
                 'oracle_max_abs_err': max(r['oracle_max_abs_err']
@@ -2761,6 +2975,10 @@ def run_qres(torch, tmpdir):
         ('photo1', lambda: model.compress(im), model.decompress)])
     trunk_ms = {d: sum(r[f'{d}_ms'] for r in kernels.values())
                 for d in ('encode', 'decode')}
+    # zadd_dense against the old core also at the B = 2 request's shapes
+    held = hold_redesigns(torch, ('zadd_dense',), [
+        ('B = 2 request', lambda: model.compress_batch(ims),
+         model.decompress_batch)])
 
     # 5. bench.py's qres34m workload (bench.py:511-539): enc_ms from a
     # device-resident image to the bytes on the host, dec_ms to the image
@@ -2831,6 +3049,7 @@ def run_qres(torch, tmpdir):
         compress_launches=c_enc_l, decompress_launches=c_dec_l,
         batch_encode_launches=b_enc_l, batch_decode_launches=b_dec_l,
         times=times, trunk_device_ms=trunk_ms, scaled_posterior=esc,
+        redesigns_held=held,
         **rans_share(torch, lambda: model.decompress(obj),
                      times['portable']['dec_ms']))
     require(result['finite'] and rec.shape == (1, H, W, 3),
@@ -2903,8 +3122,9 @@ def nll_synthetic(torch, shape, device):
 
 def check_nll_synthetic(torch, H, W, device):
     """nll_head and nll_recon bitwise against their plain versions on the
-    synthetic inputs at (1, H, W, 3) and (2, H, W, 3), the first image of
-    the batch bitwise as alone; -> summary."""
+    synthetic inputs at (1, H, W, 3) and (2, H, W, 3), nll_head also
+    against nll_head_linear, the first image of the batch bitwise as alone;
+    -> summary."""
     from lvae_tpu_torch.ops import trunk
     both = nll_synthetic(torch, (2, H, W, 3), device)
     out, alone = {}, None
@@ -2913,11 +3133,14 @@ def check_nll_synthetic(torch, H, W, device):
         table = both[3]
         pm, idx = trunk.nll_head(m, r, table, 1 / 127.5)
         want_pm, want_idx = trunk.nll_head_plain(m, r, table, 1 / 127.5)
+        linear = trunk.nll_head_linear(m, r, table, 1 / 127.5)
         rec = trunk.nll_recon(syms, pm, 1 / 127.5)
         want_rec = trunk.nll_recon_plain(syms, pm, 1 / 127.5)
         out[f'B{B}'] = dict(
             pm_bitwise=bool(torch.equal(pm, want_pm)),
             index_flips=int((idx != want_idx).sum()),
+            linear_bitwise=all(same_bits(torch, a, b)
+                               for a, b in zip((pm, idx), linear)),
             recon_bitwise=bool(torch.equal(rec, want_rec)),
             distinct_indexes=int(idx.unique().numel()),
             pixels_min_max=[float(rec.min()), float(rec.max())])
@@ -2930,7 +3153,7 @@ def check_nll_synthetic(torch, H, W, device):
     for B in ('B1', 'B2'):
         o = out[B]
         require(o['pm_bitwise'] and o['index_flips'] == 0
-                and o['recon_bitwise'],
+                and o['recon_bitwise'] and o['linear_bitwise'],
                 f'nll kernels at {B} {H}x{W}: not bitwise equal to their '
                 f'plain versions ({o})')
         require(o['distinct_indexes'] == 128,
@@ -3058,11 +3281,17 @@ def run_lossless(torch, tmpdir):
     # mlp_res, dense_act, prior_head and res_dense_act as in the qres
     # phase) and on photo1-sized synthetic inputs
     kernels = check_trunk_kernels(torch, LOSSLESS_TRUNK + (
-        'dense', 'mlp_res', 'dense_act', 'prior_head', 'res_dense_act'), [
+        'dense', 'mlp_res', 'dense_act', 'prior_head', 'res_dense_act',
+        'zadd_dense'), [
         ('photo1', lambda: model.compress(im), model.decompress)])
     for name in LOSSLESS_TRUNK:
         require_bitwise(name, kernels[name]['by_shape'])
     synthetic = check_nll_synthetic(torch, *im.shape[1:3], model.device)
+    # nll_head and zadd_dense against their oracles also at the B = 2
+    # request's shapes (the spread crop's below)
+    held = hold_redesigns(torch, ('zadd_dense', 'nll_head'), [
+        ('B = 2 request', lambda: model.compress_batch(ims),
+         model.decompress_batch)])
 
     # 5. the head block's rANS decode apart from the latent blocks'; then
     # bench.py's qres34m workload on both trunks, as in the qres phase
@@ -3109,6 +3338,11 @@ def run_lossless(torch, tmpdir):
                        and np.array_equal(srecon, crop)),
             **({'distinct_head_indexes': int(heads[0][2][1].unique().numel())}
                if portable else {}))
+    model.compress_mode(portable=True, **cfg)
+    for name, by_label in hold_redesigns(torch, ('zadd_dense', 'nll_head'), [
+            ('spread crop', lambda: model.compress(crop),
+             model.decompress)]).items():
+        held[name].update(by_label)
     conv = model.net.out_net.conv_scale.conv
     with torch.no_grad():
         conv.weight.copy_(kept[0])
@@ -3145,7 +3379,7 @@ def run_lossless(torch, tmpdir):
         trunk_device_ms={d: sum(kernels[n][f'{d}_ms']
                                 for n in LOSSLESS_TRUNK + ('dense',))
                          for d in ('encode', 'decode')},
-        spread_crop=SPREAD_CROP, spread=spread)
+        spread_crop=SPREAD_CROP, spread=spread, redesigns_held=held)
     require(result['portable_marker'], 'qres34m_lossless: file without the '
                                        'marker')
     require(exact, 'qres34m_lossless: the file does not give the PNG\'s '
@@ -3264,7 +3498,18 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     name, power = (s.strip() for s in smi.split(',', 1))
+    # what a portable stream's bits could follow across runs: the driver
+    # and the compiler that built the kernels
+    driver = subprocess.run(
+        ['nvidia-smi', '--query-gpu=driver_version', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    nvcc = subprocess.run([build.nvcc_path(), '--version'],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()
     emit({'card': {'name': name, 'power_limit': power,
+                   'driver_version': driver,
+                   'nvcc': nvcc[0],
+                   'nvcc_release': next(l for l in nvcc if 'release' in l),
                    'torch': torch.__version__, 'cuda': torch.version.cuda}})
 
     table = cdf.build_cdf_table(cdf.default_gaussian_scale_table())
@@ -3293,6 +3538,7 @@ def main():
     emit({'tiled_core': check_core_synthetic(torch, device)})
     emit({'dw_tile': check_dw_synthetic(torch, device)})
     emit({'emb_zadd': check_emb_zadd_synthetic(torch, device)})
+    emit({'nll_zadd': check_nll_zadd_synthetic(torch, device)})
 
     t = time.perf_counter()
     model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
@@ -3471,12 +3717,18 @@ def main():
                                  'prepass_ms', 'addmm_ms', 'oracle_ms',
                                  'oracle_bitwise_shapes',
                                  'oracle_max_abs_err', 'cluster8_ms',
-                                 'conv_alone_ms')
+                                 'conv_alone_ms', 'search_library_ms')
                if k in r},
             **({'oracle': {'emb_mlp': 'emb_mlp_oneblock (one block a row)',
                            'zadd_conv_kxk': 'zadd, then conv_kxk_act('
-                                            'act=False)'}[name]}
+                                            'act=False)',
+                           'nll_head': 'nll_head_linear (the count over all '
+                                       'S entries)'}[name]}
                if name in REDESIGN_ORACLES else {}),
+            **({'search_library': 'torch.searchsorted(table[:-1], '
+                                  'scales), the scales computed beforehand: '
+                                  'the index count alone'}
+               if 'search_library_ms' in r else {}),
             **({'addmm': 'torch.addmm(feature, a, w), TF32 off, a = '
                          + ('syms.float() + pm' if name == 'fuse_zproj'
                             else 'the plain _gelu(t)')

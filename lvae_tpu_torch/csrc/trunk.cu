@@ -28,9 +28,10 @@
 //
 // The matrix products run on two exact-float32 SIMT cores, no tensor cores
 // (TF32 keeps ~3 digits, and 3xTF32 or FP64 DMMA would change the bits):
-// - gemm_kernel, one 64x64 shared-memory tile with a single buffer:
-//   zadd_dense, and the oracle of the other core (the _oldcore entry points
-//   of dense_act, prior_head, fuse_zproj and res_dense_act);
+// - gemm_kernel, one 64x64 shared-memory tile with a single buffer: on no
+//   main path, only the oracle of the other core (the _oldcore entry
+//   points of dense_act, prior_head, fuse_zproj, res_dense_act and
+//   zadd_dense);
 // - tiled_kernel, built for the H100: tile shapes chosen by (M, N) so that
 //   the grid fills the SMs and no column is wasted, a 3-stage cp.async ring,
 //   an implicit-conv loader without per-element division, a GELU or the
@@ -38,8 +39,9 @@
 //   memory, prior_head's scale table staged in shared memory for its index
 //   epilogue, and the residual joins' feature tile read into shared memory
 //   while the product runs: dense, conv_kxk_act, mlp_res's two products,
-//   dense_act, prior_head, fuse_zproj, res_dense_act and zadd_conv_kxk
-//   (z_proj_0 with the integer junction converted on its staged taps).
+//   dense_act, prior_head, fuse_zproj, res_dense_act, zadd_dense and
+//   zadd_conv_kxk (the 1x1 and K x K z_proj_0 with the integer junction
+//   converted on their staged tiles).
 // Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
 // (padded steps add fmaf(0, 0, acc), or are skipped where that returns acc
 // bit for bit), so they give the same bits; tiling only moves which thread
@@ -182,7 +184,7 @@ struct LoadGeluRows {        // gelu(x[m, k]): res_dense_act, the oracles
         return gelu_as(__ldg(x + (long long)m * K + k));
     }
 };
-struct LoadSymsPlusPm {      // float(syms[m, k]) + pm[m, k]: fuse_zproj
+struct LoadSymsPlusPm {      // float(syms[m, k]) + pm[m, k]: the oracles
     const int* s; const float* pm; int K;
     __device__ float operator()(int m, int k) const {
         const long long e = (long long)m * K + k;
@@ -342,12 +344,12 @@ struct RowSrc {
 using DenseSrc = RowSrc<false>;
 using GeluRowSrc = RowSrc<true>;
 
-// the integer junction (fuse_zproj): A(m, k) = (float)syms[m, k] + pm[m, k],
-// LoadSymsPlusPm's expression. cp.async copies bytes and cannot convert, so
-// the int32 words of syms land raw in the A slab and pm in the extra slab;
-// the rewrite converts them (round to nearest) and adds, one f32 addition.
-// A zero-filled copy is int 0 and +0.f: (float)0 + 0.f == +0, the old
-// core's padding.
+// the integer junction (fuse_zproj, zadd_dense): A(m, k) = (float)syms[m,
+// k] + pm[m, k], LoadSymsPlusPm's expression. cp.async copies bytes and
+// cannot convert, so the int32 words of syms land raw in the A slab and pm
+// in the extra slab; the rewrite converts them (round to nearest) and
+// adds, one f32 addition. A zero-filled copy is int 0 and +0.f: (float)0 +
+// 0.f == +0, the old core's padding.
 struct SymsPmSrc {
     static constexpr bool REWRITE = true;
     static constexpr int EXTRA = 1;
@@ -1746,27 +1748,106 @@ __global__ void zadd_kernel(const int* __restrict__ s,
 // expf / logf are the accurate versions.
 // ---------------------------------------------------------------------------
 
-// nll_head. Replaces lvae_tpu/ops/pallas/trunk.py:767 nll_head: logscale
-// floor softplus(r + 16) - 16, the predicted mean rounded to the 255-level
-// pixel grid and expressed in bin units, the scale index as #(table <
-// max(exp(logscale - log bin), table[0])), capped at S - 1. The table sits
-// in shared memory; every thread compares against all S entries in a fixed
-// loop (the same reads, broadcast). Bound: bytes (4 + 4 read, 4 + 4 written
-// an element; the compares are ~log2(S) operations' worth of information).
+// nll_head's two element chains, shared by its two designs: the predicted
+// mean rounded to the 255-level pixel grid and expressed in bin units, and
+// the scale exp(logscale - log bin), logscale floored by softplus(r + 16) -
+// 16, clamped below by the table's first entry (which also drops a NaN).
+__device__ __forceinline__ float nll_mean(float m, float bin_size) {
+    const float grid = rintf(m * 127.5f + 127.5f);
+    return (grid / 127.5f - 1.0f) / bin_size;
+}
+
+__device__ __forceinline__ float nll_scale(float r, float log_bin, float t0) {
+    const float ls = softplus_ref(r + 16.0f) - 16.0f;
+    return fmaxf(expf(ls - log_bin), t0);
+}
+
+// nll_head. Replaces lvae_tpu/ops/pallas/trunk.py:767 nll_head: pm and the
+// scale index #(table < scale) capped at S - 1, for a non-decreasing table
+// (the entry point's contract). Bound: bytes (4 + 4 read, 4 + 4 written an
+// element; ~log2(S) compares). On a non-decreasing table the entries below the
+// scale are a prefix, so the capped count is the length of that prefix within
+// the first S - 1 entries: a branchless lower-bound search, one probe a power
+// of two from the largest <= S - 1 down (7 at the head's S = 128, where the
+// replaced loop compared all 128; the same count for every scale, ties and
+// +inf included), over the table in shared memory. V = 4: a thread takes four
+// elements through 16-byte loads and stores, four searches in flight (n % 4 ==
+// 0 and every pointer 16-byte aligned); V = 1 the rest. On an H100 at photo1's
+// 1.18 M elements: ~12.3 us a launch against the loop's 26.5 and a bare copy's
+// 5.2; without the element math 8.4-8.8, without the search 5.7
+// (scripts/probe-nll-zadd-designs.py; PERF.md). Neither part alone exceeds the
+// copy by much; together they do, at 27 registers and full occupancy: the
+// instructions an element issues. Padding the table against bank conflicts,
+// unrolling the steps, loading every probe unpredicated, a grid-stride loop on
+// fewer blocks with the next elements prefetched, 128-thread blocks and two
+// elements a thread were each no faster (within 5 %, or slower).
+
+template <int V>
 __global__ void nll_head_kernel(const float* __restrict__ m,
-                                const float* __restrict__ r, long long n,
+                                const float* __restrict__ r, long long nv,
                                 const float* __restrict__ table, int S,
                                 float bin_size, float log_bin,
                                 float* __restrict__ pm, int* __restrict__ idx) {
     extern __shared__ float tb[];
     for (int i = threadIdx.x; i < S; i += blockDim.x) tb[i] = table[i];
     __syncthreads();
+    const int cap = S - 1;
+    const int top = cap ? 1 << (31 - __clz(cap)) : 0;
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         e < nv; e += (long long)gridDim.x * blockDim.x) {
+        float mv[V], rv[V], out[V], pv[V];
+        int pos[V];
+        if constexpr (V == 4) {
+            const float4 a = reinterpret_cast<const float4*>(m)[e];
+            const float4 c = reinterpret_cast<const float4*>(r)[e];
+            mv[0] = a.x; mv[1] = a.y; mv[2] = a.z; mv[3] = a.w;
+            rv[0] = c.x; rv[1] = c.y; rv[2] = c.z; rv[3] = c.w;
+        } else {
+            mv[0] = m[e];
+            rv[0] = r[e];
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+            out[q] = nll_mean(mv[q], bin_size);
+            pv[q] = nll_scale(rv[q], log_bin, tb[0]);
+            pos[q] = 0;
+        }
+        for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+                const int j = pos[q] + step;
+                pos[q] = j <= cap && tb[j - 1] < pv[q] ? j : pos[q];
+            }
+        }
+        if constexpr (V == 4) {
+            reinterpret_cast<float4*>(pm)[e] =
+                make_float4(out[0], out[1], out[2], out[3]);
+            reinterpret_cast<int4*>(idx)[e] =
+                make_int4(pos[0], pos[1], pos[2], pos[3]);
+        } else {
+            pm[e] = out[0];
+            idx[e] = pos[0];
+        }
+    }
+}
+
+// nll_head's replaced design, its bitwise oracle: every thread compares
+// the scale against all S entries in a fixed loop (broadcast reads of the
+// table in shared memory), one element a thread. Any table order.
+__global__ void nll_head_linear_kernel(const float* __restrict__ m,
+                                       const float* __restrict__ r,
+                                       long long n,
+                                       const float* __restrict__ table, int S,
+                                       float bin_size, float log_bin,
+                                       float* __restrict__ pm,
+                                       int* __restrict__ idx) {
+    extern __shared__ float tb[];
+    for (int i = threadIdx.x; i < S; i += blockDim.x) tb[i] = table[i];
+    __syncthreads();
     for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
          e += (long long)gridDim.x * blockDim.x) {
-        const float ls = softplus_ref(r[e] + 16.0f) - 16.0f;
-        const float grid = rintf(m[e] * 127.5f + 127.5f);
-        pm[e] = (grid / 127.5f - 1.0f) / bin_size;
-        const float pv = fmaxf(expf(ls - log_bin), tb[0]);
+        pm[e] = nll_mean(m[e], bin_size);
+        const float pv = nll_scale(r[e], log_bin, tb[0]);
         int count = 0;
 #pragma unroll 8
         for (int i = 0; i < S; ++i) count += tb[i] < pv ? 1 : 0;
@@ -2283,13 +2364,36 @@ extern "C" int trunk_zadd_conv_kxk(const void* syms, const void* pm, int B,
     return (int)dispatch_tiled<1>(M, Co, K * K * Z, src, x_f(wt), store, st);
 }
 
-// Replaces lvae_tpu/ops/pallas/trunk.py:609 zadd_dense: (syms + pm) @ w + b,
-// the 1x1 z_proj_0 of a kernel-size-1 block. syms int32 (M, Z); wt (CO, Z).
-// Bound: bytes (K = Z); the int32 + pm prologue is folded into the A-tile
-// load, as in fuse_zproj.
+// Replaces lvae_tpu/ops/pallas/trunk.py:609 zadd_dense, on the tiled core:
+// (syms + pm) @ w + b, the 1x1 z_proj_0 of a kernel-size-1 block (qres34m's
+// first latent block: M = 96 rows an image, Z = 16, CO = 48). syms int32 (M,
+// Z); wt (CO, Z). Bound: bytes (K = Z). fuse_zproj's A operand (SymsPmSrc: the
+// int32 words and pm copied raw, converted in shared memory) with the bias
+// after the chain (StoreBias), so each output is the old core's fmaf chain
+// from +0 and its bits. dispatch_junction's 16x32 tiles of 2x2 (64 threads a
+// block) over dispatch_tiled's 16x24 of 2x6 (32 threads, 12 outputs a thread):
+// on an H100 2.8-3.3 us a launch against 3.2-3.7 at M = 96, 192 and 384, the
+// old core 3.7-4.4, which loaded its one K step element by element with no
+// copy in flight (scripts/probe-nll-zadd-designs.py). The launch is latency:
+// one 16-deep K step, 34 KB of bytes at M = 96.
 extern "C" int trunk_zadd_dense(const void* syms, const void* pm, int M,
                                 int Z, int CO, const void* wt, const void* b,
                                 void* out, int device, void* stream) {
+    TRY(set_device(device));
+    const SymsPmSrc src{(const int*)syms, x_f(pm), M, Z};
+    const StoreBias store{(float*)out, x_f(b), CO};
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (Z % 4 == 0 && aligned16(syms) && aligned16(pm) && aligned16(wt))
+        return (int)dispatch_junction<4>(M, CO, Z, src, x_f(wt), store, st);
+    return (int)dispatch_junction<1>(M, CO, Z, src, x_f(wt), store, st);
+}
+
+// zadd_dense on the old core (gemm_kernel, LoadSymsPlusPm): the tiled
+// kernel's bitwise oracle, not on the main path.
+extern "C" int trunk_zadd_dense_oldcore(const void* syms, const void* pm,
+                                        int M, int Z, int CO, const void* wt,
+                                        const void* b, void* out, int device,
+                                        void* stream) {
     TRY(set_device(device));
     return (int)launch_gemm(M, CO, Z,
                             LoadSymsPlusPm{(const int*)syms, x_f(pm), Z},
@@ -2358,18 +2462,43 @@ extern "C" int trunk_res_dense_act_oldcore(const void* feature, const void* t,
 // ---------------------------------------------------------------------------
 
 // Replaces lvae_tpu/ops/pallas/trunk.py:767 nll_head. p_mean, p_scale_raw,
-// pm (float32) and idx (int32) hold n elements each; table (S,) ascending,
-// S <= 1024. bin_size and log_bin are float32(1/127.5) and
-// float32(log(1/127.5)), rounded once from double as JAX's weakly typed
-// Python floats are.
+// pm (float32) and idx (int32) hold n elements each; table (S,), S <= 1024,
+// MUST be non-decreasing (the search's contract; not checked here, which
+// would synchronise: the caller checks the table once where it is made).
+// bin_size and log_bin are float32(1/127.5) and float32(log(1/127.5)),
+// rounded once from double as JAX's weakly typed Python floats are.
 extern "C" int trunk_nll_head(const void* p_mean, const void* p_scale_raw,
                               long long n, const void* table, int S,
                               float bin_size, float log_bin, void* pm,
                               void* idx, int device, void* stream) {
     if (n < 1 || S < 1 || S > 1024) return (int)cudaErrorInvalidValue;
     TRY(set_device(device));
-    nll_head_kernel<<<elementwise_blocks(n), 256, S * sizeof(float),
-                      (cudaStream_t)stream>>>(
+    const size_t smem = S * sizeof(float);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (n % 4 == 0 && aligned16(p_mean) && aligned16(p_scale_raw)
+        && aligned16(pm) && aligned16(idx))
+        nll_head_kernel<4><<<elementwise_blocks(n / 4), 256, smem, st>>>(
+            x_f(p_mean), x_f(p_scale_raw), n / 4, x_f(table), S, bin_size,
+            log_bin, (float*)pm, (int*)idx);
+    else
+        nll_head_kernel<1><<<elementwise_blocks(n), 256, smem, st>>>(
+            x_f(p_mean), x_f(p_scale_raw), n, x_f(table), S, bin_size,
+            log_bin, (float*)pm, (int*)idx);
+    return (int)cudaGetLastError();
+}
+
+// nll_head on the replaced design (nll_head_linear_kernel, any table
+// order): the bitwise oracle of trunk_nll_head (chip_smoke.py,
+// tests/test_torch_cuda.py), not on the main path.
+extern "C" int trunk_nll_head_linear(const void* p_mean,
+                                     const void* p_scale_raw, long long n,
+                                     const void* table, int S, float bin_size,
+                                     float log_bin, void* pm, void* idx,
+                                     int device, void* stream) {
+    if (n < 1 || S < 1 || S > 1024) return (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    nll_head_linear_kernel<<<elementwise_blocks(n), 256, S * sizeof(float),
+                             (cudaStream_t)stream>>>(
         x_f(p_mean), x_f(p_scale_raw), n, x_f(table), S, bin_size, log_bin,
         (float*)pm, (int*)idx);
     return (int)cudaGetLastError();

@@ -47,9 +47,10 @@ class FusedQresCodec(FusedCodecBase):
         if head == 'nll':
             # the head consumes the whole chain's feature: no tail
             self.stop = self.tail_start = len(blocks)
-            self.head_table = torch.as_tensor(
-                cdf_ops.lossless_head_scale_table().astype('float32'),
-                device=self.device)
+            table = cdf_ops.lossless_head_scale_table().astype('float32')
+            # nll_head's search needs it non-decreasing: checked once here
+            trunk.require_nondecreasing(table, 'the head scale table')
+            self.head_table = torch.as_tensor(table, device=self.device)
         else:
             self.stop = 1 + max(i for i, b in enumerate(blocks)
                                 if getattr(b, 'is_latent_block', False))

@@ -80,6 +80,7 @@ _SIGNATURES = {
     'trunk_conv_kxk_act': [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
                            _I, _P],
     'trunk_zadd_dense': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_zadd_dense_oldcore': [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'trunk_zadd': [_P, _P, _LL, _P, _I, _P],
     'trunk_zadd_conv_kxk': [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                             _P],
@@ -87,6 +88,7 @@ _SIGNATURES = {
     'trunk_res_dense_act_oldcore': [_P, _P, _I, _I, _I, _P, _P, _P, _I,
                                     _P],
     'trunk_nll_head': [_P, _P, _LL, _P, _I, _F, _F, _P, _P, _I, _P],
+    'trunk_nll_head_linear': [_P, _P, _LL, _P, _I, _F, _F, _P, _P, _I, _P],
     'trunk_nll_recon': [_P, _P, _LL, _F, _P, _I, _P],
 }
 

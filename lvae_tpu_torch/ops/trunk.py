@@ -611,11 +611,7 @@ def im2col_tapmajor(x, K):
     return taps.reshape(B, H * W, K * K * Ci)
 
 
-def zadd_dense(syms, pm, w, b):
-    """(syms + pm) @ w + b; syms int32 (B, HW, Z), w (Z, CO): the integer
-    junction of a kernel-size-1 QRes block."""
-    if not _on_card('zadd_dense', syms, pm, w, b):
-        return zadd_dense_plain(syms, pm, w, b)
+def _zadd_dense_launch(entry, syms, pm, w, b):
     B, HW, Z = syms.shape
     if (syms.dtype != torch.int32 or pm.shape != (B, HW, Z)
             or w.shape[0] != Z):
@@ -625,11 +621,31 @@ def zadd_dense(syms, pm, w, b):
     syms = syms.contiguous()
     CO = wt.shape[0]
     out = torch.empty((B, HW, CO), dtype=torch.float32, device=pm.device)
-    _launch('zadd_dense', build.library().trunk_zadd_dense, syms.data_ptr(),
-            pm.data_ptr(), B * HW, Z, CO, wt.data_ptr(), b.data_ptr(),
-            out.data_ptr(), device=pm.device)
+    _launch('zadd_dense', entry, syms.data_ptr(), pm.data_ptr(), B * HW, Z,
+            CO, wt.data_ptr(), b.data_ptr(), out.data_ptr(), device=pm.device)
+    return out
+
+
+def zadd_dense(syms, pm, w, b):
+    """(syms + pm) @ w + b; syms int32 (B, HW, Z), w (Z, CO): the integer
+    junction of a kernel-size-1 QRes block."""
+    if not _on_card('zadd_dense', syms, pm, w, b):
+        return zadd_dense_plain(syms, pm, w, b)
+    out = _zadd_dense_launch(build.library().trunk_zadd_dense, syms, pm, w,
+                             b)
     zadd_dense.launches += 1
     return out
+
+
+def zadd_dense_oldcore(syms, pm, w, b):
+    """zadd_dense on the old product core (gemm_kernel, the conversion in
+    its A-tile load): the bitwise oracle of zadd_dense's tiled kernel in
+    chip_smoke.py and the card tests; not on the main path, and not counted
+    in zadd_dense.launches."""
+    if not _on_card('zadd_dense', syms, pm, w, b):
+        return zadd_dense_plain(syms, pm, w, b)
+    return _zadd_dense_launch(build.library().trunk_zadd_dense_oldcore, syms,
+                              pm, w, b)
 
 
 def zadd_conv_kxk_plain(syms, pm, wk, b):
@@ -735,6 +751,29 @@ def res_dense_act_oldcore(f, t, w, b):
 
 # ---- the lossless pixel head (lvae_tpu/ops/pallas/trunk.py:740-822) -------
 
+def require_nondecreasing(table, name='scale table'):
+    """Raise ValueError unless `table` (a 1-D host array or CPU tensor) is
+    non-decreasing and free of NaN: the contract of nll_head's search. Call
+    it once where a table is made; the wrapper does not check it per call,
+    which would wait for the card."""
+    t = np.asarray(table, dtype=np.float64).ravel()
+    if t.size < 1 or np.isnan(t).any() or not (t[1:] >= t[:-1]).all():
+        raise ValueError(f'{name}: not a non-decreasing table without NaN')
+
+
+def _nll_head_launch(entry, p_mean, p_scale_raw, table, bin_size):
+    if p_scale_raw.shape != p_mean.shape or table.ndim != 1:
+        raise ValueError('nll_head: bad scale/table shapes')
+    p_mean, p_scale_raw, table = _f32('nll_head', p_mean, p_scale_raw, table)
+    pm = torch.empty_like(p_mean)
+    idx = torch.empty(p_mean.shape, dtype=torch.int32, device=p_mean.device)
+    _launch('nll_head', entry, p_mean.data_ptr(), p_scale_raw.data_ptr(),
+            p_mean.numel(), table.data_ptr(), table.numel(), bin_size,
+            math.log(bin_size), pm.data_ptr(), idx.data_ptr(),
+            device=p_mean.device)
+    return pm, idx
+
+
 def nll_head(p_mean, p_scale_raw, table, bin_size):
     """The head's raw 1x1-conv outputs p_mean, p_scale_raw (B, H, W, 3) ->
     (pm float32 in bin units, scale indexes int32), each (B, H, W, 3):
@@ -742,20 +781,27 @@ def nll_head(p_mean, p_scale_raw, table, bin_size):
     grid (round(m * 127.5 + 127.5) / 127.5 - 1) / bin_size, the index
     #(table < max(exp(logscale - log bin_size), table[0])), capped at the
     last entry. Every step one float32 operation (csrc/trunk.cu): these
-    chains decide on which grid value each pixel lands."""
+    chains decide on which grid value each pixel lands. The kernel finds
+    the index by a binary search, so `table` must be non-decreasing
+    (require_nondecreasing, checked once where the table is made, not
+    here)."""
     if not _on_card('nll_head', p_mean, p_scale_raw, table):
         return nll_head_plain(p_mean, p_scale_raw, table, bin_size)
-    if p_scale_raw.shape != p_mean.shape or table.ndim != 1:
-        raise ValueError('nll_head: bad scale/table shapes')
-    p_mean, p_scale_raw, table = _f32('nll_head', p_mean, p_scale_raw, table)
-    pm = torch.empty_like(p_mean)
-    idx = torch.empty(p_mean.shape, dtype=torch.int32, device=p_mean.device)
-    _launch('nll_head', build.library().trunk_nll_head, p_mean.data_ptr(),
-            p_scale_raw.data_ptr(), p_mean.numel(), table.data_ptr(),
-            table.numel(), bin_size, math.log(bin_size), pm.data_ptr(),
-            idx.data_ptr(), device=p_mean.device)
+    out = _nll_head_launch(build.library().trunk_nll_head, p_mean,
+                           p_scale_raw, table, bin_size)
     nll_head.launches += 1
-    return pm, idx
+    return out
+
+
+def nll_head_linear(p_mean, p_scale_raw, table, bin_size):
+    """nll_head on the design it replaced (every element compares against
+    all S entries; any table order): the bitwise oracle of nll_head's
+    kernel in chip_smoke.py and the card tests; not on the main path, and
+    not counted in nll_head.launches."""
+    if not _on_card('nll_head', p_mean, p_scale_raw, table):
+        return nll_head_plain(p_mean, p_scale_raw, table, bin_size)
+    return _nll_head_launch(build.library().trunk_nll_head_linear, p_mean,
+                            p_scale_raw, table, bin_size)
 
 
 def nll_recon(syms, pm, bin_size):

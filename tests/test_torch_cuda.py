@@ -8,9 +8,11 @@ product core) bitwise against the old core (the _oldcore entry points) at
 ragged shapes, dw_ln_mod and dw_ln_affine (the halo-tile stencil) bitwise
 against the warp-per-pixel kernel, emb_mlp's thread-block cluster kernel
 bitwise against the one-block kernel (emb_mlp_oneblock) and zadd_conv_kxk
-against zadd then conv_kxk_act(act=False), the lossless head's two kernels against
-theirs bitwise, and qarv_tiny, qres_tiny and qres_tiny_lossless round trips
-(legacy and portable) through them.
+against zadd then conv_kxk_act(act=False), nll_head's search against the
+linear count (nll_head_linear) and zadd_dense against the old core, the
+lossless head's two kernels against theirs bitwise, and qarv_tiny,
+qres_tiny and qres_tiny_lossless round trips (legacy and portable) through
+them.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -726,6 +728,58 @@ def test_zadd_conv_kxk_and_plain_within_rounding_of_float64(card):
         worst = max([worst] + [r[0] for r in shares])
         assert all(r[0] <= 1.0 for r in shares), (c, shares)
     assert worst > 0.0          # the witness saw rounding, not nothing
+
+
+# ---- nll_head's search, zadd_dense on the tiled core ------------------------
+
+@pytest.mark.parametrize('S', [1, 2, 3, 64, 127, 128, 129, 1000, 1024])
+def test_nll_head_search_equals_linear_and_plain(card, S):
+    """nll_head's search is bitwise nll_head_linear (the count over all S
+    entries) and nll_head_plain, pm and indexes, on chip_smoke's cases at
+    table size S: exp-linspace tables, tables with a scale at, one ulp
+    below and one ulp above every entry, and tied ones; raw scales +inf, NaN,
+    overflowing and -inf, means +-inf; the four-element path and the
+    one-element path (n % 4 != 0, and 4 bytes off 16). One launch counted
+    a call of nll_head, none of the oracle."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    assert S in chip_smoke.NLL_S
+    for label, args in chip_smoke.nll_search_cases(torch, S, card):
+        before = trunk.nll_head.launches
+        got = trunk.nll_head(*args)
+        assert trunk.nll_head.launches == before + 1
+        assert chip_smoke.nll_head_bitwise(torch, args, got), label
+        assert trunk.nll_head.launches == before + 1
+        # NaN's scale is the first entry (index 0), +inf's past the last
+        assert int(got[1].min()) == 0 and int(got[1].max()) == S - 1, label
+
+
+def test_zadd_dense_equals_old_core(card):
+    """zadd_dense on the tiled core is bitwise zadd_dense_oldcore at
+    chip_smoke's cases (rows 1 to 576, Z 1, 3, 16 and 17, widths 1, 48 and
+    50, aligned and 4 bytes off 16; symbols up to 2^24 - 1, -0, NaN and
+    +-inf in pm); one launch counted a call, none for the oracle; at the
+    main path's shape the first image of a batch of two gets the bits it
+    gets alone, also on the old core."""
+    import chip_smoke
+    from lvae_tpu_torch.ops import trunk
+    g = torch.Generator(device=card).manual_seed(chip_smoke.ZDENSE_SEED)
+    cases = chip_smoke.zadd_dense_cases()
+    before = trunk.zadd_dense.launches
+    bad = []
+    for c in cases:
+        args = chip_smoke.zadd_dense_args(torch, g, *c, card)
+        if not _same_bits(trunk.zadd_dense(*args),
+                          trunk.zadd_dense_oldcore(*args)):
+            bad.append(c)
+    assert not bad, bad[:5]
+    assert trunk.zadd_dense.launches == before + len(cases)
+    args = chip_smoke.zadd_dense_args(torch, g, 2, 96, 16, 48, False, card)
+    got = trunk.zadd_dense(*args)
+    assert _same_bits(got, trunk.zadd_dense_oldcore(*args))
+    one = (args[0][:1], args[1][:1], *args[2:])
+    assert _same_bits(got[:1], trunk.zadd_dense(*one))
+    assert _same_bits(got[:1], trunk.zadd_dense_oldcore(*one))
 
 
 # ---- the rANS decode kernel at its corners ---------------------------------
