@@ -41,7 +41,10 @@
 //   while the product runs: dense, conv_kxk_act, mlp_res's two products,
 //   dense_act, prior_head, fuse_zproj, res_dense_act, zadd_dense and
 //   zadd_conv_kxk (the 1x1 and K x K z_proj_0 with the integer junction
-//   converted on their staged tiles).
+//   converted on their staged tiles), and the 1x1 convs that end the
+//   synthesis tail (upsample_finish: the pixel finish and the float16 image
+//   written in pixel-shuffle order) and the lossless head (upsample_head:
+//   both shuffled tensors in one product).
 // Both run each output's sum as the same chain k = 0..K-1 in 16-deep steps
 // (padded steps add fmaf(0, 0, acc), or are skipped where that returns acc
 // bit for bit), so they give the same bits; tiling only moves which thread
@@ -49,8 +52,11 @@
 // depends on it.
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -284,7 +290,9 @@ cudaError_t launch_gemm(int M, int N, int K, Load load, const float* w,
 //   landed and every thread is past the K loop, and stages what its stores
 //   read there; one with PREFETCH (StoreResidualStaged) copies a tile of
 //   its own input into shared memory beyond the ring while the K loop runs,
-//   and writes the outputs from there.
+//   and writes the outputs from there; one with STAGED alone
+//   (StoreShuffleStaged) finishes the tile into shared memory beyond the
+//   ring and writes it out in an order of its own (the pixel shuffle).
 // ---------------------------------------------------------------------------
 
 constexpr int PK = BK;          // K step: gemm_kernel's, so the same padding
@@ -527,8 +535,12 @@ __host__ __device__ constexpr int staged_ld(int bn) { return bn + 4; }
 // zero-filled and never written.
 template <bool BIAS_LAST>
 struct StoreResidualStaged {
-    static constexpr bool PREFETCH = true;
+    static constexpr bool STAGED = true, PREFETCH = true;
     float* out; const float* b; const float* f; int M, N; bool vec;
+    template <int BM, int BN>
+    __host__ __device__ static constexpr int staged_floats() {
+        return BM * staged_ld(BN);
+    }
     __device__ float operator()(float fv, float acc, int n) const {
         return BIAS_LAST ? (fv + acc) + b[n] : fv + (acc + b[n]);
     }
@@ -576,12 +588,104 @@ struct StoreResidualStaged {
     }
 };
 
-// whether a store functor stages a tile of its own input (prefetch, write)
+// whether a store functor finishes its tile in shared memory beyond the
+// ring and writes it out from there (STAGED: value(acc, n) or, PREFETCH,
+// value(input, acc, n) into the tile, then write), and whether it copies a
+// tile of its own input there first (PREFETCH: prefetch)
+template <class S, class = void>
+struct HasStaged { static constexpr bool value = false; };
+template <class S>
+struct HasStaged<S, decltype(void(S::STAGED))> {
+    static constexpr bool value = S::STAGED;
+};
 template <class S, class = void>
 struct HasPrefetch { static constexpr bool value = false; };
 template <class S>
 struct HasPrefetch<S, decltype(void(S::PREFETCH))> {
     static constexpr bool value = S::PREFETCH;
+};
+
+// clip(v, -1, 1) * 0.5 + 0.5: finish_kernel's expression (-fmad=false: the
+// product and the sum round apart, as there)
+__device__ __forceinline__ float finish_value(float v) {
+    return fminf(fmaxf(v, -1.0f), 1.0f) * 0.5f + 0.5f;
+}
+
+// The 1x1 convs that end in a pixel shuffle, on the tiled core: column n =
+// g*G + c*r*r + i*r + j of row m = (b*H + h)*W + w goes to out_g[b, h*r + i,
+// w*r + j, c], G = 3*r*r columns a tensor (pixel_shuffle_nhwc's order:
+// torch.nn.PixelShuffle's). FINISH: upsample_finish, one tensor (N = G) of
+// float16 finish_value(acc + b[n]), each rounded once (__float2half_rn,
+// torch's .to(float16)); else upsample_head, out_0 the mean's columns and
+// out_1 the scale's (N = 2G), float32 acc + b[n] (StoreBias's value). The
+// block finishes its BM x BN tile into shared memory beyond the ring (no
+// prefetch: nothing is read but the bias), then writes it in output order:
+// where the tile holds whole tensors' columns (BN % G == 0), for each of
+// them and each i the tile's rows' 3r contiguous elements at w*r*3 of
+// output row (b*H + h)*r + i, consecutive threads on consecutive
+// addresses, so that the consecutive pixels of a grid row in the tile
+// write one run; else element by element. Any B, H and W: a tile may
+// straddle grid rows and images, since each row's output offset is taken
+// from its own m (row_base, computed once a tile row).
+template <bool FINISH>
+struct StoreShuffleStaged {
+    static constexpr bool STAGED = true;
+    using T = typename std::conditional<FINISH, __half, float>::type;
+    T* out0; T* out1; const float* b; int M, N, W, r;
+    template <int BM, int BN>   // the tile, then BM row bases
+    __host__ __device__ static constexpr int staged_floats() {
+        return BM * staged_ld(BN) + 2 * BM;
+    }
+    __device__ float operator()(float acc, int n) const {
+        const float v = acc + b[n];
+        return FINISH ? finish_value(v) : v;
+    }
+    __device__ static T convert(float v) {
+        if constexpr (FINISH) return __float2half_rn(v);
+        else return v;
+    }
+    template <int BM, int BN>
+    __device__ void write(const float* tile, int m0, int n0, int tid,
+                          int threads) const {
+        static_assert((BM * staged_ld(BN)) % 2 == 0, "8-byte row bases");
+        long long* row_base = reinterpret_cast<long long*>(
+            const_cast<float*>(tile) + BM * staged_ld(BN));
+        const int G = 3 * r * r, L = 3 * r;
+        const long long stride = (long long)L * W;    // an output row
+        for (int rl = tid; rl < BM; rl += threads) {
+            const int m = m0 + rl, t = m / W;         // t = b*H + h
+            row_base[rl] = (long long)t * r * stride + (long long)(m - t * W)
+                                                       * L;
+        }
+        __syncthreads();
+        if (BN % G == 0) {                   // whole tensors: output order
+            for (int gl = 0; gl < BN / G; ++gl) {
+                const int g = n0 / G + gl;
+                if (g * G >= N) break;
+                T* out = g == 0 ? out0 : out1;
+                const float* col = tile + gl * G;
+                for (int i = 0; i < r; ++i) {
+                    for (int e = tid; e < BM * L; e += threads) {
+                        const int rl = e / L, q = e - rl * L;
+                        if (m0 + rl >= M) break;     // rows past M: the end
+                        const int j = q / 3, c = q - j * 3;
+                        out[row_base[rl] + i * stride + q] = convert(
+                            col[rl * staged_ld(BN) + c * r * r + i * r + j]);
+                    }
+                }
+            }
+        } else {                             // element by element
+            for (int e = tid; e < BM * BN; e += threads) {
+                const int rl = e / BN, cl = e - rl * BN, n = n0 + cl;
+                if (m0 + rl >= M) break;
+                if (n >= N) continue;
+                const int g = n / G, nn = n - g * G, c = nn / (r * r),
+                          ij = nn - c * r * r, i = ij / r, j = ij - i * r;
+                (g == 0 ? out0 : out1)[row_base[rl] + i * stride + j * 3 + c] =
+                    convert(tile[rl * staged_ld(BN) + cl]);
+            }
+        }
+    }
 };
 
 // A tile shape: BM x BN outputs a block, TM x TN a thread; MINB blocks an
@@ -607,7 +711,8 @@ struct Tile {
     template <class ASrc, class Store>
     __host__ __device__ static constexpr int smem() {
         int floats = STAGES * stage<ASrc>();
-        if constexpr (HasPrefetch<Store>::value) floats += BM * staged_ld(BN);
+        if constexpr (HasStaged<Store>::value)
+            floats += Store::template staged_floats<BM, BN>();
         return floats * (int)sizeof(float);
     }
 };
@@ -775,9 +880,11 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
         }
     }
     cp_async_wait<0>();                // no copy outlives the block
-    if constexpr (PREFETCH) {
+    if constexpr (HasStaged<Store>::value) {
         float* staged = smem + STAGES * STAGE;
-        __syncthreads();               // every thread's tile copies landed
+        // every thread's tile copies landed (without a prefetch, the tile
+        // lies beyond the ring, which no thread reads any more from here)
+        if constexpr (PREFETCH) __syncthreads();
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
             const int r = ty + i * TY;
@@ -786,7 +893,10 @@ tiled_kernel(int M, int N, int K, ASrc asrc, const float* __restrict__ w,
             for (int j = 0; j < TN; ++j) {
                 const int c = tx + j * TX;
                 float* p = staged + r * staged_ld(BN) + c;
-                if (n0 + c < N) *p = store(*p, acc[i][j], n0 + c);
+                if (n0 + c < N) {
+                    if constexpr (PREFETCH) *p = store(*p, acc[i][j], n0 + c);
+                    else *p = store(acc[i][j], n0 + c);
+                }
             }
         }
         __syncthreads();
@@ -965,6 +1075,46 @@ cudaError_t dispatch_rows(const float* x, int M, int N, int K,
     else
         return v4 ? dispatch_tiled<4>(M, N, K, src, wt, st, s)
                   : dispatch_tiled<1>(M, N, K, src, wt, st, s);
+}
+
+// The shuffled stores' tiles (upsample_finish, upsample_head), at N % 48
+// == 0 (the tail's and the head's widths, N = 48 and 96 at rate 4) 48
+// columns wide, so that a tile holds whole tensors' columns and writes in
+// output order: by the outputs an SM holds, 96x48 tiles of 6x6 a thread
+// above ~16k (the head at photo1's 24,576 rows: 35 us, against 42 on
+// 64x48 tiles; the B = 6 tails), 64x48 of 4x6 above ~8k (the tails: 17 us
+// at qarv_base's, no other tile tried faster by more than 2 %), else
+// 32x48 (scripts/probe-upsample-tiles.py; PERF.md PR 17). 16x24 at any other N
+// (rates 1 and 2: G = 3 and 12 divide 24; any other rate element by
+// element). Instantiated for these stores alone: six tiles each.
+template <int V, class Store>
+cudaError_t dispatch_shuffle(int M, int N, int K, DenseSrc a, const float* w,
+                             Store st, cudaStream_t s) {
+    if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
+    int sms;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const double per_sm = (double)M * N / sms;
+#define TILE(...) \
+    return launch_tiled<Tile<__VA_ARGS__>, V>(M, N, K, a, w, st, s)
+    if (N % 48 == 0) {
+        if constexpr (V == 4) {
+            if (per_sm > 16000) TILE(96, 48, 6, 6);
+            if (per_sm > 8000) TILE(64, 48, 4, 6);
+        }
+        TILE(32, 48, 4, 6);
+    }
+    TILE(16, 24, 2, 6);
+#undef TILE
+}
+
+template <class Store>
+cudaError_t dispatch_shuffle_rows(const float* x, int M, int N, int K,
+                                  const float* wt, Store st, cudaStream_t s) {
+    const DenseSrc src{x, M, K};
+    return K % 4 == 0 && aligned16(x) && aligned16(wt)
+               ? dispatch_shuffle<4>(M, N, K, src, wt, st, s)
+               : dispatch_shuffle<1>(M, N, K, src, wt, st, s);
 }
 
 // gelu_as once per element: conv_kxk_act's pre-pass (bitwise the value its
@@ -2195,6 +2345,46 @@ extern "C" int trunk_finish_image(const void* x, long long n, void* out,
     finish_kernel<<<elementwise_blocks(n), 256, 0, (cudaStream_t)stream>>>(
         (const float*)x, n, (float*)out);
     return (int)cudaGetLastError();
+}
+
+// The tail's last 1x1 conv, pixel shuffle and finish in one launch:
+// x (M, C) rows of the (B, H, W, C) feature (M = B*H*W), wt (3*r*r, C), b
+// (3*r*r,) -> out (B, r*H, r*W, 3) float16 = finish_value(x @ wt^T + b),
+// shuffled (StoreShuffleStaged<true>). Replaces the chain trunk_dense ->
+// pixel_shuffle_nhwc(...).contiguous() -> trunk_finish_image -> .to(float16)
+// (lvae_tpu/ops/pallas/trunk.py:257 and :382), bit for bit: each output is
+// the same chain plus bias, finished and rounded as there. Bound:
+// operations at qarv_base's C = 128, about even with the bytes at qres34m's
+// 192 (the feature read once, 2 bytes a pixel channel written).
+extern "C" int trunk_upsample_finish(const void* x, int M, int W, int C,
+                                     int rate, const void* wt, const void* b,
+                                     void* out, int device, void* stream) {
+    if (M < 1 || W < 1 || M % W != 0 || rate < 1) return
+        (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const StoreShuffleStaged<true> st{(__half*)out, nullptr, x_f(b), M,
+                                      3 * rate * rate, W, rate};
+    return (int)dispatch_shuffle_rows(x_f(x), M, st.N, C, x_f(wt), st,
+                                      (cudaStream_t)stream);
+}
+
+// The lossless head's two 1x1 convs on one feature in one product: wt (2G,
+// C) the mean's then the scale's rows, b (2G,), G = 3*r*r -> out_mean and
+// out_scale, each (B, r*H, r*W, 3) float32, shuffled
+// (StoreShuffleStaged<false>). Replaces two trunk_dense launches and two
+// pixel_shuffle_nhwc copies (lvae_tpu/ops/pallas/trunk.py:257, twice), bit
+// for bit. Bound: operations (K = 192 on qres34m_lossless).
+extern "C" int trunk_upsample_head(const void* x, int M, int W, int C,
+                                   int rate, const void* wt, const void* b,
+                                   void* out_mean, void* out_scale,
+                                   int device, void* stream) {
+    if (M < 1 || W < 1 || M % W != 0 || rate < 1) return
+        (int)cudaErrorInvalidValue;
+    TRY(set_device(device));
+    const StoreShuffleStaged<false> st{(float*)out_mean, (float*)out_scale,
+                                       x_f(b), M, 6 * rate * rate, W, rate};
+    return (int)dispatch_shuffle_rows(x_f(x), M, st.N, C, x_f(wt), st,
+                                      (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ from lvae_tpu_torch.models.base import host_image
 from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
 from lvae_tpu_torch.ops import trunk
+from lvae_tpu_torch.ops.trunk import pixel_shuffle_nhwc
 from lvae_tpu_torch.utils import coding
 
 
@@ -77,15 +78,6 @@ def _exact_f32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
-
-
-def pixel_shuffle_nhwc(x, rate):
-    """Depth-to-space on NHWC with torch.nn.PixelShuffle's channel order
-    (lvae_tpu/models/common.py pixel_shuffle)."""
-    B, H, W, CRR = x.shape
-    C = CRR // (rate * rate)
-    x = x.reshape(B, H, W, C, rate, rate).permute(0, 1, 4, 2, 5, 3)
-    return x.reshape(B, H * rate, W * rate, C)
 
 
 def patch_escapes(z, esc_pos, esc_val, start):
@@ -622,14 +614,33 @@ class FusedCodecBase:
 class PortableTrunk:
     """Mixed in before a family's codec class: the trunk on the kernels of
     ops/trunk.py, NHWC, with the stages every family shares (the seed, the
-    resampling blocks, the pixel finish); its streams carry the portable
-    marker and decode in any process."""
+    resampling blocks, the tail's last conv with the pixel finish); its
+    streams carry the portable marker and decode in any process."""
 
     portable = True
     layout = 'NHWC'
     # the kernels' results depend on no flag; only the backbone and
     # posterior (library calls) are scoped, in _encode
     trunk_scope = staticmethod(contextlib.nullcontext)
+
+    def __init__(self, net, cdf_table, **cfg):
+        super().__init__(net, cdf_table, **cfg)
+        # the tail ends in the conv that upsample_finish folds the finish
+        # into; the lossless head's two convs run as upsample_head
+        if self.head_index_base is None:
+            ups = list(net.dec_blocks)[self.tail_start:][-1:]
+        else:
+            ups = [net.out_net.conv_mean, net.out_net.conv_scale]
+        if not ups or not all(
+                isinstance(up, common.patch_upsample)
+                and up.conv.out_channels == 3 * up.rate ** 2
+                and up.rate == ups[0].rate
+                and up.conv.in_channels == ups[0].conv.in_channels
+                for up in ups):
+            raise NotImplementedError(
+                'portable trunk: the synthesis tail (or each conv of the '
+                'lossless head) must end in a patch_upsample to 3 channels; '
+                'use portable=False')
 
     def _start(self, B, nH, nW):
         bias = self.net.bias.reshape(1, 1, 1, -1)
@@ -645,8 +656,13 @@ class PortableTrunk:
         raise NotImplementedError(
             f'portable trunk: unsupported block {type(blk).__name__}')
 
-    def _finish(self, feature):
-        return trunk.finish_image(feature)
+    def _tail(self, feature, tctx):
+        """The tail's blocks but the last, then its last conv with the
+        pixel finish in one launch -> (B, H, W, 3) float16."""
+        *blocks, last = list(self.net.dec_blocks)[self.tail_start:]
+        for blk in blocks:
+            feature = self._plain(blk, feature, *tctx)
+        return trunk.patch_upsample_finish(feature, last)
 
 
 def _pull_async(payload):

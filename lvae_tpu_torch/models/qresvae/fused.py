@@ -15,15 +15,15 @@ indexes are trunk, and the pixels are one more coded block
 * legacy (``FusedQresCodec``): the modules' library calls, NCHW.
 * portable (``PortableQresCodec``): the plain ConvNeXt blocks, the VDBlock
   prior and its scale indexes, the z-projection junction, the 1x1 convs of
-  the upsamplers and of the head, the pixel finish and the head's grid
-  rounding and reconstruction from the kernels of ``ops/trunk.py``.
+  the upsamplers, the tail's last conv with the pixel finish (one launch),
+  the head's two convs (one launch) and its grid rounding and
+  reconstruction from the kernels of ``ops/trunk.py``.
 """
 import torch
 
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models import entropy_coding as ec
-from lvae_tpu_torch.models.fused_base import (FusedCodecBase, PortableTrunk,
-                                              pixel_shuffle_nhwc)
+from lvae_tpu_torch.models.fused_base import FusedCodecBase, PortableTrunk
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.ops import trunk
 
@@ -135,9 +135,7 @@ class PortableQresCodec(PortableTrunk, FusedQresCodec):
 
     def _head_tensors(self, feature):
         onet = self.net.out_net
-        m, r = (pixel_shuffle_nhwc(trunk.conv1x1(feature, up.conv),
-                                   up.rate).contiguous()
-                for up in (onet.conv_mean, onet.conv_scale))
+        m, r = trunk.head_upsample(feature, onet.conv_mean, onet.conv_scale)
         return trunk.nll_head(m, r, self.head_table, onet.bin_size)
 
     def _head_recon(self, xs, pm):

@@ -71,6 +71,8 @@ _SIGNATURES = {
     'trunk_fuse_zproj_oldcore': [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I,
                                  _P],
     'trunk_finish_image': [_P, _LL, _P, _I, _P],
+    'trunk_upsample_finish': [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    'trunk_upsample_head': [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     'trunk_dw_ln_affine': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _P],
     'trunk_dw_ln_affine_warp': [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

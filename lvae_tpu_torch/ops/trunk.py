@@ -145,6 +145,33 @@ def finish_image_plain(x):
     return torch.clamp(x, -1.0, 1.0) * 0.5 + 0.5
 
 
+def pixel_shuffle_nhwc(x, rate):
+    """Depth-to-space on NHWC with torch.nn.PixelShuffle's channel order
+    (lvae_tpu/models/common.py pixel_shuffle)."""
+    B, H, W, CRR = x.shape
+    C = CRR // (rate * rate)
+    x = x.reshape(B, H, W, C, rate, rate).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H * rate, W * rate, C)
+
+
+def _conv_shuffle_plain(x, w, b, rate):
+    """x (B, H, W, C) -> dense_plain -> pixel_shuffle_nhwc, contiguous:
+    the plain path's patch_upsample."""
+    B, H, W, C = x.shape
+    y = dense_plain(x.reshape(B, H * W, C), w, b).reshape(B, H, W, -1)
+    return pixel_shuffle_nhwc(y, rate).contiguous()
+
+
+def upsample_finish_plain(x, w, b, rate):
+    return finish_image_plain(_conv_shuffle_plain(x, w, b, rate)).to(
+        torch.float16)
+
+
+def upsample_head_plain(x, w_mean, b_mean, w_scale, b_scale, rate):
+    return (_conv_shuffle_plain(x, w_mean, b_mean, rate),
+            _conv_shuffle_plain(x, w_scale, b_scale, rate))
+
+
 def dw_ln_affine_plain(x, dwk, dwb, scale, bias, kernel_size):
     return _dw_ln_plain(x, dwk, dwb, kernel_size) * scale + bias
 
@@ -369,10 +396,7 @@ def mlp_res(t, w1, b1, w2, b2, gamma, shortcut):
     return out
 
 
-def dense(x, w, b):
-    """x (B, HW, C) @ w (C, CO) + b: the 1x1 conv of patch_upsample."""
-    if not _on_card('dense', x, w, b):
-        return dense_plain(x, w, b)
+def _dense_launch(x, w, b):
     B, HW, C = x.shape
     if w.shape[0] != C:
         raise ValueError('dense: bad weight shape')
@@ -382,6 +406,14 @@ def dense(x, w, b):
     out = torch.empty((B, HW, CO), dtype=torch.float32, device=x.device)
     _launch('dense', build.library().trunk_dense, x.data_ptr(), B * HW, C,
             CO, wt.data_ptr(), b.data_ptr(), out.data_ptr(), device=x.device)
+    return out
+
+
+def dense(x, w, b):
+    """x (B, HW, C) @ w (C, CO) + b: the 1x1 conv of patch_upsample."""
+    if not _on_card('dense', x, w, b):
+        return dense_plain(x, w, b)
+    out = _dense_launch(x, w, b)
     dense.launches += 1
     return out
 
@@ -463,17 +495,120 @@ def fuse_zproj_oldcore(feature, syms, pm, w, b):
                               feature, syms, pm, w, b)
 
 
-def finish_image(x):
-    """x (B, H, W, 3) float32 -> clip(x, -1, 1) * 0.5 + 0.5 as float16. The
-    cast is one IEEE rounding of the kernel's exact float32 output."""
-    if not _on_card('finish_image', x):
-        return finish_image_plain(x).to(torch.float16)
+def _finish_launch(x):
     x, = _f32('finish_image', x)
     out = torch.empty_like(x)
     _launch('finish_image', build.library().trunk_finish_image, x.data_ptr(),
             x.numel(), out.data_ptr(), device=x.device)
-    finish_image.launches += 1
     return out.to(torch.float16)
+
+
+def finish_image(x):
+    """x (B, H, W, 3) float32 -> clip(x, -1, 1) * 0.5 + 0.5 as float16. The
+    cast is one IEEE rounding of the kernel's exact float32 output. On no
+    main path since the tail's last conv runs as upsample_finish; with
+    dense before it, upsample_finish's oracle (upsample_finish_chain)."""
+    if not _on_card('finish_image', x):
+        return finish_image_plain(x).to(torch.float16)
+    out = _finish_launch(x)
+    finish_image.launches += 1
+    return out
+
+
+def _shuffle_args(name, x, C, N, rate):
+    """-> (x contiguous float32, B, H, W, r), checking that the conv
+    maps C channels to N = k * 3 * r * r outputs."""
+    B, H, W, Cx = x.shape
+    r = int(rate)
+    if r < 1 or Cx != C or N != 3 * r * r:
+        raise ValueError(f'{name}: bad weight shape or rate')
+    x, = _f32(name, x)
+    return x, B, H, W, r
+
+
+def _upsample_finish_launch(entry, x, w, b, rate):
+    x, B, H, W, r = _shuffle_args('upsample_finish', x, w.shape[0],
+                                  w.shape[1], rate)
+    b, = _f32('upsample_finish', b)
+    wt, = _f32('upsample_finish', _out_major(w))
+    out = torch.empty((B, r * H, r * W, 3), dtype=torch.float16,
+                      device=x.device)
+    _launch('upsample_finish', entry, x.data_ptr(), B * H * W, W,
+            x.shape[-1], r, wt.data_ptr(), b.data_ptr(), out.data_ptr(),
+            device=x.device)
+    return out
+
+
+def upsample_finish(x, w, b, rate):
+    """The synthesis tail's last patch_upsample and the pixel finish in one
+    launch: x (B, H, W, C) float32, w (C, 3 * rate**2), b -> clip(pixel
+    shuffle(x @ w + b), -1, 1) * 0.5 + 0.5 as (B, rate*H, rate*W, 3)
+    float16, contiguous; bitwise upsample_finish_chain (dense,
+    pixel_shuffle_nhwc, finish_image) on the card."""
+    if not _on_card('upsample_finish', x, w, b):
+        return upsample_finish_plain(x, w, b, rate)
+    out = _upsample_finish_launch(build.library().trunk_upsample_finish, x,
+                                  w, b, rate)
+    upsample_finish.launches += 1
+    return out
+
+
+def upsample_finish_chain(x, w, b, rate):
+    """What upsample_finish replaced: dense, pixel_shuffle_nhwc(...)
+    .contiguous(), then finish_image's kernel and the float16 cast, four
+    device passes; its bitwise oracle on the card (chip_smoke.py, the card
+    tests). Not counted."""
+    if not _on_card('upsample_finish', x, w, b):
+        return upsample_finish_plain(x, w, b, rate)
+    B, H, W, C = x.shape
+    y = _dense_launch(x.reshape(B, H * W, C), w, b).reshape(B, H, W, -1)
+    return _finish_launch(pixel_shuffle_nhwc(y, int(rate)).contiguous())
+
+
+def _head_operands(w_mean, b_mean, w_scale, b_scale):
+    """The two convs' (2G, C) out-major weight (the mean's rows, then the
+    scale's) and (2G,) bias, made once per version of the four tensors and
+    kept on the mean weight's storage owner (_prepared)."""
+    owner = w_mean if w_mean._base is None else w_mean._base
+    return _prepared(owner, lambda _: (
+        torch.cat([_out_major(w_mean), _out_major(w_scale)]),
+        torch.cat([b_mean, b_scale])), w_mean, w_scale, b_mean, b_scale)
+
+
+def upsample_head(x, w_mean, b_mean, w_scale, b_scale, rate):
+    """The lossless head's two patch_upsample convs on one feature in one
+    launch: x (B, H, W, C) float32, w_* (C, 3 * rate**2) -> (m, r), each
+    pixel_shuffle(x @ w_* + b_*) as (B, rate*H, rate*W, 3) float32,
+    contiguous (the layout nll_head reads); bitwise upsample_head_chain on
+    the card."""
+    if not _on_card('upsample_head', x, w_mean, b_mean, w_scale, b_scale):
+        return upsample_head_plain(x, w_mean, b_mean, w_scale, b_scale, rate)
+    if w_scale.shape != w_mean.shape or b_mean.shape != b_scale.shape:
+        raise ValueError('upsample_head: the two convs differ in shape')
+    x, B, H, W, r = _shuffle_args('upsample_head', x, w_mean.shape[0],
+                                  w_mean.shape[1], rate)
+    wt, bias = _f32('upsample_head',
+                    *_head_operands(w_mean, b_mean, w_scale, b_scale))
+    m, s = (torch.empty((B, r * H, r * W, 3), dtype=torch.float32,
+                        device=x.device) for _ in range(2))
+    _launch('upsample_head', build.library().trunk_upsample_head,
+            x.data_ptr(), B * H * W, W, x.shape[-1], r, wt.data_ptr(),
+            bias.data_ptr(), m.data_ptr(), s.data_ptr(), device=x.device)
+    upsample_head.launches += 1
+    return m, s
+
+
+def upsample_head_chain(x, w_mean, b_mean, w_scale, b_scale, rate):
+    """What upsample_head replaced: per conv dense, then
+    pixel_shuffle_nhwc(...).contiguous(), four device passes; its bitwise
+    oracle on the card. Not counted."""
+    if not _on_card('upsample_head', x, w_mean, b_mean, w_scale, b_scale):
+        return upsample_head_plain(x, w_mean, b_mean, w_scale, b_scale, rate)
+    B, H, W, C = x.shape
+    return tuple(pixel_shuffle_nhwc(
+        _dense_launch(x.reshape(B, H * W, C), w, b).reshape(B, H, W, -1),
+        int(rate)).contiguous() for w, b in ((w_mean, b_mean),
+                                              (w_scale, b_scale)))
 
 
 # ---- the QRes-VAE trunk (lvae_tpu/ops/pallas/trunk.py:446-748) -----------
@@ -823,12 +958,15 @@ def nll_recon(syms, pm, bin_size):
 
 
 KERNELS = (emb_mlp, dw_ln_mod, mlp_res, dense, prior_head, fuse_zproj,
-           finish_image, dw_ln_affine, dense_act, conv_kxk_act, zadd_dense,
-           zadd, zadd_conv_kxk, res_dense_act, nll_head, nll_recon)
+           finish_image, upsample_finish, upsample_head, dw_ln_affine,
+           dense_act, conv_kxk_act, zadd_dense, zadd, zadd_conv_kxk,
+           res_dense_act, nll_head, nll_recon)
 PLAIN = {emb_mlp: emb_mlp_plain, dw_ln_mod: dw_ln_mod_plain,
          mlp_res: mlp_res_plain, dense: dense_plain,
          prior_head: prior_head_plain, fuse_zproj: fuse_zproj_plain,
          finish_image: lambda x: finish_image_plain(x).to(torch.float16),
+         upsample_finish: upsample_finish_plain,
+         upsample_head: upsample_head_plain,
          dw_ln_affine: dw_ln_affine_plain, dense_act: dense_act_plain,
          conv_kxk_act: conv_kxk_act_plain, zadd_dense: zadd_dense_plain,
          zadd: zadd_plain, zadd_conv_kxk: zadd_conv_kxk_plain,
@@ -844,12 +982,14 @@ for _k in KERNELS:
 # and the two layouts that need one are made once per weight (_prepared)
 # ---------------------------------------------------------------------------
 
-def _prepared(param, make):
-    """make(param) kept on the parameter until it changes in place (an
-    in-place op or load_state_dict bumps its version) or its storage moves
-    (.to()). A write through `param.data` bypasses the version counter and
-    is not seen."""
-    key = (param._version, param.data_ptr())
+def _prepared(param, make, *also):
+    """make(param) kept on the parameter until it, or a tensor of `also`
+    that the layout reads too, changes in place (an in-place op or
+    load_state_dict bumps its version) or its storage moves (.to()). A
+    write through `param.data` bypasses the version counter and is not
+    seen."""
+    key = (make.__code__,) + tuple((t._version, t.data_ptr())
+                                   for t in (param,) + also)
     hit = getattr(param, '_trunk_layout', None)
     if hit is None or hit[0] != key:
         with torch.no_grad():
@@ -884,6 +1024,21 @@ def conv1x1(x, conv):
 
 # the adapters pass every argument by position, as chip_smoke.py records
 # and replays the wrappers' calls
+
+def patch_upsample_finish(x, up):
+    """The synthesis tail's last patch_upsample (models/common.py, to 3
+    channels) and the pixel finish on an NHWC feature through
+    upsample_finish -> (B, rH, rW, 3) float16."""
+    return upsample_finish(x, _dense_w(up.conv), up.conv.bias, up.rate)
+
+
+def head_upsample(x, conv_mean, conv_scale):
+    """The lossless head's two patch_upsample convs (to 3 channels each,
+    one rate) on an NHWC feature through upsample_head -> (m, r), each
+    (B, rH, rW, 3)."""
+    return upsample_head(x, _dense_w(conv_mean.conv), conv_mean.conv.bias,
+                         _dense_w(conv_scale.conv), conv_scale.conv.bias,
+                         conv_mean.rate)
 
 def _dense_w(conv):
     """1x1 nn.Conv2d weight (Co, Ci, 1, 1) -> a (Ci, Co) view."""

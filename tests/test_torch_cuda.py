@@ -10,9 +10,10 @@ against the warp-per-pixel kernel, emb_mlp's thread-block cluster kernel
 bitwise against the one-block kernel (emb_mlp_oneblock) and zadd_conv_kxk
 against zadd then conv_kxk_act(act=False), nll_head's search against the
 linear count (nll_head_linear) and zadd_dense against the old core, the
-lossless head's two kernels against theirs bitwise, and qarv_tiny,
+lossless head's two kernels against theirs bitwise, upsample_finish and
+upsample_head bitwise against the chains of launches they fold, qarv_tiny,
 qres_tiny and qres_tiny_lossless round trips (legacy and portable) through
-them.
+them, and the golden portable streams of tests/golden/.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -142,13 +143,20 @@ def _trunk_cases(rng, card):
         ('fuse_zproj', trunk.fuse_zproj,
          (f(1, 16, 16), syms, f(1, 16, 4), f(4, 16, scale=0.01), f(16))),
         ('finish_image', trunk.finish_image, (f(1, 64, 64, 3, scale=1.5),)),
+        ('upsample_finish', trunk.upsample_finish,
+         (f(1, 16, 16, 16), f(16, 48, scale=0.4), f(48), 4)),
+        ('upsample_head', trunk.upsample_head,
+         (f(1, 16, 16, 16), f(16, 48, scale=0.25), f(48),
+          f(16, 48, scale=0.25), f(48), 4)),
     ]
 
 
 def test_trunk_kernels_match_plain(card):
     """Each trunk kernel against its plain version (atol 1e-5, rtol 1e-4 on
-    floats; the plain products sum in another order), one launch counted
-    per call, and the same bits on a repeat."""
+    floats; the plain products sum in another order; upsample_finish's
+    float16 outputs one float16 ulp of [0.5, 1) more, as its float32 values
+    round to float16 on either side of a boundary), one launch counted per
+    call, and the same bits on a repeat."""
     from lvae_tpu_torch.ops import trunk
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, fn, args in _trunk_cases(np.random.default_rng(0), card):
@@ -163,7 +171,8 @@ def test_trunk_kernels_match_plain(card):
             if g.dtype == torch.int32:
                 assert torch.equal(g, w), name
             else:
-                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+                ulp = 2.0 ** -11 if name == 'upsample_finish' else 0.0
+                torch.testing.assert_close(g, w, atol=1e-5 + ulp, rtol=1e-4)
         again = fn(*args)
         again = again if isinstance(again, tuple) else (again,)
         assert all(torch.equal(a, g) for a, g in zip(again, got)), name
@@ -184,10 +193,10 @@ def test_portable_qarv_tiny_roundtrip_on_card(card, tmp_path):
     rec = model.decompress(bits)
     assert np.array_equal(rec, recon)
     # the trunk (emb, 2 latent blocks of 2 ConvNeXt blocks, 1 upsample) and
-    # the tail (2 ConvNeXt blocks, 2 upsamples, the finish), once in
-    # compress_check and once in decompress
-    per_image = {'emb_mlp': 1, 'dw_ln_mod': 6, 'mlp_res': 6, 'dense': 3,
-                 'prior_head': 2, 'fuse_zproj': 2, 'finish_image': 1}
+    # the tail (2 ConvNeXt blocks, 1 upsample, the last upsample with the
+    # finish), once in compress_check and once in decompress
+    per_image = {'emb_mlp': 1, 'dw_ln_mod': 6, 'mlp_res': 6, 'dense': 2,
+                 'prior_head': 2, 'fuse_zproj': 2, 'upsample_finish': 1}
     for k in trunk.KERNELS:                  # the QRes kernels: none
         assert (k.launches - counts[k.__name__]
                 == 2 * per_image.get(k.__name__, 0))
@@ -350,8 +359,9 @@ def test_portable_qres_tiny_roundtrip_on_card(card):
     """qres_tiny at 128x192 on the portable trunk: bit-exact, and the QRes
     kernels launched as the block list says (3 latent blocks: 1x1, 3x3 and
     7x7; 2 upsamples in the trunk, 1 in the tail; z_proj_0 of the 3x3 and
-    7x7 blocks as zadd_conv_kxk, zadd never) once in compress_check and
-    once in decompress."""
+    7x7 blocks as zadd_conv_kxk, zadd never; the tail's upsample with the
+    finish as upsample_finish, finish_image never) once in compress_check
+    and once in decompress."""
     from lvae_tpu_torch.ops import trunk
     torch.manual_seed(0)
     model = lvae_tpu_torch.get_model('qres_tiny')
@@ -367,8 +377,8 @@ def test_portable_qres_tiny_roundtrip_on_card(card):
     per_image = {'dw_ln_affine': 6, 'mlp_res': 6, 'dense_act': 5,
                  'conv_kxk_act': 4, 'prior_head': 3, 'zadd': 0,
                  'zadd_conv_kxk': 2, 'zadd_dense': 1, 'res_dense_act': 3,
-                 'dense': 3,
-                 'finish_image': 1, 'emb_mlp': 0, 'dw_ln_mod': 0,
+                 'dense': 2, 'upsample_finish': 1, 'upsample_head': 0,
+                 'finish_image': 0, 'emb_mlp': 0, 'dw_ln_mod': 0,
                  'fuse_zproj': 0, 'nll_head': 0, 'nll_recon': 0}
     for k in trunk.KERNELS:
         assert k.launches - counts[k.__name__] == 2 * per_image[k.__name__]
@@ -940,15 +950,129 @@ def test_portable_qres_tiny_lossless_roundtrip_on_card(card):
     rng = np.random.default_rng(0)
     u8 = rng.integers(0, 256, (2, 128, 192, 3)).astype(np.uint8)
     ims = u8.astype(np.float32) / 255.0
-    before = {k: k.launches for k in (trunk.nll_head, trunk.nll_recon)}
+    heads = (trunk.nll_head, trunk.nll_recon, trunk.upsample_head,
+             trunk.dense)
+    before = {k: k.launches for k in heads}
     obj, recon = model.compress_check(ims[:1])
     dec = model.decompress(obj)
     assert np.array_equal(dec, ims[:1]) and np.array_equal(recon, ims[:1])
     assert trunk.nll_head.launches - before[trunk.nll_head] == 2
     assert trunk.nll_recon.launches - before[trunk.nll_recon] == 2
+    # the head's two convs: one upsample_head launch a direction, no dense
+    # (qres_tiny_lossless's trunk has two upsample convs)
+    assert trunk.upsample_head.launches - before[trunk.upsample_head] == 2
+    assert trunk.dense.launches - before[trunk.dense] == 2 * 2
     img = model.decompress_to_device(obj[0], *obj[1][1:3])
     assert img.dtype == torch.uint8
     assert np.array_equal(img.cpu().numpy(), u8[:1])
     objs = model.compress_batch(ims)
     assert np.array_equal(model.decompress_batch(objs), ims)
     assert objs[0][0] == obj[0]
+
+
+# ---- upsample_finish and upsample_head against their chains ---------------
+
+# (B, H, W) grids: rows 1, 95, 385, 24576 and 49152 (every tile of
+# dispatch_shuffle at N = 48 and 96); B = 2 and 6 (a tile straddles grid
+# rows and images); rates 4 (the models'), 2 and 1 (the 16x24 tiles) and 3
+# (the element-by-element write)
+SHUFFLE_GRIDS = ((1, 1, 1), (1, 5, 19), (1, 11, 35), (2, 5, 19),
+                 (6, 5, 19), (1, 128, 192), (2, 128, 192))
+SHUFFLE_RATES = (4, 2, 1, 3)
+# bias values whose finish is a float16 tie (0.5 + odd * 2^-12, 0.25 +
+# odd * 2^-13), +-1, NaN, +-inf and +-0
+SHUFFLE_SPECIALS = np.array(
+    [2.0 ** -11, 3 * 2.0 ** -11, -0.5 + 2.0 ** -12, -0.5 + 3 * 2.0 ** -12,
+     1.0, -1.0, np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+
+
+def _shuffle_case(rng, card, name, B, H, W, C, rate, unaligned):
+    """x (B, H, W, C) (rows 4 bytes off 16 when `unaligned`; where M >= 3 a
+    zero row, whose outputs are the bias alone, a NaN/+-inf/+-1 row and a
+    +-1 row), and each conv's weight and bias, every even bias column one
+    of SHUFFLE_SPECIALS."""
+    M, G = B * H * W, 3 * rate * rate
+    x = rng.normal(size=M * C + 1).astype(np.float32)
+    x = (x[1:] if unaligned else x[:-1]).reshape(M, C)
+    if M >= 3:
+        x[0] = 0.0
+        x[M // 2] = np.resize(np.array([np.nan, np.inf, -np.inf, 1, -1],
+                                       np.float32), C)
+        x[-1] = np.where(np.arange(C) % 3 == 0, -1.0, 1.0)
+    buf = torch.zeros(M * C + 1, device=card)
+    xt = (buf[1:] if unaligned else buf[:-1]).view(B, H, W, C)
+    xt.copy_(torch.as_tensor(x.reshape(B, H, W, C)))
+    args = [xt]
+    for _ in range(1 if name == 'upsample_finish' else 2):
+        w = rng.normal(size=(C, G)).astype(np.float32) * C ** -0.5
+        b = (rng.normal(size=G) * 0.5).astype(np.float32)
+        b[::2] = np.resize(SHUFFLE_SPECIALS, b[::2].size)
+        args += [torch.as_tensor(w, device=card),
+                 torch.as_tensor(b, device=card)]
+    return args + [rate]
+
+
+def _bits(t):
+    """The tensor's bits (NaNs and the sign of zero compare)."""
+    return t.view({torch.float32: torch.int32,
+                   torch.float16: torch.int16}[t.dtype])
+
+
+@pytest.mark.parametrize('name', ['upsample_finish', 'upsample_head'])
+@pytest.mark.parametrize('C', [8, 10, 128, 192])
+def test_upsample_fold_equals_chain_ragged(card, name, C):
+    """upsample_finish and upsample_head bitwise against the chains they
+    fold (dense, the shuffle copy, finish_image and
+    the float16 cast; two dense and two shuffles) at every grid of
+    SHUFFLE_GRIDS and rate of SHUFFLE_RATES, at rate 4 also from rows 4
+    bytes off 16; each image of a batch against its bits alone; one launch
+    counted a call; outputs contiguous, (B, rH, rW, 3), float16 or
+    float32."""
+    from lvae_tpu_torch.ops import trunk
+    rng = np.random.default_rng(C)
+    fn, chain = getattr(trunk, name), getattr(trunk, name + '_chain')
+    for B, H, W in SHUFFLE_GRIDS:
+        for rate in SHUFFLE_RATES:
+            for unaligned in ((False, True) if rate == 4 and C % 4 == 0
+                              else (False,)):
+                case = (B, H, W, rate, unaligned)
+                args = _shuffle_case(rng, card, name, B, H, W, C, rate,
+                                     unaligned)
+                before = fn.launches
+                got = fn(*args)
+                assert fn.launches == before + 1, case
+                outs = [got] if name == 'upsample_finish' else list(got)
+                want = chain(*args)
+                want = [want] if name == 'upsample_finish' else list(want)
+                for o, w in zip(outs, want):
+                    assert o.is_contiguous() and o.shape == (
+                        B, rate * H, rate * W, 3), case
+                    assert o.dtype == (torch.float16 if name ==
+                                       'upsample_finish' else torch.float32)
+                    assert torch.equal(_bits(o), _bits(w)), case
+                for b in range(B if B > 1 else 0):
+                    alone = fn(args[0][b:b + 1], *args[1:])
+                    alone = [alone] if name == 'upsample_finish' else alone
+                    assert all(torch.equal(_bits(o[b:b + 1]), _bits(a))
+                               for o, a in zip(outs, alone)), (case, b)
+
+
+def test_golden_streams_decode_to_recorded_bits(card):
+    """The portable streams of tests/golden/, written on the card by an
+    earlier commit (scripts/write-golden-streams.py), decode with
+    decompress_file to the recorded sha256 (chip_smoke.check_golden):
+    qarv_base's float16 image of photo1 at lambda 2048, and
+    qres34m_lossless's pixels of the 256 crop, which are the crop's own. A
+    CPU decode runs the plain products in another sum order and is not
+    expected to match: the test needs the card."""
+    import chip_smoke
+    qarv = lvae_tpu_torch.get_model('qarv_base',
+                                    pretrained=chip_smoke.CHECKPOINT)
+    qarv.compress_mode(num_lanes='auto', portable=True)
+    lossless = chip_smoke.build_qres34m(torch, 'qres34m_lossless')
+    lossless.compress_mode(portable=True, num_lanes=chip_smoke.QRES_LANES,
+                           esc_cap=chip_smoke.LOSSLESS_ESC_CAP)
+    res = chip_smoke.check_golden(
+        torch, {'qarv_base': qarv, 'qres34m_lossless': lossless}, None)
+    assert all(r['match'] and r['file_intact']
+               for r in res['streams'].values())
