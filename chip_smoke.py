@@ -184,28 +184,47 @@
    the qres34m file and the qres34m_lossless file (their weights saved to
    the temporary directory) in a fresh python3 process with TF32 and
    cudnn.benchmark on, and checks the pixels bitwise (the lossless file's
-   against the PNG's).
+   against the PNG's);
+10. the eval harness (run_eval): python -m lvae_tpu_torch.eval_var_rate
+   on qarv_base with the committed weights over photo1..3 at six lambdas
+   (16 to 2048, compress_mode()'s 128 lanes, as the JAX package's sweep
+   ran), in a process of its own and in a temporary working directory;
+   its lambdas, and each lambda's bpp within 2 % and PSNR within 0.2 dB,
+   held against the JAX package's sweep (runs/results/realphotos-r5mix-
+   qarv_base.json), the BD-rate against that curve reported; the last
+   lambda's sweep again in this process through
+   evaluation.imcoding_evaluate, its kernel launches counted, its numbers
+   equal to the CLI's; QarvModel.self_evaluate over the same photos (its
+   estimated bpp beside the files'), and the forward on photo1 at lambda
+   16 and 2048 on the card against the same weights on the CPU (bpp rtol
+   1e-3, PSNR 0.01 dB, exact float32 both); then qres34m and
+   qres34m_lossless (seeded as in 7 and 8) through imcoding_evaluate with
+   two shape buckets on photo1 and its 256x256 crop (launches counted;
+   the lossless files exact, mse 0) and image_self_evaluate on the card
+   against the CPU.
 
 Standard output: one JSON object per line (build, card (the card's name,
 power limit, driver version, nvcc's version, torch and its CUDA),
 multi_kernels,
 rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
 nll_zadd, shuffle, codec, trunk, batch, qres,
-qres_trunk, lossless, lossless_trunk, golden, fresh_process), the card line
-of
-nvidia-smi, the kernels line, then the result line.
+qres_trunk, lossless, lossless_trunk, golden, fresh_process, eval), the
+card line of nvidia-smi, the kernels line, then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
+import contextlib
 import json
 import math
 import os
 import pickle
+import shutil
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -3721,6 +3740,196 @@ def fresh_process_decode(cases, tmpdir, states):
                       'cudnn.benchmark all True')
 
 
+EVAL_STEPS = 6                      # the JAX package's sweep (SWEEP)
+EVAL_LMB_RANGE = (16.0, 2048.0)
+FORWARD_LMBS = (16.0, 2048.0)
+FORWARD_BPP_RTOL, FORWARD_PSNR_DB = 1e-3, 0.01
+
+
+def require_file_launches(what, launches, expected, n_images):
+    """A file sweep (compress_file + decompress_file of each image) must
+    launch every kernel n_images times its per-image (encode, decode)
+    counts, whatever the images' shapes."""
+    want = {n: n_images * (expected[0][n] + expected[1][n]) for n in _NONE}
+    require(launches == want, f'{what}: launches {launches}, expected '
+                              f'{want}')
+    require(any(v for n, v in want.items() if n in TRUNK_NAMES),
+            f'{what}: no trunk kernel expected')
+
+
+def write_png(path, arr):
+    """An 8-bit RGB PNG of an (H, W, 3) uint8 array, rows unfiltered (the
+    card's machine has no image library)."""
+    h, w, _ = arr.shape
+    raw = b''.join(b'\x00' + arr[r].tobytes() for r in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+                + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))
+
+
+def run_eval(torch, model, tmpdir):
+    """The eval phase (module docstring, 10) -> its result dict."""
+    import lvae_tpu_torch
+    from lvae_tpu_torch import evaluation
+    from lvae_tpu_torch.utils import coding
+    t0 = time.perf_counter()
+    out = {}
+    photos = os.path.join(tmpdir, 'realphotos')
+    cwd = os.path.join(tmpdir, 'eval_cwd')
+    os.makedirs(photos)
+    os.makedirs(cwd)
+    for path in PHOTOS:
+        shutil.copy(path, photos)
+
+    # 1. the CLI's sweep against the JAX package's (SWEEP)
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'lvae_tpu_torch.eval_var_rate', '-m',
+         'qarv_base', '-w', CHECKPOINT, '-n', photos, '-s', str(EVAL_STEPS)],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=900)
+    cli_s = time.perf_counter() - t
+    require(res.returncode == 0, f'eval_var_rate failed:\n'
+                                 f'{res.stderr[-3000:]}')
+    with open(os.path.join(cwd, 'runs', 'results',
+                           'realphotos-qarv_base.json')) as f:
+        got = json.load(f)
+    with open(SWEEP) as f:
+        want = json.load(f)
+    require(list(got) == ['name', 'test-set', 'platform', 'device',
+                          'lambdas', 'results'],
+            f'eval_var_rate wrote the keys {list(got)}')
+    lambdas_equal = got['lambdas'] == want['lambdas']
+    require(np.allclose(got['lambdas'], want['lambdas'], rtol=1e-12, atol=0),
+            f'sweep lambdas {got["lambdas"]} against {want["lambdas"]}')
+    rows = []
+    for i, lmb in enumerate(want['lambdas']):
+        bpp, psnr = got['results']['bpp'][i], got['results']['psnr'][i]
+        ref_bpp, ref_psnr = (want['results']['bpp'][i],
+                             want['results']['psnr'][i])
+        rows.append(dict(lmb=lmb, bpp=bpp, psnr=psnr, tpu_bpp=ref_bpp,
+                         tpu_psnr=ref_psnr, bpp_rel=bpp / ref_bpp - 1,
+                         psnr_db=psnr - ref_psnr))
+        progress(f'sweep lambda {lmb:.2f}: {bpp:.4f} bpp / {psnr:.3f} dB, '
+                 f'TPU {ref_bpp:.4f} / {ref_psnr:.3f}')
+    for r in rows:
+        require(abs(r['bpp_rel']) <= BPP_REL_TOL
+                and abs(r['psnr_db']) <= PSNR_TOL_DB,
+                f'sweep at lambda {r["lmb"]:.2f}: {r["bpp"]:.4f} bpp / '
+                f'{r["psnr"]:.3f} dB against the TPU\'s {r["tpu_bpp"]:.4f} / '
+                f'{r["tpu_psnr"]:.3f}')
+    rd = coding.RDList()
+    rd.add_json(SWEEP, label='tpu')
+    rd.add_data(bpp=got['results']['bpp'], psnr=got['results']['psnr'],
+                label='card')
+    rd.set_bdrate_anchor('tpu')
+    with contextlib.redirect_stdout(sys.stderr):       # stdout: JSON lines
+        bd = rd.compute_bdrate()['card']
+    out['sweep'] = dict(cli_s=cli_s, device=got['device'],
+                        lambdas_equal=lambdas_equal, rows=rows,
+                        bd_rate_vs_tpu_pct=bd,
+                        bounds=f'bpp {BPP_REL_TOL:.0%}, PSNR {PSNR_TOL_DB} dB')
+
+    # 2. the last lambda again in this process, its launches counted
+    model.compress_mode()
+    model.default_lmb = got['lambdas'][-1]
+    stats, launches = counted_call(
+        lambda: evaluation.imcoding_evaluate(model, photos, progress=False))
+    require_file_launches('the qarv_base sweep', launches,
+                          EXPECTED_LAUNCHES[True], len(PHOTOS))
+    same = (stats['bpp'] == got['results']['bpp'][-1]
+            and stats['psnr'] == got['results']['psnr'][-1])
+    require(same, f'imcoding_evaluate here {stats} differs from the CLI\'s')
+    out['in_process'] = dict(lmb=model.default_lmb, stats=stats,
+                             equal_to_cli=same, launches={
+                                 n: v for n, v in launches.items() if v})
+
+    # 3. the forward: self_evaluate's estimates beside the files', and the
+    # card against the CPU on photo1
+    t = time.perf_counter()
+    est = model.self_evaluate(photos, lmb_range=EVAL_LMB_RANGE,
+                              steps=EVAL_STEPS)
+    self_s = time.perf_counter() - t
+    overhead = [dict(lmb=lmb, file_bpp=fb, estimated_bpp=eb,
+                     file_over_estimate=fb - eb, estimated_psnr=ep,
+                     file_psnr=fp)
+                for lmb, fb, eb, ep, fp in zip(
+                    est['lambda'], got['results']['bpp'], est['bpp'],
+                    est['psnr'], got['results']['psnr'])]
+    for r in overhead:
+        progress(f'lambda {r["lmb"]:.2f}: file {r["file_bpp"]:.4f} bpp, '
+                 f'estimated {r["estimated_bpp"]:.4f}')
+    cpu = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT,
+                                   device='cpu')
+    im = coding.read_png(PHOTO).astype(np.float32)[None] / 255.0
+    gaps = []
+    for lmb in FORWARD_LMBS:
+        t = time.perf_counter()
+        g, c = model.forward(im, lmb=lmb), cpu.forward(im, lmb=lmb)
+        bpp_gap = abs(g['bppix'] / c['bppix'] - 1)
+        psnr_gap = abs(g['psnr'] - c['psnr'])
+        gaps.append(dict(lmb=lmb, card=g, cpu=c, bpp_rel_gap=bpp_gap,
+                         psnr_gap_db=psnr_gap,
+                         seconds=time.perf_counter() - t))
+        progress(f'forward at lambda {lmb:g}: card {g["bppix"]:.6f} bpp / '
+                 f'{g["psnr"]:.4f} dB, CPU {c["bppix"]:.6f} / '
+                 f'{c["psnr"]:.4f}')
+        require(bpp_gap <= FORWARD_BPP_RTOL and psnr_gap <= FORWARD_PSNR_DB,
+                f'forward at lambda {lmb:g}: card {g} against CPU {c}')
+    del cpu
+    out['forward'] = dict(self_evaluate=overhead, self_evaluate_s=self_s,
+                          card_vs_cpu=gaps, bounds=f'bpp rtol '
+                          f'{FORWARD_BPP_RTOL:g}, PSNR {FORWARD_PSNR_DB} dB')
+
+    # 4. QRes-VAE: the file sweep with two shape buckets on photo1 and its
+    # crop, and the forward on the card against the CPU
+    qset = os.path.join(tmpdir, 'qres_set')
+    os.makedirs(qset)
+    shutil.copy(PHOTO, qset)
+    write_png(os.path.join(qset, 'crop256.png'), np.ascontiguousarray(
+        coding.read_png(PHOTO)[:SPREAD_CROP, :SPREAD_CROP]))
+    out['qres'] = {}
+    for name, esc_cap, expected in (
+            ('qres34m', QRES_ESC_CAP, EXPECTED_QRES_LAUNCHES),
+            ('qres34m_lossless', LOSSLESS_ESC_CAP,
+             EXPECTED_LOSSLESS_LAUNCHES)):
+        qm = build_qres34m(torch, name)
+        qm.compress_mode(num_lanes=QRES_LANES, esc_cap=esc_cap)
+        stats, launches = counted_call(lambda: evaluation.imcoding_evaluate(
+            qm, qset, progress=False, shape_buckets=2))
+        require_file_launches(f'the {name} sweep', launches, expected, 2)
+        if qm.lossless:
+            require(stats['mse'] == 0.0, f'{name}: the files are not '
+                                         f'lossless: {stats}')
+        else:
+            require(stats['bpp'] > 0 and math.isfinite(stats['psnr']),
+                    f'{name}: {stats}')
+        cpu = lvae_tpu_torch.get_model(name, device='cpu')
+        cpu.net.load_state_dict(qm.net.state_dict())
+        g, c = (evaluation.image_self_evaluate(m, qset, progress=False)
+                for m in (qm, cpu))
+        bpp_gap = abs(g['bppix'] / c['bppix'] - 1)
+        psnr_gap = abs(g['psnr'] - c['psnr'])
+        progress(f'{name}: files {stats}; forward card {g}, CPU {c}')
+        require(bpp_gap <= FORWARD_BPP_RTOL and psnr_gap <= FORWARD_PSNR_DB,
+                f'{name} image_self_evaluate: card {g} against CPU {c}')
+        out['qres'][name] = dict(
+            files=stats, launches={n: v for n, v in launches.items() if v},
+            forward_card=g, forward_cpu=c, bpp_rel_gap=bpp_gap,
+            psnr_gap_db=psnr_gap)
+        del qm, cpu
+    out['images'] = dict(sweep=[os.path.relpath(p, ROOT) for p in PHOTOS],
+                         qres=['photo1_512x768.png', 'its 256x256 crop'])
+    out['seconds'] = time.perf_counter() - t0
+    progress(f'eval phase: {out["seconds"]:.1f} s')
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3856,6 +4065,7 @@ def main():
             [('photo1 file, lambda 512', 'qarv', photo512['path'], rec512),
              fresh_batch, fresh_qres, fresh_lossless], tmpdir,
             dict(qres=qres_state, lossless=lossless_state))})
+        emit({'eval': run_eval(torch, model, tmpdir)})
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),

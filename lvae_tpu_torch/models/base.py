@@ -2,6 +2,8 @@
 ``lvae_tpu/models/base.py``: a handle pairs an ``nn.Module`` network with
 its device, loads the JAX package's weight files, and keeps the fused codecs
 of a model family (models/fused_base.py)."""
+import contextlib
+import math
 import struct
 
 import numpy as np
@@ -21,6 +23,20 @@ def resolve_device(device=None):
     return torch.device(device)
 
 
+@contextlib.contextmanager
+def exact_f32():
+    """Exact float32, deterministic library convolutions and products for
+    the duration, whatever the process's flags; restores them after."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
 def to_nchw_batch(im, device) -> torch.Tensor:
     """(B,H,W,3), (B,3,H,W) or (H,W,3) image(s) in [0,1] -> float32 NCHW
     batch on `device`."""
@@ -33,6 +49,15 @@ def to_nchw_batch(im, device) -> torch.Tensor:
     if not (t.shape[1] == 3 and t.shape[3] != 3):     # NHWC, as JAX takes
         t = t.permute(0, 3, 1, 2)
     return t.contiguous()
+
+
+def host_stats(stats):
+    """A forward's stats (0-d tensors, 'mse_im' among them) -> floats,
+    pulled in one copy, with 'psnr' in place of 'mse_im'."""
+    vals = torch.stack(list(stats.values())).cpu().tolist()
+    out = dict(zip(stats, vals))
+    out['psnr'] = -10 * math.log10(max(out.pop('mse_im'), 1e-12))
+    return out
 
 
 def host_image(img):
@@ -155,6 +180,11 @@ class VAEModelBase:
         are not range-checked."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
+        return self._checked(im, batch)
+
+    def _checked(self, im, batch=True):
+        """_to_input's checks and conversion, without compress_mode (the
+        forward pass)."""
         if isinstance(im, np.ndarray) and im.size and not (
                 im.min() >= 0.0 and im.max() <= 1.0):
             raise ValueError('input values must be in [0, 1]')

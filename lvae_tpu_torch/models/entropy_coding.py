@@ -1,11 +1,93 @@
 """Probability side of the entropy coder, counterpart of
-``lvae_tpu/models/entropy_coding.py``: scale-index lookup and the quantized
-CDF table of the discretized Gaussian. The host C++ coder of the JAX package
-is not needed here: the codec codes on the card."""
+``lvae_tpu/models/entropy_coding.py``: the log probability masses of the
+rate term, the eval-time discretized likelihood, scale-index lookup and the
+quantized CDF table of the discretized Gaussian. The host C++ coder of the
+JAX package is not needed here: the codec codes on the card.
+
+Probability-mass math runs in float32 whatever its inputs' dtype: CDF
+differences underflow in lower precision.
+"""
+import math
+
 import numpy as np
 import torch
 
 from lvae_tpu_torch.ops import cdf as cdf_ops
+
+
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def _normal_cdf(x):
+    return 0.5 * (1.0 + torch.erf(x * _INV_SQRT2))
+
+
+def _normal_log_pdf(x, mean, scale):
+    z = (x - mean) / scale
+    return -0.5 * (z * z) - torch.log(scale) - 0.5 * math.log(2 * math.pi)
+
+
+def _laplace_cdf(x):
+    return torch.where(x < 0, 0.5 * torch.exp(x), 1.0 - 0.5 * torch.exp(-x))
+
+
+def _laplace_log_pdf(x, mean, scale):
+    return -torch.abs(x - mean) / scale - torch.log(2.0 * scale)
+
+
+def _f32(*xs):
+    return [torch.as_tensor(x).to(torch.float32) for x in xs]
+
+
+def _safe_log_prob_mass(cdf_fn, log_pdf_fn, mean, scale, x, bin_size,
+                        prob_clamp):
+    """log P where P = cdf(x+b/2) - cdf(x-b/2), with a log-pdf*bin fallback
+    below prob_clamp for numerical stability."""
+    upper = cdf_fn((x + 0.5 * bin_size - mean) / scale)
+    lower = cdf_fn((x - 0.5 * bin_size - mean) / scale)
+    prob_mass = upper - lower
+    return torch.where(prob_mass > prob_clamp,
+                       torch.log(torch.clamp(prob_mass, min=1e-8)),
+                       log_pdf_fn(x, mean, scale) + math.log(bin_size))
+
+
+def gaussian_log_prob_mass(mean, scale, x, bin_size=1.0, prob_clamp=1e-6):
+    """log P of a quantized Normal(mean, scale) evaluated at x (float32)."""
+    mean, scale, x = _f32(mean, scale, x)
+    return _safe_log_prob_mass(_normal_cdf, _normal_log_pdf, mean, scale, x,
+                               bin_size, prob_clamp)
+
+
+def laplace_log_prob_mass(mean, scale, x, bin_size=1.0, prob_clamp=1e-6):
+    """log P of a quantized Laplace(mean, scale) evaluated at x (float32)."""
+    mean, scale, x = _f32(mean, scale, x)
+    return _safe_log_prob_mass(_laplace_cdf, _laplace_log_pdf, mean, scale,
+                               x, bin_size, prob_clamp)
+
+
+def quantize_dequantize(x, means):
+    """Residual round-to-integer quantization: round(x - means) + means."""
+    return torch.round(x - means) + means
+
+
+def discrete_likelihood(x, scales, means, scale_bound,
+                        likelihood_bound=1e-9):
+    """P(round residual) under the eval-time discretized Gaussian: scales
+    lower-bounded by scale_bound, the likelihood by likelihood_bound
+    (float32)."""
+    x, scales, means = _f32(x, scales, means)
+    scales = torch.clamp(scales, min=scale_bound)
+    v = torch.abs(x - means)
+    upper = _normal_cdf((0.5 - v) / scales)
+    lower = _normal_cdf((-0.5 - v) / scales)
+    return torch.clamp(upper - lower, min=likelihood_bound)
+
+
+def uniform_noise(like, generator=None):
+    """U(-0.5, 0.5) noise of `like`'s shape, dtype and device: the training
+    branch's stand-in for rounding. `generator` must live on that device."""
+    return torch.rand(like.shape, generator=generator, dtype=like.dtype,
+                      device=like.device) - 0.5
 
 
 def build_indexes(scales, scale_table):

@@ -12,8 +12,8 @@ and `_posterior`), on one of two trunks:
 
 * legacy (the family's codec class): the modules' cuDNN convolutions and
   cuBLAS products, NCHW, in exact float32 whatever the process's flags
-  (`_exact_f32`); a legacy stream decodes bit-exactly in the process (and on
-  the card type) that wrote it.
+  (`base.exact_f32`); a legacy stream decodes bit-exactly in the process
+  (and on the card type) that wrote it.
 * portable (`PortableTrunk` mixed into the family's codec): every float
   between the integer junctions comes from the hand-written kernels of
   ``ops/trunk.py``, on NHWC features as the JAX kernels take them; outside
@@ -58,26 +58,12 @@ import torch
 import torch.nn.functional as F
 
 from lvae_tpu_torch.models import common
-from lvae_tpu_torch.models.base import host_image
+from lvae_tpu_torch.models.base import exact_f32, host_image
 from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
 from lvae_tpu_torch.ops import trunk
 from lvae_tpu_torch.ops.trunk import pixel_shuffle_nhwc
 from lvae_tpu_torch.utils import coding
-
-
-@contextlib.contextmanager
-def _exact_f32():
-    """Exact float32, deterministic library convolutions and products for
-    the duration, whatever the process's flags; restores them after."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def patch_escapes(z, esc_pos, esc_val, start):
@@ -141,6 +127,9 @@ class FusedCodecBase:
     # streams carry the marker bit (decode in any process); a legacy one's
     # runs library convolutions (streams decode in the writing process only)
     portable = False
+    # a family whose every block has a portable kernel sets this True:
+    # compress_file then writes portable streams unless told otherwise
+    supports_portable = False
     layout = 'NCHW'                      # of the trunk's features
     # Precision policy around the whole trunk (the JAX package's "encode
     # and decode agree on every trunk float" invariant, held within one
@@ -148,7 +137,7 @@ class FusedCodecBase:
     # float32 - no TF32 in convolutions (cuDNN's default) or matmuls - with
     # deterministic cuDNN algorithms chosen by shape alone, whatever the
     # process's flags. GELU is the exact erf form.
-    trunk_scope = staticmethod(_exact_f32)
+    trunk_scope = staticmethod(exact_f32)
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
                  word_cap=None, max_program_batch=None, device=None,
@@ -265,7 +254,7 @@ class FusedCodecBase:
         enc_features = {}
 
         def posterior_symbols(blk, f_mid, pm, indexes, tctx):
-            with _exact_f32():
+            with exact_f32():
                 if not enc_features:   # the backbone, on the trunk's context
                     enc_features.update(self._backbone(im, *tctx))
                 qm = self._posterior(blk, self._to(f_mid, 'NCHW'),

@@ -31,6 +31,8 @@ class FusedQarvCodec(FusedCodecBase):
     """Fused codec for VariableRateLossyVAENet (lambda-conditioned) on the
     legacy trunk; PortableQarvCodec overrides the trunk's stages."""
 
+    supports_portable = True
+
     def __init__(self, net, cdf_table, **cfg):
         super().__init__(net, cdf_table, **cfg)
         blocks = list(net.dec_blocks)

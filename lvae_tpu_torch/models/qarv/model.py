@@ -1,5 +1,6 @@
-"""QARV (variable-rate hierarchical VAE): the codec-facing subset of
-``lvae_tpu/models/qarv/model.py`` in PyTorch.
+"""QARV (variable-rate hierarchical VAE) of ``lvae_tpu/models/qarv/model.py``
+in PyTorch: the codec, the training/eval forward and the forward-only
+lambda sweep (self_evaluate).
 
 Bitstream layout (byte-identical headers to the JAX package):
     file   = [2H img_h img_w][body]
@@ -7,6 +8,8 @@ Bitstream layout (byte-identical headers to the JAX package):
 """
 import math
 import struct
+from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -14,12 +17,13 @@ import torch.nn as nn
 
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models import entropy_coding as ec
-from lvae_tpu_torch.models.base import VAEModelBase
+from lvae_tpu_torch.models.base import VAEModelBase, exact_f32, host_stats
 from lvae_tpu_torch.models.qarv import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.utils import coding
 
 MAX_LMB = 8192.0
+log2_e = math.log2(math.e)
 
 
 class VRLVBlockBase(nn.Module):
@@ -27,6 +31,7 @@ class VRLVBlockBase(nn.Module):
     posterior (3 AdaLN blocks + concat merge) and fuse."""
 
     is_latent_block = True
+    eval_scale_bound = 0.11      # the default scale table's minimum
 
     def __init__(self, width, zdim, enc_key, enc_width, embed_dim=256,
                  kernel_size=7, mlp_ratio=2):
@@ -69,8 +74,30 @@ class VRLVBlockBase(nn.Module):
         return self.posterior(self.posterior2(merged, emb))
 
     def fuse_stage(self, feature, pm, symbols, emb):
-        z = symbols.float() + pm.float()
+        return self._fuse(feature, symbols.float() + pm.float(), emb)
+
+    def _fuse(self, feature, z, emb):
         return self.resnet_end(feature + self.z_proj(z), emb)
+
+    def forward_train(self, feature, enc_feature, emb, training=False,
+                      get_latent=False, generator=None):
+        """The block in the training/eval forward -> (feature, {'kl': -log
+        P(z)[, 'z': z]}). training: z = posterior mean + U(-0.5, 0.5) noise
+        drawn from `generator`, P the Gaussian's mass at z; eval: z the
+        quantized residual, P its discretized likelihood."""
+        feature, pm, pv, _ = self.prior_stage(feature, emb)
+        qm = self.posterior_qm(feature, enc_feature, emb)
+        if training:
+            z = qm + ec.uniform_noise(qm, generator)
+            kl = -ec.gaussian_log_prob_mass(pm, pv, z, 1.0, 1e-6)
+        else:
+            z = ec.quantize_dequantize(qm, pm)
+            kl = -torch.log(ec.discrete_likelihood(z, pv, pm,
+                                                   self.eval_scale_bound))
+        stats = {'kl': kl}
+        if get_latent:
+            stats['z'] = z.detach()
+        return self._fuse(feature, z, emb), stats
 
 
 class VRLVBlockSmall(VRLVBlockBase):
@@ -128,6 +155,32 @@ class VariableRateLossyVAENet(nn.Module):
                 x = block(x)
         return features
 
+    def seed_feature(self, batch, h, w):
+        return self.bias.expand(batch, -1, h, w)
+
+    def forward_end2end(self, im, lmb, training=False, get_latent=False,
+                        generator=None):
+        """The training/eval forward: NCHW image in [0, 1], (B,) lambdas ->
+        (the decoder's output, one stats dict per latent block). Library
+        convolutions throughout (no kernel of ops/trunk.py)."""
+        emb = self.get_lmb_embedding(lmb)
+        enc_features = self.encode_features(im, emb)
+        s = self.max_stride
+        feature = self.seed_feature(im.shape[0], im.shape[2] // s,
+                                    im.shape[3] // s)
+        block_stats = []
+        for block in self.dec_blocks:
+            if getattr(block, 'is_latent_block', False):
+                feature, stats = block.forward_train(
+                    feature, enc_features[block.enc_key], emb, training,
+                    get_latent, generator)
+                block_stats.append(stats)
+            elif getattr(block, 'requires_embedding', False):
+                feature = block(feature, emb)
+            elif not isinstance(block, common.CompressionStopFlag):
+                feature = block(feature)
+        return feature, block_stats
+
 
 class QarvModel(VAEModelBase):
     """User-facing QARV handle: single-image and batch compression through
@@ -141,6 +194,181 @@ class QarvModel(VAEModelBase):
         self.default_lmb = self.lmb_range[1]
         self._coder = ec.DiscretizedGaussian()
         self.compressing = False
+
+    # ---- the training/eval forward (lvae_tpu/models/qarv/model.py:
+    # 383-491) -----------------------------------------------------------
+
+    def _lmbs(self, lmb, n):
+        """A scalar or per-image lambdas -> (n,) float32 on the device."""
+        if not torch.is_tensor(lmb) and np.ndim(lmb) == 0:
+            return torch.full((n,), float(lmb), dtype=torch.float32,
+                              device=self.device)
+        return torch.as_tensor(lmb, dtype=torch.float32, device=self.device)
+
+    def sample_lmb(self, n, generator=None):
+        """Per-image lambda, uniform in cube-root space."""
+        low, high = self.lmb_range
+        lo, hi = low ** (1 / 3), high ** (1 / 3)
+        u = torch.rand(n, generator=generator, device=self.device)
+        return torch.pow(u * (hi - lo) + lo, 3)
+
+    def loss_and_stats(self, im, lmb=None, training=True, generator=None):
+        """Loss and stats of an NCHW batch in [0, 1] on the device: rate
+        (the blocks' kl over the pixels) + lambda * MSE on the [-1, 1]
+        scale. Lambdas are drawn (sample_lmb) when not given."""
+        nB, C, H, W = im.shape
+        if lmb is None:
+            lmb = self.sample_lmb(nB, generator)
+        x_hat, stats_all = self.net.forward_end2end(im, lmb, training, False,
+                                                    generator)
+        x_hat = x_hat.float()
+        kl = sum(st['kl'].float().sum(dim=(1, 2, 3))
+                 for st in stats_all) / float(C * H * W)
+        distortion = torch.square(x_hat - (im - 0.5) * 2.0).mean(
+            dim=(1, 2, 3))
+        loss = torch.mean(kl + lmb * distortion)
+        im_hat = torch.clamp(x_hat, -1, 1) * 0.5 + 0.5
+        stats = {'loss': loss, 'bppix': torch.mean(kl) * log2_e * C,
+                 'mse': torch.mean(distortion),
+                 'mse_im': torch.mean(torch.square(im_hat - im))}
+        return loss, stats
+
+    def forward(self, im, lmb=None, return_rec=False):
+        """Eval stats of image(s) (NHWC in [0, 1], sides divisible by the
+        stride) at `lmb` (default_lmb when None; a scalar or one per image):
+        {'loss', 'bppix', 'mse', 'psnr'[, 'im_hat']} as floats, pulled in
+        one copy. Exact float32 whatever the process's TF32 flags."""
+        im = self._checked(im)
+        lmb = self._lmbs(self.default_lmb if lmb is None else lmb,
+                         im.shape[0])
+        with torch.no_grad(), exact_f32():
+            stats = host_stats(self.loss_and_stats(im, lmb,
+                                                   training=False)[1])
+        if return_rec:
+            stats['im_hat'] = self.reconstruct(im, lmb)
+        return stats
+
+    def reconstruct(self, im, lmb):
+        """The forward's reconstruction: NHWC float32 numpy in [0, 1]."""
+        im = self._checked(im)
+        with torch.no_grad(), exact_f32():
+            x_hat, _ = self.net.forward_end2end(im,
+                                                self._lmbs(lmb, im.shape[0]))
+            rec = torch.clamp(x_hat, -1, 1) * 0.5 + 0.5
+        return rec.permute(0, 2, 3, 1).cpu().numpy()
+
+    # ---- forward-only lambda sweep (lvae_tpu/models/qarv/model.py:550-679)
+
+    def self_evaluate(self, img_dir, lmb_range=None, steps=8, log_dir=None,
+                      shape_buckets=0):
+        """Estimated rate and quality of the PNGs under `img_dir` at `steps`
+        lambdas log-spaced over lmb_range (the model's when None) ->
+        {'loss', 'bpp', 'psnr', 'lambda': one value per lambda}.
+        shape_buckets > 0 pads the images into at most that many (H, W)
+        buckets, the stats masked to each image; log_dir: write the
+        per-channel rates (channel-bppix-lmb*.txt, all_lmb_channel_stats.txt)
+        there."""
+        img_paths = coding.image_paths(img_dir)
+        buckets = None
+        if shape_buckets:
+            sizes = [coding.png_size(p) for p in img_paths]
+            buckets = coding.choose_shape_buckets(
+                sizes, div=self.max_stride, max_buckets=shape_buckets)
+        start, end = self.lmb_range if lmb_range is None else lmb_range
+        lambdas = np.exp(np.linspace(math.log(start), math.log(end), steps))
+        all_lmb_stats = defaultdict(list)
+        for lmb in lambdas.tolist():
+            results = self._self_evaluate(img_paths, lmb, log_dir=log_dir,
+                                          buckets=buckets)
+            for k, v in results.items():
+                all_lmb_stats[k].append(v)
+        return dict(all_lmb_stats)
+
+    def _eval_stats(self, pad_u8, lmb, imgh, imgw):
+        """Eval stats of one edge-padded uint8 NCHW image on the device,
+        reduced there over its true (imgh, imgw) region -> one float32
+        vector [kl total, distortion, mse, channel bpp...]. The kl total
+        sums the whole padded latents; the channel bpp divide by the padded
+        area (the JAX package's numbers)."""
+        padH, padW = pad_u8.shape[2:]
+        im = pad_u8.float() / 255.0
+        x_hat, stats_all = self.net.forward_end2end(im, lmb)
+        mask = ((torch.arange(padH, device=im.device)[None, None, :, None]
+                 < imgh) &
+                (torch.arange(padW, device=im.device)[None, None, None, :]
+                 < imgw))
+        npix = float(imgh * imgw * 3)
+        distortion = torch.sum(torch.square(x_hat - (im - 0.5) * 2.0)
+                               * mask) / npix
+        fake = torch.clamp(x_hat, -1, 1) * 0.5 + 0.5
+        mse = torch.sum(torch.square(im - fake) * mask) / npix
+        kl_total = sum(torch.sum(st['kl']) for st in stats_all)
+        ch_bpp = [st['kl'].sum(dim=(2, 3)).mean(0) / (padH * padW) * log2_e
+                  for st in stats_all]
+        return torch.cat([torch.stack([kl_total, distortion, mse])]
+                         + ch_bpp)
+
+    def _self_evaluate(self, img_paths, lmb, log_dir=None, buckets=None):
+        accum = defaultdict(float)
+        channel_bpp_sums = defaultdict(lambda: 0.0)
+        zdims = [blk.zdim for blk in self.net.dec_blocks
+                 if getattr(blk, 'is_latent_block', False)]
+        edges = np.cumsum([0] + zdims) + 3      # after the three scalars
+        count = 0
+        s = self.max_stride
+        lmb_t = self._lmbs(lmb, 1)
+        for impath in img_paths:
+            img = coding.read_png(impath)
+            imgh, imgw = img.shape[:2]
+            if buckets is not None:
+                padH, padW = coding.bucket_for(imgh, imgw, buckets)
+            else:
+                padH, padW = imgh + (-imgh % s), imgw + (-imgw % s)
+            pad_u8 = torch.from_numpy(np.ascontiguousarray(
+                coding.pad_to_shape(img, padH, padW))).to(self.device)
+            with torch.no_grad(), exact_f32():
+                out = self._eval_stats(pad_u8.permute(2, 0, 1)[None], lmb_t,
+                                       imgh, imgw).cpu().numpy()
+            kl = float(out[0]) / (3 * imgh * imgw)
+            psnr = -10 * math.log10(max(float(out[2]), 1e-12))
+            count += 1
+            accum['loss'] += kl + lmb * float(out[1])
+            accum['bpp'] += kl * log2_e * 3
+            accum['psnr'] += psnr
+            if log_dir is not None:
+                for i in range(len(zdims)):
+                    channel_bpp_sums[i] = (channel_bpp_sums[i]
+                                           + out[edges[i]:edges[i + 1]])
+        avg = {k: v / count for k, v in accum.items()}
+        avg['lambda'] = lmb
+        if log_dir is not None:
+            self._log_channel_stats(channel_bpp_sums, count, Path(log_dir),
+                                    lmb)
+        return avg
+
+    @staticmethod
+    def _log_channel_stats(channel_bpp_sums, count, log_dir, lmb):
+        """Append the per-channel and per-block average rates to
+        channel-bppix-lmb<lambda>.txt and all_lmb_channel_stats.txt."""
+        msg = '=' * 64 + '\n'
+        msg += ('---- row: latent blocks, colums: channels, avg over images '
+                '----\n')
+        keys = sorted(channel_bpp_sums.keys())
+        for k in keys:
+            avg = channel_bpp_sums[k] / count
+            msg += ''.join(f'{a:<7.4f} '
+                           for a in np.atleast_1d(avg).tolist()) + '\n'
+        msg += '---- colums: latent blocks, avg over images ----\n'
+        block_bpps = [float(np.sum(channel_bpp_sums[k] / count))
+                      for k in keys]
+        msg += ''.join(f'{a:<7.4f} ' for a in block_bpps) + '\n'
+        log_dir.mkdir(parents=True, exist_ok=True)
+        with open(log_dir / f'channel-bppix-lmb{round(lmb)}.txt', 'a') as f:
+            print(msg, file=f)
+        with open(log_dir / 'all_lmb_channel_stats.txt', 'a') as f:
+            print(msg, file=f)
+
+    # ---- the codec ------------------------------------------------------
 
     @staticmethod
     def _auto_lanes(lmb: float) -> int:
@@ -284,16 +512,24 @@ class QarvModel(VAEModelBase):
         """Decode -> (1, H, W, 3) float32 numpy image in [0,1]."""
         return self.decompress_to_device(string).float().cpu().numpy()
 
-    def compress_file(self, img_path, output_path, lmb=None, portable=None):
-        """Compress a PNG (8-bit gray, gray+alpha, RGB, RGBA or palette,
-        converted to RGB) into a file: [2H h w][compress()]. Files are
-        portable streams by default, so that they decode in any process
-        (lvae_tpu/models/qarv/model.py:1157-1158); portable=False writes a
-        legacy stream, bound to the writing process."""
+    def compress_file(self, img_path, output_path, lmb=None, pad_hw=None,
+                      portable=None):
+        """Compress a PNG (converted to RGB, read by coding.read_png) into a
+        file: [2H h w][compress()]. The image is edge-padded to the stride,
+        or to pad_hw, an (H, W) shape bucket divisible by it; decode crops
+        back to the stored size. Files are portable streams when the codec
+        supports them (supports_portable), so that they decode in any
+        process (lvae_tpu/models/qarv/model.py:1157-1158); portable=False
+        writes a legacy stream, bound to the writing process."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
         img = coding.read_png(img_path)
-        padded = coding.pad_divisible_by(img, div=self.net.max_stride)
+        padded = (coding.pad_divisible_by(img, div=self.net.max_stride)
+                  if pad_hw is None else coding.pad_to_shape(img, *pad_hw))
+        if portable is None:
+            portable = self._fused.supports_portable
         body = self.compress(padded.astype(np.float32) / 255.0, lmb=lmb,
-                             portable=True if portable is None else portable)
+                             portable=portable)
         with open(output_path, 'wb') as f:
             f.write(struct.pack('2H', img.shape[0], img.shape[1]) + body)
 

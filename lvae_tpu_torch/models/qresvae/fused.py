@@ -33,6 +33,8 @@ class FusedQresCodec(FusedCodecBase):
     on the legacy trunk; PortableQresCodec overrides the trunk's stages. A
     lossless net needs `head_cdf_table` (QresModel passes it)."""
 
+    supports_portable = True
+
     def __init__(self, net, cdf_table, head_cdf_table=None, **cfg):
         head = getattr(net.out_net, 'loss_name', None)
         if head not in ('mse', 'nll') or (head == 'nll') != (

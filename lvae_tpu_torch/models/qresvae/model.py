@@ -1,6 +1,7 @@
-"""QRes-VAE (fixed-rate hierarchical VAE): the codec-facing subset of
+"""QRes-VAE (fixed-rate hierarchical VAE) of
 ``lvae_tpu/models/qresvae/model.py`` in PyTorch, with the MSE output head or
-the lossless (GaussianNLL) pixel head.
+the lossless (GaussianNLL) pixel head: the codec and the training/eval
+forward.
 
 Containers (the JAX package's, so that a file of either package opens in
 the other):
@@ -18,22 +19,29 @@ import torch.nn as nn
 
 from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models import entropy_coding as ec
-from lvae_tpu_torch.models.base import VAEModelBase, host_image
+from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
+                                         host_stats)
 from lvae_tpu_torch.models.qresvae import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.utils import coding
 
+log2_e = math.log2(math.e)
+
 
 class MSEOutputNet(nn.Module):
     """The lambda * MSE output head (lvae_tpu/models/qresvae/model.py:34):
-    the decoder's last feature is the image; it has no weights. Its loss is
-    the training slice's."""
+    the decoder's last feature is the image; it has no weights."""
 
     loss_name = 'mse'
 
     def __init__(self, mse_lmb):
         super().__init__()
         self.mse_lmb = float(mse_lmb)
+
+    def forward_loss(self, x_hat, x_tgt):
+        """-> (lambda * per-image MSE, x_hat)."""
+        mse = torch.square(x_hat - x_tgt).mean(dim=(1, 2, 3))
+        return mse * self.mse_lmb, x_hat
 
 
 class GaussianNLLOutputNet(nn.Module):
@@ -50,13 +58,26 @@ class GaussianNLLOutputNet(nn.Module):
         self.conv_mean, self.conv_scale = conv_mean, conv_scale
         self.bin_size = bin_size
 
-    def codec_tensors(self, feature):
-        """The legacy trunk's head: NCHW feature -> (pm, plogv) in bin units,
-        NCHW, through the library convs; softplus in jax.nn.softplus's form,
-        as the JAX module computes it."""
+    def _params(self, feature):
+        """NCHW feature -> (pixel means, log-scales floored at -16) through
+        the library convs; softplus in jax.nn.softplus's form, as the JAX
+        module computes it."""
         feature = feature.float()
         p_mean = self.conv_mean(feature)
         p_logscale = common.softplus(self.conv_scale(feature) + 16.0) - 16.0
+        return p_mean, p_logscale
+
+    def forward_loss(self, feature, x_tgt):
+        """-> (per-image mean NLL of the pixels x_tgt in [-1, 1], means)."""
+        p_mean, p_logscale = self._params(feature)
+        log_prob = ec.gaussian_log_prob_mass(
+            p_mean, torch.exp(p_logscale), x_tgt, bin_size=self.bin_size)
+        return -log_prob.mean(dim=(1, 2, 3)), p_mean
+
+    def codec_tensors(self, feature):
+        """The legacy trunk's head: NCHW feature -> (pm, plogv) in bin units,
+        NCHW."""
+        p_mean, p_logscale = self._params(feature)
         pm = torch.round(p_mean * 127.5 + 127.5) / 127.5 - 1.0
         pm = pm / self.bin_size
         return pm, p_logscale - math.log(self.bin_size)
@@ -68,6 +89,9 @@ class QLatentBlock(nn.Module):
     prior, softplus log-scale floor -2.3, a two-conv z projection."""
 
     is_latent_block = True
+    # the eval likelihood's scale bound: the JAX package keeps 0.11 though
+    # the coding table starts at 0.1 (lvae_tpu/models/qresvae/model.py:134)
+    eval_scale_bound = 0.11
 
     def __init__(self, width, zdim, enc_width=None, kernel_size=7,
                  rescale_z=1.0):
@@ -104,9 +128,29 @@ class QLatentBlock(nn.Module):
         return self.posterior(torch.cat([feature, enc_feature], dim=1))
 
     def fuse_stage(self, feature, pm, symbols):
-        z = symbols.float() + pm.float()
+        return self._fuse(feature, symbols.float() + pm.float())
+
+    def _fuse(self, feature, z):
         z = self.z_proj_1(common.gelu(self.z_proj_0(z)))
         return self.resnet_end(feature + z)
+
+    def forward_train(self, feature, enc_feature, training=False,
+                      get_latents=False, generator=None):
+        """The block in the training/eval forward -> (feature, {'kl': -log
+        P(z)[, 'z': z]}), as VRLVBlockBase.forward_train without lambda."""
+        feature, pm, pv, _ = self.prior_stage(feature)
+        qm = self.posterior_qm(feature, enc_feature)
+        if training:
+            z = qm + ec.uniform_noise(qm, generator)
+            kl = -ec.gaussian_log_prob_mass(pm, pv, z, 1.0, 1e-6)
+        else:
+            z = ec.quantize_dequantize(qm, pm)
+            kl = -torch.log(ec.discrete_likelihood(z, pv, pm,
+                                                   self.eval_scale_bound))
+        stats = {'kl': kl}
+        if get_latents:
+            stats['z'] = z.detach()
+        return self._fuse(feature, z), stats
 
 
 class HierarchicalVAENet(nn.Module):
@@ -136,6 +180,29 @@ class HierarchicalVAENet(nn.Module):
             features[int(x.shape[2])] = x
         return features
 
+    def seed_feature(self, batch, h, w):
+        return self.bias.expand(batch, -1, h, w)
+
+    def forward(self, im, training=False, get_latents=False, generator=None):
+        """The training/eval forward: NCHW image in [0, 1] -> (the head's
+        per-image loss, its output x_hat, one stats dict per latent block).
+        Library convolutions throughout."""
+        enc_features = self.encode_features(im)
+        f0 = enc_features[min(enc_features)]
+        feature = self.seed_feature(f0.shape[0], f0.shape[2], f0.shape[3])
+        stats_all = []
+        for block in self.dec_blocks:
+            if getattr(block, 'is_latent_block', False):
+                feature, stats = block.forward_train(
+                    feature, enc_features[int(feature.shape[2])], training,
+                    get_latents, generator)
+                stats_all.append(stats)
+            else:
+                feature = block(feature)
+        out_loss, x_hat = self.out_net.forward_loss(feature,
+                                                    (im - 0.5) * 2.0)
+        return out_loss, x_hat, stats_all
+
 
 class _Container(pickle.Unpickler):
     """Reads the pickled container of compress_file: lists, tuples, bytes
@@ -162,6 +229,50 @@ class QresModel(VAEModelBase):
         self._head_coder = (ec.DiscretizedGaussian(
             cdf_ops.lossless_head_scale_table()) if self.lossless else None)
         self.compressing = False
+
+    # ---- the training/eval forward (lvae_tpu/models/qresvae/model.py:
+    # 389-468) -----------------------------------------------------------
+
+    def loss_and_stats(self, im, training=True, generator=None):
+        """Loss and stats of an NCHW batch in [0, 1] on the device: rate
+        (the blocks' kl over the pixels) + the head's loss (lambda * MSE,
+        or the pixels' NLL)."""
+        out_loss, x_hat, stats_all = self.net.forward(im, training, False,
+                                                      generator)
+        x_hat, out_loss = x_hat.float(), out_loss.float()
+        nB, C, H, W = im.shape
+        kl = sum(st['kl'].float().sum(dim=(1, 2, 3))
+                 for st in stats_all) / (C * H * W)
+        loss = torch.mean(kl + out_loss)
+        im_hat = torch.clamp(x_hat, -1.0, 1.0) * 0.5 + 0.5
+        stats = {'loss': loss, 'kl': torch.mean(kl),
+                 self.net.out_net.loss_name: torch.mean(out_loss),
+                 'bppix': torch.mean(kl) * log2_e * C,
+                 'mse_im': torch.mean(torch.square(im_hat - im))}
+        return loss, stats
+
+    def forward(self, im, return_rec=False):
+        """Eval stats of image(s) (NHWC in [0, 1], sides divisible by the
+        stride): {'loss', 'kl', 'mse' or 'nll', 'bppix', 'psnr'[,
+        'im_hat']} as floats, pulled in one copy. Exact float32 whatever
+        the process's TF32 flags."""
+        im = self._checked(im)
+        with torch.no_grad(), exact_f32():
+            stats = host_stats(self.loss_and_stats(im, training=False)[1])
+        if return_rec:
+            stats['im_hat'] = self.reconstruct(im)
+        return stats
+
+    def reconstruct(self, im):
+        """The forward's reconstruction (the head's means for a lossless
+        model): NHWC float32 numpy in [0, 1]."""
+        im = self._checked(im)
+        with torch.no_grad(), exact_f32():
+            _, x_hat, _ = self.net.forward(im)
+            rec = torch.clamp(x_hat, -1.0, 1.0) * 0.5 + 0.5
+        return rec.permute(0, 2, 3, 1).cpu().numpy()
+
+    # ---- the codec ------------------------------------------------------
 
     def _codec_tables(self):
         """The lossless head's CDF table, coded after the latent blocks."""
@@ -249,15 +360,24 @@ class QresModel(VAEModelBase):
 
     # ---- files ----------------------------------------------------------
 
-    def compress_file(self, img_path, output_path, portable=None):
-        """Compress a PNG (converted to RGB, edge-padded to the stride) into
-        the JAX package's pickled container. Files are portable streams by
-        default, so that they decode in any process; portable=False writes
-        a legacy stream, bound to the writing process."""
+    def compress_file(self, img_path, output_path, pad_hw=None,
+                      portable=None):
+        """Compress a PNG (converted to RGB, read by coding.read_png) into
+        the JAX package's pickled container. The image is edge-padded to the
+        stride, or to pad_hw, an (H, W) shape bucket divisible by it; decode
+        crops back to the stored size. Files are portable streams when the
+        codec supports them (supports_portable), so that they decode in any
+        process; portable=False writes a legacy stream, bound to the writing
+        process."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
         img = coding.read_png(img_path)
-        padded = coding.pad_divisible_by(img, div=self.net.max_stride)
+        padded = (coding.pad_divisible_by(img, div=self.net.max_stride)
+                  if pad_hw is None else coding.pad_to_shape(img, *pad_hw))
+        if portable is None:
+            portable = self._fused.supports_portable
         obj = self.compress(padded.astype(np.float32) / 255.0,
-                            portable=True if portable is None else portable)
+                            portable=portable)
         obj.append((int(img.shape[0]), int(img.shape[1])))
         with open(output_path, 'wb') as f:
             pickle.dump(obj, file=f)

@@ -1,12 +1,16 @@
-"""Host-side stream glue and image IO, free of PIL.
+"""Host-side stream glue, image IO and RD bookkeeping, free of PIL.
 
 Copies of the byte formats in ``lvae_tpu/utils/coding.py`` (escape varints,
 compact lane states, LEB128, edge padding), which must stay byte-identical
-to the JAX package's (tests/test_torch_payload.py), plus a small PNG reader
-so that the port runs on machines without Pillow.
+to the JAX package's (tests/test_torch_payload.py), a small PNG reader so
+that the port runs on machines without Pillow, and the eval harness's
+helpers (shape buckets, BD-rate, RD curves) on numpy HWC arrays.
 """
+import json
+import math
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -135,6 +139,71 @@ def pad_divisible_by(arr: np.ndarray, div=64) -> np.ndarray:
                   mode='edge')
 
 
+def crop_divisible_by(arr: np.ndarray, div=64) -> np.ndarray:
+    """Center-crop an (H, W, C) array so H and W divide by `div` (the array
+    form of lvae_tpu.utils.coding.crop_divisible_by)."""
+    h_old, w_old = arr.shape[0], arr.shape[1]
+    h_new, w_new = div * (h_old // div), div * (w_old // div)
+    top, left = (h_old - h_new) // 2, (w_old - w_new) // 2
+    return arr[top:top + h_new, left:left + w_new]
+
+
+def pad_to_shape(arr: np.ndarray, h_tgt: int, w_tgt: int) -> np.ndarray:
+    """Edge-pad an (H, W, C) array at bottom/right to exactly (h_tgt,
+    w_tgt), which must be at least its size: an image's shape bucket."""
+    h_old, w_old = arr.shape[0], arr.shape[1]
+    if h_tgt < h_old or w_tgt < w_old:
+        raise ValueError(f'pad target {(h_tgt, w_tgt)} is smaller than the '
+                         f'image {(h_old, w_old)}')
+    if (h_tgt, w_tgt) == (h_old, w_old):
+        return arr
+    return np.pad(arr, [(0, h_tgt - h_old), (0, w_tgt - w_old)]
+                  + [(0, 0)] * (arr.ndim - 2), mode='edge')
+
+
+def choose_shape_buckets(sizes, div=64, max_buckets=3):
+    """Pick <= max_buckets padded (H, W) buckets covering all (h, w) sizes.
+
+    Exact /div padding when the dataset has few distinct shapes; otherwise
+    contiguous area-sorted groups with element-wise-max buckets, the last
+    bucket being the global max (so every image fits somewhere)."""
+    padded = sorted({(div * math.ceil(h / div), div * math.ceil(w / div))
+                     for h, w in sizes})
+    if len(padded) <= max_buckets:
+        return padded
+    by_area = sorted(padded, key=lambda s: s[0] * s[1])
+    n = len(by_area)
+    buckets = []
+    for g in range(max_buckets):
+        grp = by_area[g * n // max_buckets:(g + 1) * n // max_buckets]
+        if grp:
+            buckets.append((max(h for h, _ in grp), max(w for _, w in grp)))
+    gmax = (max(h for h, _ in padded), max(w for _, w in padded))
+    if gmax not in buckets:
+        buckets[-1] = gmax
+    return sorted(set(buckets))
+
+
+def bucket_for(h, w, buckets):
+    """Smallest bucket that fits (h, w); the global-max bucket always does."""
+    for bh, bw in buckets:
+        if bh >= h and bw >= w:
+            return bh, bw
+    return buckets[-1]
+
+
+# the suffixes an eval loop takes from a dataset directory; read_png reads
+# the PNGs and raises, naming the file, on any other
+IMAGE_SUFFIXES = {'.png', '.jpg', '.jpeg', '.bmp', '.webp', '.ppm', '.tif',
+                  '.tiff'}
+
+
+def image_paths(root):
+    """The image files under `root` (recursively), sorted."""
+    return sorted(p for p in Path(root).rglob('*.*')
+                  if p.suffix.lower() in IMAGE_SUFFIXES)
+
+
 def _paeth_row(cur: bytearray, prev: bytes, bpp: int):
     for i in range(len(cur)):
         a = cur[i - bpp] if i >= bpp else 0
@@ -217,6 +286,20 @@ def _samples(raw, height, width, channels, depth, path):
     return rows.reshape(height, width, channels)
 
 
+def png_size(path):
+    """(height, width) of a PNG from its IHDR chunk, which a PNG must start
+    with: 24 bytes read, no pixel decoded. Any other file raises
+    ValueError, naming it, as read_png does."""
+    with open(path, 'rb') as f:
+        head = f.read(24)
+    if head[:8] != b'\x89PNG\r\n\x1a\n':
+        raise ValueError(f'{path}: not a PNG file')
+    if len(head) < 24 or head[12:16] != b'IHDR':
+        raise ValueError(f'{path}: no IHDR chunk')
+    width, height = struct.unpack('>II', head[16:24])
+    return height, width
+
+
 def read_png(path) -> np.ndarray:
     """Decode a PNG -> uint8 (H, W, 3), converted to RGB as Pillow's
     convert('RGB') converts it: RGB and RGBA (alpha dropped), gray and
@@ -289,3 +372,87 @@ def read_png(path) -> np.ndarray:
             gray = gray * np.uint8(255 // ((1 << depth) - 1))
         return np.ascontiguousarray(np.repeat(gray[..., None], 3, axis=2))
     return np.ascontiguousarray(px[..., :3])
+
+
+# ---------------------------------------------------------------------------
+# BD-rate and RD-curve bookkeeping
+# ---------------------------------------------------------------------------
+
+def bd_rate(r1, psnr1, r2, psnr2):
+    """Bjontegaard delta-rate of curve 2 vs baseline curve 1, in percent:
+    a degree-3 fit of log-rate as a function of PSNR, integrated over the
+    overlapping PSNR interval."""
+    lr1 = np.log(np.asarray(r1, dtype=np.float64))
+    lr2 = np.log(np.asarray(r2, dtype=np.float64))
+    psnr1 = np.asarray(psnr1, dtype=np.float64)
+    psnr2 = np.asarray(psnr2, dtype=np.float64)
+    p_int1 = np.polyint(np.polyfit(psnr1, lr1, deg=3))
+    p_int2 = np.polyint(np.polyfit(psnr2, lr2, deg=3))
+    min_psnr = max(psnr1.min(), psnr2.min())
+    max_psnr = min(psnr1.max(), psnr2.max())
+    auc1 = np.polyval(p_int1, max_psnr) - np.polyval(p_int1, min_psnr)
+    auc2 = np.polyval(p_int2, max_psnr) - np.polyval(p_int2, min_psnr)
+    avg_exp_diff = (auc2 - auc1) / (max_psnr - min_psnr)
+    return (np.exp(avg_exp_diff) - 1) * 100
+
+
+class RDList:
+    """RD curves (bpp, PSNR) from result JSONs or data, their BD-rates
+    against an anchor curve, and a plot on any matplotlib-like axis."""
+
+    def __init__(self):
+        self.stats_all = []
+        self.bdrate_anchor = None
+
+    def add_json(self, fpath, label='no label', **kwargs):
+        with open(fpath, mode='r') as f:
+            stat = json.load(f)
+        if 'results' in stat:
+            stat = stat['results']
+        stat['label'] = label
+        stat['kwargs'] = kwargs
+        self.stats_all.append(stat)
+
+    def add_data(self, bpp=(), psnr=(), label='no label', **kwargs):
+        self.stats_all.append({'bpp': list(bpp), 'psnr': list(psnr),
+                               'label': label, 'kwargs': kwargs})
+
+    def set_bdrate_anchor(self, label=None):
+        if label is None:
+            self.bdrate_anchor = self.stats_all[-1]
+            return
+        matches = [st for st in self.stats_all if st['label'] == label]
+        if len(matches) != 1:
+            raise ValueError(f'{len(matches)} curves are labelled {label!r}')
+        self.bdrate_anchor = matches[0]
+
+    def compute_bdrate(self):
+        """{label: BD-rate in percent against the anchor}, printed; None
+        without an anchor."""
+        if self.bdrate_anchor is None:
+            return None
+        anchor = self.bdrate_anchor
+        out = {}
+        print(f'BD-rate anchor = {anchor["label"]}')
+        for method in self.stats_all:
+            if len(method['bpp']) == 0:
+                continue
+            bd = bd_rate(anchor['bpp'], anchor['psnr'], method['bpp'],
+                         method['psnr'])
+            out[method['label']] = bd
+            print(method['label'], f'BD-rate = {bd}')
+        print()
+        return out
+
+    def plot_all_stats(self, ax):
+        """Plot every curve on `ax` (anything with matplotlib's
+        ``ax.plot``); the port itself imports no plotting library."""
+        for stat in self.stats_all:
+            self._plot_stat(stat, ax=ax, **stat['kwargs'])
+
+    @staticmethod
+    def _plot_stat(stat, ax, ls='-', **kwargs):
+        kwargs['marker'] = kwargs.get('marker', '.')
+        kwargs['linewidth'] = kwargs.get('linewidth', 1.2)
+        return ax.plot(stat['bpp'], stat['psnr'], label=stat['label'],
+                       markersize=8, linestyle=ls, **kwargs)

@@ -13,7 +13,9 @@ linear count (nll_head_linear) and zadd_dense against the old core, the
 lossless head's two kernels against theirs bitwise, upsample_finish and
 upsample_head bitwise against the chains of launches they fold, qarv_tiny,
 qres_tiny and qres_tiny_lossless round trips (legacy and portable) through
-them, and the golden portable streams of tests/golden/.
+them, the golden portable streams of tests/golden/, and the eval forward
+of the three tiny models (stats, each block's kl, self_evaluate,
+image_self_evaluate) on the card against the CPU, and the eval CLI.
 Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
@@ -1076,3 +1078,72 @@ def test_golden_streams_decode_to_recorded_bits(card):
         torch, {'qarv_base': qarv, 'qres34m_lossless': lossless}, None)
     assert all(r['match'] and r['file_intact']
                for r in res['streams'].values())
+
+
+@pytest.mark.parametrize('name', ['qarv_tiny', 'qres_tiny',
+                                  'qres_tiny_lossless'])
+def test_forward_on_the_card_equals_the_cpu(card, name, tmp_path):
+    """The eval forward (library convolutions, exact float32 whatever the
+    TF32 flags) on the card against the same weights on the CPU: stats at
+    rtol 1e-3, PSNR within 0.01 dB, each latent block's kl at 1e-3 plus the
+    mass's float32 error (2e-7) through the log; then self_evaluate
+    (qarv_tiny) and image_self_evaluate on a 100 x 90 and a 128 x 128 PNG."""
+    from chip_smoke import write_png
+    from lvae_tpu_torch import evaluation
+    torch.manual_seed(0)
+    cpu = lvae_tpu_torch.get_model(name, device='cpu')
+    gpu = lvae_tpu_torch.get_model(name)
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    rng = np.random.default_rng(4)
+    im = rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)
+    kw = {'lmb': [16.0, 2048.0]} if name == 'qarv_tiny' else {}
+    want, got = cpu.forward(im, **kw), gpu.forward(im, **kw)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        tol = 0.01 if k == 'psnr' else 1e-3 * abs(v)
+        assert abs(got[k] - v) <= tol, (k, got[k], v)
+    x = torch.from_numpy(im).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        if name == 'qarv_tiny':
+            lmb = torch.tensor([16.0, 2048.0])
+            lat_c = cpu.net.forward_end2end(x, lmb)[1]
+            lat_g = gpu.net.forward_end2end(x.cuda(), lmb.cuda())[1]
+        else:
+            lat_c = cpu.net.forward(x)[2]
+            lat_g = gpu.net.forward(x.cuda())[2]
+    for a, b in zip(lat_c, lat_g):
+        kl_c, kl_g = a['kl'].double(), b['kl'].cpu().double()
+        assert (torch.abs(kl_g - kl_c)
+                <= 1e-3 + torch.clamp(2e-7 * torch.exp(kl_c), max=21)).all()
+    for i, (h, w) in enumerate([(100, 90), (128, 128)]):
+        write_png(tmp_path / f'im{i}.png',
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    if name == 'qarv_tiny':
+        want = cpu.self_evaluate(tmp_path, lmb_range=(16, 2048), steps=2,
+                                 shape_buckets=2)
+        got = gpu.self_evaluate(tmp_path, lmb_range=(16, 2048), steps=2,
+                                shape_buckets=2)
+        assert got['lambda'] == want['lambda']
+        assert np.allclose(got['bpp'], want['bpp'], rtol=1e-3)
+        assert np.allclose(got['psnr'], want['psnr'], rtol=0, atol=0.01)
+    want = evaluation.image_self_evaluate(cpu, str(tmp_path), progress=False)
+    got = evaluation.image_self_evaluate(gpu, str(tmp_path), progress=False)
+    assert abs(got['psnr'] - want['psnr']) <= 0.01
+    assert abs(got['bppix'] - want['bppix']) <= 1e-3 * want['bppix']
+
+
+def test_eval_var_rate_on_the_card(card, tmp_path, monkeypatch):
+    """The CLI runs on the card by default and writes the card's name and
+    power limit as nvidia-smi prints them."""
+    from chip_smoke import write_png
+    from lvae_tpu_torch import eval_var_rate
+    rng = np.random.default_rng(6)
+    (tmp_path / 'set').mkdir()
+    write_png(tmp_path / 'set' / 'a.png',
+              rng.integers(0, 256, (64, 96, 3), dtype=np.uint8))
+    monkeypatch.chdir(tmp_path)
+    out = eval_var_rate.main(['-m', 'qarv_tiny', '-n', 'set', '-s', '2'])
+    saved = (tmp_path / 'runs' / 'results' / 'set-qarv_tiny.json')
+    assert saved.is_file() and len(out['lambdas']) == 2
+    assert out['device'].startswith(torch.cuda.get_device_name(0))
+    assert all(v > 0 for v in out['results']['bpp'])

@@ -1,8 +1,9 @@
-"""The port stands alone: it imports and codes (qarv_tiny and qres_tiny)
-with jax, flax, msgpack and PIL all blocked, and no file of it imports
-them or the JAX package."""
+"""The port stands alone: it imports, codes (qarv_tiny and qres_tiny) and
+evaluates (a file sweep, the forward-only sweeps) with jax, flax, msgpack
+and PIL all blocked, and no file of it imports them or the JAX package."""
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +35,16 @@ qres.compress_mode(num_lanes=16)
 qres.compress_file('images/collie64.png', sys.argv[2] + '.qres')
 rec = qres.decompress_file(sys.argv[2] + '.qres')
 assert rec.shape == (1, 64, 64, 3) and np.isfinite(rec).all()
+# the eval harness: a file sweep, the forward and the CLI's pieces
+from lvae_tpu_torch import datasets, eval_fix_rate, eval_var_rate, paths
+from lvae_tpu_torch import evaluation
+stats = evaluation.imcoding_evaluate(model, sys.argv[3], progress=False)
+assert stats['bpp'] > 0 and np.isfinite(stats['psnr'])
+stats = evaluation.image_self_evaluate(qres, sys.argv[3], progress=False)
+assert np.isfinite(stats['loss']) and 'kodak' in paths.known_datasets
+sweep = model.self_evaluate(sys.argv[3], steps=2)
+assert abs(sweep['lambda'][0] - 16) < 1e-9 and len(sweep['bpp']) == 2
+assert datasets.parse_transform_cfg('lmb=64') == {'lmb': 64}
 if not torch.cuda.is_available():
     try:
         lvae_tpu_torch.get_model('qarv_tiny')
@@ -49,8 +60,12 @@ print('ok')
 
 def test_port_runs_without_jax_flax_msgpack_pil(tmp_path):
     png, bits = tmp_path / 'collie.npy', tmp_path / 'collie.bits'
+    dataset = tmp_path / 'set'
+    dataset.mkdir()
+    shutil.copy(ROOT / 'images/collie64.png', dataset)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, '-c', _CHILD, str(png), str(bits)],
+    res = subprocess.run([sys.executable, '-c', _CHILD, str(png), str(bits),
+                          str(dataset)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
