@@ -201,15 +201,41 @@
    qres34m_lossless (seeded as in 7 and 8) through imcoding_evaluate with
    two shape buckets on photo1 and its 256x256 crop (launches counted;
    the lossless files exact, mse 0) and image_self_evaluate on the card
-   against the CPU.
+   against the CPU;
+11. the host coder (compress_mode(coder='host'): per-block native rANS on
+   the host, g++-built csrc/crans.cpp, the legacy trunk): qarv_base with the
+   committed weights on photo1 at lambda 2048, qres34m and
+   qres34m_lossless (seeded as in 7 and 8): each round trip exact, the
+   reconstruction bitwise the legacy fused N = 128 compress_check's (the
+   lossless pixels exact), qarv_base's bpp within 2 % of that legacy
+   stream's (the other two printed: random weights), no kernel launched
+   but the host's; encode and decode medians;
+12. the device coder (coder='device': the stream encoded on the host by
+   the native N-lane encoder, decoded by kernel #1, rans_decode_block):
+   qarv_base and qres34m as in 11, the decode bitwise the legacy fused and
+   host ones, kernel #1 launched once a latent block (9 and 12) and those
+   launches timed with their bound; qres34m_lossless refused;
+13. qres17m at full width (seeded as in 7; its deconvs ConvTranspose2d on
+   the legacy trunk) on photo1: the legacy fused round trip exact at B = 1
+   and B = 2 (photo1, photo2) with kernels #1-#4's launches counted and
+   timed with their bounds; each image's lane states, words and escapes in
+   the B = 2 bodies equal to the native N-lane encoder's on its symbols
+   (multi_encode_witness), on the seeded weights and again with the last
+   latent block's posterior channel 0 x3000 (escapes in both images, that
+   round trip exact too); the host, device and legacy fused
+   reconstructions bitwise equal; compress_mode(portable=True) and
+   compress_file() in fused mode refused (no deconv kernel); bpp, PSNR and
+   bench.py's enc/dec ms.
 
 Standard output: one JSON object per line (build, card (the card's name,
 power limit, driver version, nvcc's version, torch and its CUDA),
 multi_kernels,
 rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
 nll_zadd, shuffle, codec, trunk, batch, qres,
-qres_trunk, lossless, lossless_trunk, golden, fresh_process, eval), the
-card line of nvidia-smi, the kernels line, then the result line.
+qres_trunk, lossless, lossless_trunk, golden, fresh_process, eval,
+host_coder, device_coder, qres17m), the card line of nvidia-smi, the
+kernels line (the rANS kernels' entries with their new_paths: the device
+coder's and qres17m's launches, times and bounds), then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
 without a CUDA card the script exits 1 before printing any result.
 """
@@ -3148,7 +3174,8 @@ def check_trunk_kernels(torch, names, cases):
 # ---- QRes-VAE (qres34m) ----------------------------------------------------
 
 def build_qres34m(torch, name='qres34m'):
-    """qres34m (or qres34m_lossless) at full width on the card, its weights
+    """qres34m (or qres34m_lossless, qres17m) at full width on the card, its
+    weights
     drawn as the JAX package's flax init draws them (lecun-normal kernels,
     zero biases) from a seeded generator; then each latent block's prior.c4
     re-drawn at the same scale: flax zero-initialises it, and with it the
@@ -3930,6 +3957,397 @@ def run_eval(torch, model, tmpdir):
     return out
 
 
+# ---- the staged coders (coder='host' and coder='device') and qres17m ------
+
+STAGED_LMB = 2048.0           # qarv_base photo1: the main lambda's N = 128
+STAGED_BPP_REL_TOL = 0.02     # host bpp against the legacy fused stream's
+STAGED_REPEATS = 3
+QRES17M_PHOTOS = PHOTOS[:2]   # B = 1 (photo1) and the B = 2 request
+
+
+def rans_path_row(torch, name, run):
+    """The launches of the rANS wrapper `name` in run(), recorded and each
+    timed again (CUDA events, median of KERNEL_REPEATS) -> dict(launches,
+    ms (their sum), rows, bound_ms, bound_by): the bound by the rule of
+    check_kernels over those launches' inputs (indexes, symbols, the words
+    the decode consumes or the encode writes, states, the table; a decoded
+    symbol 16 operations, an encoded one 7)."""
+    from lvae_tpu_torch.ops import rans_decode as rd, rans_encode as re_
+    module = rd if 'decode' in name else re_
+    calls = []
+    restore = record_calls(module, name, calls)
+    try:
+        run()
+    finally:
+        restore()
+    fn = getattr(module, name)
+    ms = sum(cuda_ms(torch, lambda a=args, k=kw: fn(*a, **k),
+                     KERNEL_REPEATS) for args, kw, _ in calls)
+    n_bytes = ops = rows = 0
+    for args, _, res in calls:
+        if 'decode' in name:
+            idx, states, ptr, _, cdfs, offs, nsym = args[:7]
+            words = int((res[2].long() - ptr.long()).sum())
+            B = idx.shape[0] if idx.ndim == 3 else 1
+            n_bytes += 4 * (2 * idx.numel() + words + 2 * states.numel()
+                            + cdfs.numel() + offs.numel() + 2 * ptr.numel())
+            ops += 16 * int(nsym) * B
+        else:
+            syms, idx, row_n, cdfs = args[:4]
+            _, n_words, states = res
+            B = idx.shape[0] if idx.ndim == 3 else 1
+            n_bytes += 4 * (syms.numel() + idx.numel() + row_n.numel()
+                            + cdfs.numel()
+                            + int(((n_words.long() + 1) // 2).sum())
+                            + states.numel() + n_words.numel())
+            ops += 7 * int(row_n.long().sum()) * B
+        rows += int(idx.shape[-2])
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return dict(launches=len(calls), ms=ms, rows=rows,
+                ns_per_row=ms * 1e6 / max(rows, 1),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+
+
+def rans_launches(launches):
+    return {n: v for n, v in launches.items() if n.startswith('rans_')}
+
+
+def staged_coders(torch, model, im, kw, what, lossless=False,
+                  fused_cfg=None):
+    """One model on one image through the legacy fused codec (N = 128),
+    then coder='host' and coder='device': each round trip exact, the host
+    and device reconstructions bitwise the legacy fused one (a lossless
+    model: the pixels, exact), every call's rANS launches counted, the
+    device decode's kernel #1 launches timed; encode and decode medians
+    (host clock, synchronised). -> (host row, device row or the refusal)."""
+    from lvae_tpu_torch.models import staged
+    fused_cfg = fused_cfg or {}
+    model.compress_mode(num_lanes=128, portable=False, **fused_cfg)
+    f_obj, f_rec = model.compress_check(im, **kw)
+    f_bytes = len(f_obj) if isinstance(f_obj, bytes) else len(
+        pickle.dumps(f_obj))
+    f_body = f_obj[10:] if isinstance(f_obj, bytes) else f_obj[0]
+    # the legacy fused codec's times on the same yardstick as the coders'
+    f_enc_ms, _ = _host_ms(torch, lambda: model.compress(im, **kw),
+                           STAGED_REPEATS)
+    f_dec_ms, _ = _host_ms(torch, lambda: model.decompress(f_obj),
+                           STAGED_REPEATS)
+    f_parsed = model._fused.parse_payload(f_body)
+    pixels = np.round(im * 255)
+    rows = {}
+    for coder in ('host', 'device'):
+        if coder == 'device' and lossless:
+            try:
+                model.compress_mode(coder='device')
+            except AssertionError as e:
+                rows[coder] = dict(refused=True, error=str(e))
+                progress(f'{what} device coder refused: {e}')
+                continue
+            raise AssertionError(f'{what}: the device coder took a lossless '
+                                 f'model')
+        model.compress_mode(coder=coder)
+        (obj, rec), enc_l = counted_call(
+            lambda: model.compress_check(im, **kw))
+        dec, dec_l = counted_call(lambda: model.decompress(obj))
+        n_bytes = len(obj) if isinstance(obj, bytes) else len(
+            pickle.dumps(obj))
+        exact = bool(np.array_equal(dec, rec))
+        if lossless:
+            same = bool(np.array_equal(np.round(dec * 255),
+                                       np.round(f_rec * 255))
+                        and np.array_equal(np.round(dec * 255), pixels))
+        else:
+            same = bool(np.array_equal(dec, f_rec))
+        enc_ms, _ = _host_ms(torch, lambda: model.compress(im, **kw),
+                             STAGED_REPEATS)
+        dec_ms, _ = _host_ms(torch, lambda: model.decompress(obj),
+                             STAGED_REPEATS)
+        psnr, bpp = psnr_bpp(dec, im, n_bytes)
+        _, fused_bpp = psnr_bpp(f_rec, im, f_bytes)
+        row = dict(bytes=n_bytes, bpp=bpp, psnr=psnr,
+                   legacy_fused_bytes=f_bytes, legacy_fused_bpp=fused_bpp,
+                   bpp_rel_to_legacy_fused=bpp / fused_bpp - 1,
+                   round_trip_exact=exact,
+                   equal_to_legacy_fused=same, enc_ms=enc_ms, dec_ms=dec_ms,
+                   legacy_fused_enc_ms=f_enc_ms, legacy_fused_dec_ms=f_dec_ms,
+                   encode_rans_launches=rans_launches(enc_l),
+                   decode_rans_launches=rans_launches(dec_l))
+        if coder == 'device':
+            row['rans_decode_block'] = rans_path_row(
+                torch, 'rans_decode_block', lambda: model.decompress(obj))
+            payload = obj[10:] if isinstance(obj, bytes) else obj[0]
+            row['escapes'] = struct.unpack('<IIH', payload[:10])[1]
+            # the native N-lane encoder (host C++) and the CUDA encode
+            # kernel, written apart, code the same symbols: the same lane
+            # states, words and escapes
+            d_parsed = staged.parse_interleaved(payload, 128)
+            n_esc = row['escapes']
+            row['stream_equal_to_legacy_fused'] = bool(
+                all(np.array_equal(a, b) for a, b in
+                    zip(d_parsed[:2], f_parsed[:2]))
+                and all(np.array_equal(a[:n_esc], b) for a, b in
+                        zip(d_parsed[2:], f_parsed[2:])))
+            require(row['stream_equal_to_legacy_fused'],
+                    f'{what}: the device coder\'s states, words or escapes '
+                    f'differ from the legacy fused stream\'s')
+        rows[coder] = row
+        progress(f'{what} {coder} coder: {bpp:.4f} bpp (legacy fused '
+                 f'{fused_bpp:.4f}), exact={exact}, = legacy fused {same}, '
+                 f'enc {enc_ms:.1f} ms dec {dec_ms:.1f} ms (legacy fused '
+                 f'{f_enc_ms:.1f} / {f_dec_ms:.1f}), rANS '
+                 f'{rans_launches(enc_l)} / {rans_launches(dec_l)}')
+        require(exact, f'{what} {coder} coder: the round trip is not exact')
+        require(same, f'{what} {coder} coder: the reconstruction differs '
+                      f'from the legacy fused codec\'s')
+        require(not any(enc_l.values()),
+                f'{what} {coder} coder: encode launched {enc_l}')
+        require(coder == 'device' or not any(dec_l.values()),
+                f'{what} host coder: decode launched {dec_l}')
+    return rows
+
+
+def expect_decode_launches(row, what, n_blocks):
+    got = row['decode_rans_launches']
+    want = dict.fromkeys(got, 0)
+    want['rans_decode_block'] = n_blocks
+    require(got == want, f'{what}: device decode launched {got}, expected '
+                         f'kernel #1 once per latent block ({n_blocks})')
+    require(row['rans_decode_block']['launches'] == n_blocks,
+            f'{what}: {row["rans_decode_block"]["launches"]} timed launches')
+
+
+def run_staged(torch, model):
+    """The host_coder and device_coder phases: qarv_base with the committed
+    weights on photo1 at lambda 2048, qres34m and qres34m_lossless seeded
+    as build_qres34m draws them (module docstring, 11-12)."""
+    from lvae_tpu_torch.utils import coding
+    t = time.perf_counter()
+    im = coding.read_png(PHOTO).astype(np.float32)[None] / 255.0
+    host, device = {}, {}
+    rows = staged_coders(torch, model, im, dict(lmb=STAGED_LMB),
+                         'qarv_base')
+    require(abs(rows['host']['bpp_rel_to_legacy_fused'])
+            <= STAGED_BPP_REL_TOL,
+            f'qarv_base host bpp {rows["host"]["bpp"]:.4f} is not within 2 % '
+            f'of the legacy fused stream\'s')
+    expect_decode_launches(rows['device'], 'qarv_base', 9)
+    host['qarv_base'], device['qarv_base'] = rows['host'], rows['device']
+    model.compress_mode(num_lanes='auto', portable=True)
+    for name, n_blocks in (('qres34m', 12), ('qres34m_lossless', None)):
+        qres = build_qres34m(torch, name)
+        lossless = n_blocks is None
+        rows = staged_coders(
+            torch, qres, im, {}, name, lossless=lossless,
+            fused_cfg=dict(esc_cap=LOSSLESS_ESC_CAP if lossless
+                           else QRES_ESC_CAP))
+        if not lossless:
+            expect_decode_launches(rows['device'], name, n_blocks)
+        host[name], device[name] = rows['host'], rows['device']
+        del qres
+        torch.cuda.empty_cache()
+    common = dict(image=os.path.relpath(PHOTO, ROOT),
+                  qarv_base=dict(weights=os.path.relpath(CHECKPOINT, ROOT),
+                                 lmb=STAGED_LMB),
+                  qres=f'random, flax-style init, seed {QRES_SEED}, '
+                       f'prior.c4 redrawn (build_qres34m)',
+                  times='host clock, median of 3 after a warm-up, '
+                        'synchronised')
+    return (dict(common, results=host),
+            dict(common, results=device, seconds=time.perf_counter() - t))
+
+
+def deconv_times(torch, model, run):
+    """The transposed-conv upsamplers (common.deconv, a library call:
+    torch's ConvTranspose2d in exact float32) of run(): each call's input
+    recorded, then each call timed again (CUDA events, median of
+    KERNEL_REPEATS) -> dict(calls, ms (their sum), bound_ms, bound_by): the
+    bound by the rule of check_kernels, a multiply-add 2 operations (input
+    elements x k x k x out channels of them)."""
+    from lvae_tpu_torch.models import common
+    from lvae_tpu_torch.models.base import exact_f32
+    seen = []
+    hooks = [blk.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0].detach().clone(),
+                                            out.numel())))
+        for blk in model.net.dec_blocks if isinstance(blk, common.deconv)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    ms = n_bytes = ops = 0
+    with torch.no_grad(), exact_f32():
+        for mod, x, n_out in seen:
+            ms += cuda_ms(torch, lambda m=mod, a=x: m(a), KERNEL_REPEATS)
+            w = mod.conv.weight
+            n_bytes += 4 * (x.numel() + n_out + w.numel() + w.shape[1])
+            ops += 2 * x.numel() * w[0].numel()
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return dict(calls=len(seen), ms=ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                library_call='torch.nn.ConvTranspose2d (cuDNN, TF32 off, '
+                             'deterministic)')
+
+
+def multi_encode_witness(model, ims_t, bodies):
+    """The multi-image encode's bodies (kernel #4's output, kernel #3's
+    input) held against an encoder written apart from the CUDA one: each
+    image's lane states, words and escapes equal the native N-lane
+    encoder's (csrc/crans.cpp) on that image's symbols and indexes, pulled
+    from the same B-image legacy trunk (FusedCodecBase.encode_blocks). ->
+    one bool an image."""
+    from lvae_tpu_torch.ops import crans
+    codec = model._fused
+    syms, idx = codec.encode_blocks(ims_t)[:2]
+    equal = []
+    for b, body in enumerate(bodies):
+        states, words, escapes = crans.interleaved_encode(
+            np.concatenate([s[b] for s in syms]),
+            np.concatenate([i[b] for i in idx]), [s.shape[1] for s in syms],
+            model._coder.cdf_table, num_lanes=codec.N)
+        got = codec.parse_payload(body)
+        equal.append(bool(
+            np.array_equal(got[0][0], states.view(np.int32))
+            and np.array_equal(got[1], words.astype(np.int32))
+            and np.array_equal(got[2], escapes[:, 0])
+            and np.array_equal(got[3], escapes[:, 1])))
+    return equal
+
+
+def run_qres17m(torch, tmpdir):
+    """The qres17m phase: full width, seeded as build_qres34m draws qres34m's
+    weights, on the legacy fused codec (B = 1 photo1, B = 2 photo1 and
+    photo2) and the host and device coders (module docstring, 13)."""
+    from lvae_tpu_torch.utils import coding
+    t = time.perf_counter()
+    model = build_qres34m(torch, 'qres17m')
+    build_s = time.perf_counter() - t
+    ims = np.stack([coding.read_png(p) for p in QRES17M_PHOTOS]).astype(
+        np.float32) / 255.0
+    im = ims[:1]
+    cfg = dict(num_lanes=QRES_LANES, esc_cap=QRES_ESC_CAP)
+    model.compress_mode(portable=False, **cfg)
+    (obj, recon), enc_l = counted_call(lambda: model.compress_check(im))
+    dec, dec_l = counted_call(lambda: model.decompress(obj))
+    exact = bool(np.array_equal(dec, recon))
+    objs, b_enc_l = counted_call(lambda: model.compress_batch(ims))
+    bdec, b_dec_l = counted_call(lambda: model.decompress_batch(objs))
+    # contiguous, as the entry points pass it: at the scaled posterior's
+    # magnitudes cuDNN's choice for other strides moves the symbols
+    ims_t = torch.as_tensor(ims, device=model.device).permute(
+        0, 3, 1, 2).contiguous()
+    bodies, brecon = model._fused.encode_check_batch(ims_t)
+    batch_exact = bool([o[0] for o in objs] == bodies
+                       and np.array_equal(bdec, brecon))
+    # kernels #3 and #4 against the native encoder, on the seeded weights
+    # and with channel 0 of the last latent block's posterior x3000 (as
+    # run_qres: escapes in both images); the weights restored after
+    batch = dict(seeded=dict(
+        escapes=[struct.unpack('<IIH', b[:10])[1] for b in bodies],
+        round_trip_exact=batch_exact,
+        equal_to_native_encoder=multi_encode_witness(model, ims_t, bodies)))
+    c4 = [b for b in model.net.dec_blocks
+          if getattr(b, 'is_latent_block', False)][-1].posterior.c4
+    kept = c4.weight.detach().clone()
+    with torch.no_grad():
+        c4.weight[0].mul_(3000.0)
+    eobjs = model.compress_batch(ims)
+    ebodies, ebrecon = model._fused.encode_check_batch(ims_t)
+    batch['scaled_posterior'] = dict(
+        escapes=[struct.unpack('<IIH', b[:10])[1] for b in ebodies],
+        round_trip_exact=bool(
+            [o[0] for o in eobjs] == ebodies
+            and np.array_equal(model.decompress_batch(eobjs), ebrecon)),
+        equal_to_native_encoder=multi_encode_witness(model, ims_t, ebodies))
+    with torch.no_grad():
+        c4.weight.copy_(kept)
+    progress(f'qres17m B = 2 against the native encoder: {batch}')
+    n_words, n_esc, lanes_field = struct.unpack('<IIH', obj[0][:10])
+    psnr, bpp = psnr_bpp(dec, im, len(pickle.dumps(obj)))
+    im_dev = torch.as_tensor(im, device=model.device)
+    enc_ms, o = _host_ms(torch, lambda: model.compress(im_dev), 5)
+    dec_ms, _ = _host_ms(torch, lambda: model.decompress_to_device(
+        o[0], o[1][1], o[1][2]), 5)
+    paths = {
+        'rans_encode_all': rans_path_row(
+            torch, 'rans_encode_all', lambda: model.compress(im)),
+        'rans_decode_block': rans_path_row(
+            torch, 'rans_decode_block', lambda: model.decompress(obj)),
+        'rans_encode_all_multi': rans_path_row(
+            torch, 'rans_encode_all_multi',
+            lambda: model.compress_batch(ims)),
+        'rans_decode_block_multi': rans_path_row(
+            torch, 'rans_decode_block_multi',
+            lambda: model.decompress_batch(objs))}
+    deconv = deconv_times(torch, model, lambda: model.decompress(obj))
+    # the refusals: no portable kernel for the deconv
+    refusals = {}
+    for what, call in (
+            ('compress_mode(portable=True)',
+             lambda: model.compress_mode(portable=True, **cfg)),
+            ('compress_file() in fused mode',
+             lambda: model.compress_file(PHOTO, os.path.join(
+                 tmpdir, 'qres17m.bits')))):
+        model.compress_mode(portable=False, **cfg)
+        try:
+            call()
+        except NotImplementedError as e:
+            refusals[what] = str(e)
+        else:
+            raise AssertionError(f'qres17m: {what} did not raise')
+    staged = staged_coders(torch, model, im, {}, 'qres17m',
+                           fused_cfg=dict(esc_cap=QRES_ESC_CAP))
+    expect_decode_launches(staged['device'], 'qres17m', 12)
+    zero = dict.fromkeys(rans_launches(enc_l), 0)
+    want = {'encode': dict(zero, rans_encode_all=1),
+            'decode': dict(zero, rans_decode_block=12),
+            'batch_encode': dict(zero, rans_encode_all_multi=1),
+            'batch_decode': dict(zero, rans_decode_block_multi=12)}
+    got = {'encode': rans_launches(enc_l), 'decode': rans_launches(dec_l),
+           'batch_encode': rans_launches(b_enc_l),
+           'batch_decode': rans_launches(b_dec_l)}
+    trunk_launches = {n: v for l in (enc_l, dec_l, b_enc_l, b_dec_l)
+                      for n, v in l.items() if v and not n.startswith('rans')}
+    result = dict(
+        model='qres17m', params=model.num_params(), build_s=build_s,
+        weights=f'random, flax-style init, seed {QRES_SEED}, prior.c4 '
+                'redrawn (build_qres34m)', trunk='legacy (library convs, '
+        'the deconvs ConvTranspose2d)', lanes=lanes_field, esc_cap=QRES_ESC_CAP,
+        image=os.path.relpath(PHOTO, ROOT),
+        batch_images=[os.path.relpath(p, ROOT) for p in QRES17M_PHOTOS],
+        bpp=bpp, psnr=psnr, escapes=n_esc, n_words=n_words,
+        round_trip_exact=exact, batch_round_trip_exact=batch_exact,
+        batch=batch, enc_ms=enc_ms, dec_ms=dec_ms,
+        times="bench.py's qres34m workload: host clock, median of 5, "
+              "synchronised", launches=got, rans_paths=paths, deconv=deconv,
+        refusals=refusals, staged=staged,
+        host_device_fused_bitwise=bool(
+            staged['host']['equal_to_legacy_fused']
+            and staged['device']['equal_to_legacy_fused']),
+        seconds=time.perf_counter() - t)
+    progress(f'qres17m: {bpp:.4f} bpp {psnr:.2f} dB, exact={exact}, '
+             f'B = 2 exact={batch_exact}, enc {enc_ms:.1f} ms dec '
+             f'{dec_ms:.1f} ms')
+    require(exact, 'qres17m: the legacy fused round trip is not exact')
+    require(batch_exact, 'qres17m: the B = 2 round trip is not exact')
+    for what, r in batch.items():
+        require(r['round_trip_exact'] and all(r['equal_to_native_encoder']),
+                f'qres17m B = 2 {what}: {r}')
+    require(min(batch['scaled_posterior']['escapes']) > 0,
+            'qres17m B = 2: the scaled posterior gave no escape')
+    require(got == want, f'qres17m: rANS launches {got}, expected {want}')
+    require(not trunk_launches,
+            f'qres17m: the legacy trunk launched {trunk_launches}')
+    require(np.isfinite(dec).all() and dec.shape == im.shape,
+            'qres17m: bad reconstruction')
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4066,6 +4484,11 @@ def main():
              fresh_batch, fresh_qres, fresh_lossless], tmpdir,
             dict(qres=qres_state, lossless=lossless_state))})
         emit({'eval': run_eval(torch, model, tmpdir)})
+        host_coder, device_coder = run_staged(torch, model)
+        emit({'host_coder': host_coder})
+        emit({'device_coder': device_coder})
+        qres17m = run_qres17m(torch, tmpdir)
+        emit({'qres17m': qres17m})
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),
@@ -4118,6 +4541,28 @@ def main():
         'nll_recon': 'lvae_tpu/ops/pallas/trunk.py:807'}
     unit = f'one photo1 image (lambda {main_lmb:g}), compress_file + ' \
            f'decompress_file'
+    # the rANS kernels' paths beside the fused codecs': the device coder's
+    # decode (kernel #1) and qres17m's legacy fused codec (#1-#4), per
+    # photo1 image (B = 2: photo1 and photo2), with each path's card time
+    # and bound over its launches (rans_path_row)
+    dev = device_coder['results']
+    new_paths = {
+        'rans_decode_block': {
+            f'device coder decode, qarv_base photo1 lambda {STAGED_LMB:g}':
+                dev['qarv_base']['rans_decode_block'],
+            'device coder decode, qres34m photo1':
+                dev['qres34m']['rans_decode_block'],
+            'qres17m legacy fused decompress, photo1':
+                qres17m['rans_paths']['rans_decode_block']},
+        'rans_encode_all': {
+            'qres17m legacy fused compress, photo1':
+                qres17m['rans_paths']['rans_encode_all']},
+        'rans_decode_block_multi': {
+            'qres17m legacy fused decompress_batch, B = 2':
+                qres17m['rans_paths']['rans_decode_block_multi']},
+        'rans_encode_all_multi': {
+            'qres17m legacy fused compress_batch, B = 2':
+                qres17m['rans_paths']['rans_encode_all_multi']}}
     entries = []
     for name, by_n in rans.items():
         main_n = by_n[lanes_of[main_lmb]]
@@ -4137,7 +4582,7 @@ def main():
                 f'512x768 image at N={lanes_of[main_lmb]}; the real limit '
                 f'is the serial chain of T dependent rows (T at each N '
                 f'below; the encode: chain_bound_ms)'),
-            library_ms=None,
+            library_ms=None, new_paths=new_paths[name],
             by_lanes={str(n): r for n, r in by_n.items()}))
     batch_n = max(lanes_of.values())
     for name, by_case in multi.items():
@@ -4159,7 +4604,7 @@ def main():
                 f'max(bytes / 3.35 TB/s, ops / 67 Tops/s) for {SERVING_B} '
                 f'qarv_base 512x768 images at N={batch_n}; the real limit is '
                 f'the serial chain of T dependent rows of one image'),
-            library_ms=None,
+            library_ms=None, new_paths=new_paths[name],
             by_case=by_case))
     qres_unit = (f'one photo1 image, qres34m (random weights, N = '
                  f'{QRES_LANES}), compress_file + decompress_file')

@@ -76,6 +76,7 @@ class VAEModelBase:
     scale table) and `codec_classes` (legacy codec, portable codec)."""
 
     codec_classes = None
+    coder_kind = 'fused'
 
     def __init__(self, net, device):
         self.device = resolve_device(device)
@@ -91,7 +92,7 @@ class VAEModelBase:
     def load_weights(self, path):
         """Load a flax msgpack weight file of the JAX package (stored at
         float16 or float32; the port computes in float32)."""
-        sd = params_from_flax(read_flax_msgpack(path))
+        sd = params_from_flax(read_flax_msgpack(path), self.net)
         self.net.load_state_dict(sd, strict=True)
 
     # ---- the fused codecs ------------------------------------------------
@@ -99,28 +100,57 @@ class VAEModelBase:
     def compress_mode(self, mode=True, coder='fused', num_lanes=128,
                       esc_cap=8192, word_cap=None, portable=False,
                       max_program_batch=None):
-        """Prepare entropy coding through the fused codec (coder='fused',
-        the only one the port has). portable=True codes on the portable
-        trunk (ops/trunk.py kernels): its streams decode in any process.
-        num_lanes: 16/32/64/128 (QARV also 'auto': by lambda).
+        """Prepare entropy coding through one of three coders:
+
+        coder='fused'  the fused codec: the trunk and the rANS kernels on
+                       the card in both directions (models/fused_base.py).
+                       portable=True codes on the portable trunk
+                       (ops/trunk.py kernels): its streams decode in any
+                       process.
+        coder='host'   per-block native rANS on the host (ops/crans.py) in
+                       the JAX package's container, one device round trip
+                       a latent block on decode (models/staged.py).
+        coder='device' one N = 128 lane stream encoded on the host and
+                       decoded by the rANS decode kernel, one launch a
+                       latent block (models/staged.py).
+        The host and device coders run the legacy fused codec's trunk, so
+        their streams decode in the writing process.
+
+        num_lanes (fused): 16/32/64/128 (QARV also 'auto': by lambda).
         word_cap caps the coded stream length in 16-bit words; streams that
         overflow it (or esc_cap escapes) raise OverflowError.
         max_program_batch caps the images coded at once: larger
         compress_batch requests run as balanced chunks. Codecs stay cached
         across calls, keyed by their whole configuration."""
-        if coder != 'fused':
-            raise NotImplementedError(
-                f'coder={coder!r}: the port has only the fused codec')
+        if coder not in ('host', 'device', 'fused'):
+            raise ValueError(f"coder={coder!r}: 'host', 'device' or "
+                             f"'fused'")
         if mode:
             self._coder.update()
             self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap,
                                    portable=bool(portable),
                                    max_program_batch=max_program_batch)
             self._fused_codecs = getattr(self, '_fused_codecs', {})
-            self.num_lanes = num_lanes
-            self._fused = self._get_fused(
-                num_lanes if num_lanes != 'auto' else 128)
+            self.coder_kind = coder
+            if coder == 'fused':
+                self.num_lanes = num_lanes
+                self._fused = self._get_fused(
+                    num_lanes if num_lanes != 'auto' else 128)
+            else:
+                self.num_lanes = 128
         self.compressing = mode
+
+    def _staged_codec(self):
+        """The legacy fused codec whose trunk the host and device coders
+        run (its 128 lanes are the device coder's)."""
+        return self._get_fused(128, portable=False)
+
+    def _require_fused(self, what):
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        if self.coder_kind != 'fused':
+            raise ValueError(f'{what} requires compress_mode(coder='
+                             f'"fused"), not coder={self.coder_kind!r}')
 
     def _get_fused(self, n_lanes: int, portable=None):
         """Codec for (lane count, current cfg); `portable` overrides the

@@ -60,6 +60,25 @@ class patch_upsample(nn.Module):
         return self.shuffle(self.conv(x))
 
 
+class deconv(nn.Module):
+    """Transposed-conv upsample (lvae_tpu/models/common.py:114-131): the
+    output is exactly stride x the input, as the JAX module's padding
+    (k - 1 - p, k - 1 - p + s - 1) with p = k // 2 gives. A library call on
+    the legacy trunk (no portable kernel: qres17m codes legacy streams
+    only). Its weight is torch's (in, out, k, k), the flax kernel spatially
+    flipped (models/weights.params_from_flax)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=5, stride=2):
+        super().__init__()
+        self.stride = stride
+        self.conv = nn.ConvTranspose2d(
+            in_ch, out_ch, kernel_size, stride=stride,
+            padding=kernel_size // 2, output_padding=stride - 1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
 class upsample_nearest(nn.Module):
     """Nearest-neighbour upsample."""
 
@@ -214,13 +233,22 @@ def lecun_normal_(weight, generator=None, scale=1.0):
 
 def flax_init_(net, generator=None):
     """Initialise a network of these blocks as the JAX package's flax
-    modules initialise theirs: lecun-normal conv and dense kernels, scaled
+    modules initialise theirs: lecun-normal conv, transposed-conv and dense
+    kernels (the first two with flax's fan-in, in x k x k), scaled
     by the module's `init_scale` attribute where it has one (a VDBlock's
     zero_last / rescale_last, QRes's z projection), zero biases, unit
     LayerNorm scales; the layer scales keep their constant."""
     for m in net.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, generator, getattr(m, 'init_scale', 1.0))
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.ConvTranspose2d):
+            # flax's (k, k, in, out) kernel: fan_in = k * k * in
+            w = torch.empty(m.weight.shape[1:2] + m.weight.shape[0:1]
+                            + m.weight.shape[2:])
+            lecun_normal_(w, generator)
+            with torch.no_grad():
+                m.weight.copy_(w.transpose(0, 1))
             nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)

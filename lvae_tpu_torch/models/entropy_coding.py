@@ -1,8 +1,8 @@
 """Probability side of the entropy coder, counterpart of
 ``lvae_tpu/models/entropy_coding.py``: the log probability masses of the
 rate term, the eval-time discretized likelihood, scale-index lookup and the
-quantized CDF table of the discretized Gaussian. The host C++ coder of the
-JAX package is not needed here: the codec codes on the card.
+quantized CDF table of the discretized Gaussian with its host coder (the
+native per-block rANS of ops/crans.py, coder='host').
 
 Probability-mass math runs in float32 whatever its inputs' dtype: CDF
 differences underflow in lower precision.
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from lvae_tpu_torch.ops import cdf as cdf_ops
+from lvae_tpu_torch.ops import crans
 
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -105,7 +106,8 @@ def build_indexes(scales, scale_table):
 
 class DiscretizedGaussian:
     """Discretized Gaussian with the default 64-entry log-spaced scale table
-    (0.11 -> 20); `update()` builds its quantized CDF table."""
+    (0.11 -> 20); `update()` builds its quantized CDF table and the native
+    per-block coder over it (lvae_tpu/models/entropy_coding.py:127-183)."""
 
     def __init__(self, scale_table=None, tail_mass=1e-9):
         if scale_table is None:
@@ -113,9 +115,27 @@ class DiscretizedGaussian:
         self.scale_table = np.asarray(scale_table, dtype=np.float64)
         self.tail_mass = float(tail_mass)
         self.cdf_table = None
+        self._codec = None
 
     def update(self):
         if self.cdf_table is None:
             self.cdf_table = cdf_ops.build_cdf_table(self.scale_table,
                                                      self.tail_mass)
+        if self._codec is None:
+            self._codec = crans.RansCodec(self.cdf_table)
         return self.cdf_table
+
+    def compress_symbols(self, symbols, indexes) -> bytes:
+        """rANS-encode int32 symbols (round(x - mean)) against the rows
+        `indexes`: one block's string in the host coder's layout."""
+        if self._codec is None:
+            raise RuntimeError('call update() / compress_mode() first')
+        return self._codec.encode_with_indexes(
+            np.asarray(symbols, np.int32), np.asarray(indexes, np.int32))
+
+    def decompress_symbols(self, string: bytes, indexes) -> np.ndarray:
+        """Inverse of compress_symbols: the block's int32 symbols, flat."""
+        if self._codec is None:
+            raise RuntimeError('call update() / compress_mode() first')
+        return self._codec.decode_with_indexes(
+            string, np.asarray(indexes, np.int32))

@@ -243,14 +243,11 @@ class FusedCodecBase:
 
     # ---- the two directions -------------------------------------------
 
-    @torch.no_grad()
-    def _encode(self, im, *ctx, want_image, batch=False):
-        """im: (B, 3, H, W) float32 on the device, ctx: the per-image
-        context -> (payload, image|None); a single image's payload (P,)
-        from the single-image rANS kernel, a batch's (B, P) from the
-        multi-image one."""
-        B, _, imH, imW = im.shape
-        ms = self.net.max_stride
+    def _posterior_symbols(self, im):
+        """The encode side's symbols_for: the rounded posterior mean minus
+        the prior mean, the encoder backbone run (on the trunk's context)
+        at the first latent block. -> (symbols_for, the encoder features,
+        filled by then)."""
         enc_features = {}
 
         def posterior_symbols(blk, f_mid, pm, indexes, tctx):
@@ -261,7 +258,17 @@ class FusedCodecBase:
                                      enc_features, *tctx)
             qm = self._from(qm, 'NCHW')
             return torch.round(qm.float() - pm.float())
+        return posterior_symbols, enc_features
 
+    @torch.no_grad()
+    def _encode(self, im, *ctx, want_image, batch=False):
+        """im: (B, 3, H, W) float32 on the device, ctx: the per-image
+        context -> (payload, image|None); a single image's payload (P,)
+        from the single-image rANS kernel, a batch's (B, P) from the
+        multi-image one."""
+        B, _, imH, imW = im.shape
+        ms = self.net.max_stride
+        posterior_symbols, _ = self._posterior_symbols(im)
         with self.trunk_scope():
             feature, tctx, syms_flat, idx_flat = self._trunk(
                 ctx, B, imH // ms, imW // ms, posterior_symbols)
@@ -565,7 +572,12 @@ class FusedCodecBase:
         device as ONE int32 blob: -> (states (B, N), streams (B, W), esc_pos
         (B, E), esc_val (B, E)), streams zero-padded and escapes padded
         with (-1, 0) to the longest body's."""
-        parsed = [self.parse_payload(body) for body in bodies]
+        return self._push_parsed([self.parse_payload(body)
+                                  for body in bodies])
+
+    def _push_parsed(self, parsed):
+        """_push of streams already parsed into (states (1, N), words,
+        esc_pos, esc_val) int32 numpy."""
         B, N = len(parsed), self.N
         W = max(1, max(p[1].size for p in parsed))
         E = max(p[2].size for p in parsed)
@@ -598,6 +610,50 @@ class FusedCodecBase:
                              *(c[a:b] for c in ctx), batch=True)
                 for a, b in self._chunks(len(bodies))]
         return imgs[0] if len(imgs) == 1 else torch.cat(imgs)
+
+    # ---- the staged coders (coder='host' and coder='device',
+    # models/staged.py): this codec's trunk, with the symbols coded on the
+    # host (lvae_tpu/models/qarv/model.py:846-939, 1025-1136) -------------
+
+    @torch.no_grad()
+    def encode_blocks(self, im, *ctx, want_image=False):
+        """The encode trunk with the symbols pulled to the host in one copy
+        (int32: no narrowing at the junction). im: (B, 3, H, W) on the
+        device -> (syms, idx: per latent block (B, nsym) int32 numpy in
+        NHWC order, the trunk's last feature, its context, the encoder
+        features, the reconstruction (B, H, W, 3) float16 on the device
+        from the tail when want_image, else None)."""
+        B, _, imH, imW = im.shape
+        ms = self.net.max_stride
+        posterior_symbols, enc_features = self._posterior_symbols(im)
+        with self.trunk_scope():
+            feature, tctx, syms_flat, idx_flat = self._trunk(
+                ctx, B, imH // ms, imW // ms, posterior_symbols)
+            image = self._tail(feature, tctx) if want_image else None
+        n = len(syms_flat)
+        sizes = [t.shape[1] for t in syms_flat]
+        flat = torch.cat(syms_flat + idx_flat, 1).cpu().numpy()
+        parts = np.split(flat, np.cumsum(sizes + sizes)[:-1], axis=1)
+        return parts[:n], parts[n:], feature, tctx, enc_features, image
+
+    @torch.no_grad()
+    def decode_blocks(self, symbols_of, B, nH, nW, *ctx, want_image=True):
+        """The decode trunk of the host coder: per latent block the scale
+        indexes are pulled to the host and symbols_of(indexes (B, nsym)
+        int32 numpy, NHWC order) gives the block's symbols, pushed back as
+        the int32 tensor the encode side fed the fuse. -> (the trunk's last
+        feature, its context, the tail's (B, H, W, 3) float16 image when
+        want_image, else None)."""
+        def host_symbols(blk, f_mid, pm, indexes, tctx):
+            idx = self._to(indexes, 'NHWC')
+            syms = symbols_of(idx.reshape(B, -1).cpu().numpy())
+            z = torch.from_numpy(np.ascontiguousarray(syms, np.int32))
+            return self._from(z.to(self.device).reshape(idx.shape), 'NHWC')
+
+        with self.trunk_scope():
+            feature, tctx, _, _ = self._trunk(ctx, B, nH, nW, host_symbols)
+            image = self._tail(feature, tctx) if want_image else None
+        return feature, tctx, image
 
 
 class PortableTrunk:

@@ -4,7 +4,9 @@ lambda sweep (self_evaluate).
 
 Bitstream layout (byte-identical headers to the JAX package):
     file   = [2H img_h img_w][body]
-    body   = [f lmb][3H nB nH nW][fused payload, models/fused_base.py]
+    body   = [f lmb][3H nB nH nW][payload]
+    payload: the fused payload (models/fused_base.py), or the host or
+    device coder's (models/staged.py), by compress_mode's coder
 """
 import math
 import struct
@@ -15,9 +17,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models import common, staged
 from lvae_tpu_torch.models import entropy_coding as ec
-from lvae_tpu_torch.models.base import VAEModelBase, exact_f32, host_stats
+from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
+                                         host_stats)
 from lvae_tpu_torch.models.qarv import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.utils import coding
@@ -406,7 +409,10 @@ class QarvModel(VAEModelBase):
 
     def compress(self, im, lmb=None, portable=None):
         """Compress one image (NHWC in [0,1]) -> bytes. `portable`
-        overrides the compress_mode trunk kind for this stream."""
+        overrides the compress_mode trunk kind for this stream (the fused
+        coder's; the host and device coders run the legacy trunk)."""
+        if self.coder_kind != 'fused':
+            return self._compress_staged(im, lmb)[0]
         im, lmb_f32, fused = self._prepare(im, lmb, portable)
         body = fused.encode(im, self._lmb_tensor([lmb_f32]))
         return self._header(lmb_f32, *self._grid(im)) + body
@@ -415,10 +421,31 @@ class QarvModel(VAEModelBase):
         """compress() that also returns the image reconstructed from the
         encode-side symbols (NHWC float32): decompress() must reproduce it
         bitwise."""
+        if self.coder_kind != 'fused':
+            stream, img = self._compress_staged(im, lmb, want_image=True)
+            return stream, host_image(img)
         im, lmb_f32, fused = self._prepare(im, lmb, portable)
         body, img = fused.encode_check(im, self._lmb_tensor([lmb_f32]))
         return (self._header(lmb_f32, *self._grid(im)) + body,
                 img.float().cpu().numpy())
+
+    def _compress_staged(self, im, lmb, want_image=False):
+        """The host or device coder's compress -> (stream, the tail's image
+        on the device or None) (lvae_tpu/models/qarv/model.py:846-939)."""
+        im = self._to_input(im)
+        lmb_f32 = self._round_lmb(lmb if lmb is not None
+                                  else self.default_lmb)
+        syms, idx, _, _, _, img = self._staged_codec().encode_blocks(
+            im, self._lmb_tensor([lmb_f32]), want_image=want_image)
+        syms, idx = [s[0] for s in syms], [i[0] for i in idx]
+        if self.coder_kind == 'device':
+            body = staged.interleaved_payload(
+                syms, idx, self._coder.cdf_table, self.num_lanes)
+        else:
+            body = coding.pack_byte_strings([
+                self._coder.compress_symbols(s, ix)
+                for s, ix in zip(syms, idx)])
+        return self._header(lmb_f32, *self._grid(im)) + body, img
 
     def _lmb_tensor(self, lmbs):
         """(B,) float32 lambdas on the device, copied from pinned memory
@@ -435,6 +462,7 @@ class QarvModel(VAEModelBase):
         same-shape images and returns an opaque handle without
         synchronising the host; compress_batch_finish gives the streams.
         lmb: a scalar or one lambda per image."""
+        self._require_fused('compress_batch')
         ims = self._to_input(ims, batch=True)
         B = ims.shape[0]
         if lmb is None:
@@ -466,8 +494,7 @@ class QarvModel(VAEModelBase):
         """Decode B same-shape streams -> (B, H, W, 3) float16 images on the
         device (asynchronous). Routed by the streams' lane field, which all
         of them must share."""
-        if not self.compressing:
-            raise RuntimeError('call compress_mode() first')
+        self._require_fused('decompress_batch')
         lmbs, bodies, shapes = [], [], set()
         for s in strings:
             lmb_v, = struct.unpack('f', s[:4])
@@ -491,8 +518,7 @@ class QarvModel(VAEModelBase):
         decompress_to_device(stream), or the JAX package's form
         decompress_to_device(lmb, nB, nH, nW, body) with the stream's
         header fields given apart from its body."""
-        if not self.compressing:
-            raise RuntimeError('call compress_mode() first')
+        self._require_fused('decompress_to_device')
         if len(args) == 1:
             string, = args
             lmb, = struct.unpack('f', string[:4])
@@ -509,8 +535,25 @@ class QarvModel(VAEModelBase):
             body, nH, nW, self._lmb_tensor([lmb]))
 
     def decompress(self, string):
-        """Decode -> (1, H, W, 3) float32 numpy image in [0,1]."""
-        return self.decompress_to_device(string).float().cpu().numpy()
+        """Decode -> (1, H, W, 3) float32 numpy image in [0,1], by the coder
+        compress_mode chose (the fused coder routes by the stream's lane
+        field)."""
+        if self.coder_kind == 'fused':
+            return self.decompress_to_device(string).float().cpu().numpy()
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        lmb, = struct.unpack('f', string[:4])
+        nB, nH, nW = struct.unpack('3H', string[4:10])
+        if nB != 1:
+            raise ValueError(f'stream holds {nB} images; expected 1')
+        codec, lmb_t = self._staged_codec(), self._lmb_tensor([lmb])
+        if self.coder_kind == 'device':
+            return host_image(staged.decode_device(codec, string[10:], nH,
+                                                   nW, lmb_t))
+        blocks = ([s] for s in coding.unpack_byte_string(string[10:]))
+        _, _, img = staged.decode_host(codec, self._coder, blocks, 1, nH, nW,
+                                       lmb_t)
+        return host_image(img)
 
     def compress_file(self, img_path, output_path, lmb=None, pad_hw=None,
                       portable=None):
@@ -520,13 +563,14 @@ class QarvModel(VAEModelBase):
         back to the stored size. Files are portable streams when the codec
         supports them (supports_portable), so that they decode in any
         process (lvae_tpu/models/qarv/model.py:1157-1158); portable=False
-        writes a legacy stream, bound to the writing process."""
+        writes a legacy stream, bound to the writing process. The host and
+        device coders write their own streams (compress())."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
         img = coding.read_png(img_path)
         padded = (coding.pad_divisible_by(img, div=self.net.max_stride)
                   if pad_hw is None else coding.pad_to_shape(img, *pad_hw))
-        if portable is None:
+        if portable is None and self.coder_kind == 'fused':
             portable = self._fused.supports_portable
         body = self.compress(padded.astype(np.float32) / 255.0, lmb=lmb,
                              portable=portable)

@@ -5,9 +5,15 @@ forward.
 
 Containers (the JAX package's, so that a file of either package opens in
 the other):
-    compress()        -> [body, (1, nH, nW, width)]
-    compress_file()   -> pickle of [body, (1, nH, nW, width), (h, w)]
-    body              =  the fused payload (models/fused_base.py)
+    compress()        -> fused:  [body, (1, nH, nW, width)], body the fused
+                                 payload (models/fused_base.py)
+                         host:   [[string per image] per latent block...,
+                                 (nB, fH, fW, C) of the encoder's last
+                                 feature (NHWC order)[, [head string per
+                                 image]]] (lossless: the pixel head's)
+                         device: [payload (models/staged.py), (1, fH, fW,
+                                 C)]
+    compress_file()   -> pickle of compress()'s list + [(h, w)]
 """
 import io
 import math
@@ -17,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models import common, staged
 from lvae_tpu_torch.models import entropy_coding as ec
 from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
                                          host_stats)
@@ -283,9 +289,13 @@ class QresModel(VAEModelBase):
     def compress_mode(self, mode=True, coder='fused', num_lanes=128, **cfg):
         """See VAEModelBase.compress_mode; num_lanes is 16, 32, 64 or 128
         (the JAX package's default 128): a fixed-rate model has no lambda
-        to choose it by."""
+        to choose it by. The device coder has no lossless head."""
         if num_lanes not in (16, 32, 64, 128):
             raise ValueError(f'num_lanes={num_lanes!r}: 16, 32, 64 or 128')
+        if coder == 'device' and self.lossless:
+            # the JAX package's assertion (qresvae/model.py:555-556)
+            raise AssertionError('the staged device coder has no lossless '
+                                 'head; use fused/host')
         super().compress_mode(mode, coder, num_lanes, **cfg)
 
     def _shape(self, im):
@@ -295,9 +305,13 @@ class QresModel(VAEModelBase):
                 int(self.net.bias.shape[1]))
 
     def compress(self, im, portable=None):
-        """Compress one image (NHWC in [0, 1]) -> [body, (1, nH, nW,
-        width)]. `portable` overrides the compress_mode trunk kind for this
-        stream."""
+        """Compress one image (NHWC in [0, 1]; the host coder also takes a
+        batch, coded image by image) -> the container of the module doc.
+        `portable` overrides the compress_mode trunk kind for this stream
+        (the fused coder's; the host and device coders run the legacy
+        trunk)."""
+        if self.coder_kind != 'fused':
+            return self._compress_staged(im)[0]
         im = self._to_input(im)
         body = self._get_fused(self.num_lanes, portable=portable).encode(im)
         return [body, self._shape(im)]
@@ -305,26 +319,108 @@ class QresModel(VAEModelBase):
     def compress_check(self, im, portable=None):
         """compress() that also returns the image reconstructed from the
         encode-side symbols (NHWC float32 numpy): decompress() must
-        reproduce it bitwise."""
+        reproduce it bitwise. A lossless model's reconstruction is the
+        input's exact pixels."""
+        if self.coder_kind != 'fused':
+            return self._compress_staged(im, want_image=True)
         im = self._to_input(im)
         body, img = self._get_fused(self.num_lanes,
                                     portable=portable).encode_check(im)
         return [body, self._shape(im)], host_image(img)
 
+    def _compress_staged(self, im, want_image=False):
+        """The host or device coder's compress -> (container, the
+        reconstruction as float32 numpy or None)
+        (lvae_tpu/models/qresvae/model.py:660-749)."""
+        host = self.coder_kind == 'host'
+        im = self._to_input(im, batch=host)
+        B = im.shape[0]
+        codec = self._staged_codec()
+        syms, idx, feature, _, enc_features, img = codec.encode_blocks(
+            im, want_image=want_image and not self.lossless)
+        if host:
+            obj = [[self._coder.compress_symbols(s[b], ix[b])
+                    for b in range(B)] for s, ix in zip(syms, idx)]
+        else:
+            obj = [staged.interleaved_payload(
+                [s[0] for s in syms], [i[0] for i in idx],
+                self._coder.cdf_table, self.num_lanes)]
+        # the encoder's last feature's shape, in the JAX package's NHWC order
+        _, C, fH, fW = enc_features[min(enc_features)].shape
+        obj.append((B, fH, fW, C))
+        rec = None if img is None else host_image(img)
+        if self.lossless:
+            with torch.no_grad(), codec.trunk_scope():
+                pm, plogv = self._head_tensors_host(feature)
+                xs = codec._head_symbols(im, pm).cpu().numpy()
+            idx = self._head_indexes(plogv)
+            obj.append([self._head_coder.compress_symbols(xs[b], idx[b])
+                        for b in range(B)])
+            if want_image:
+                rec = self._head_recon_host(xs, pm.cpu().numpy())
+        return obj, rec
+
+    def _head_tensors_host(self, feature):
+        """The lossless head's (pm, plogv) on the legacy trunk, (B, H, W, 3)
+        in bin units on the device."""
+        pm, plogv = self.net.out_net.codec_tensors(feature)
+        return (pm.permute(0, 2, 3, 1).contiguous(),
+                plogv.permute(0, 2, 3, 1).contiguous())
+
+    def _head_indexes(self, plogv):
+        """The host coder's head indexes: exp(plogv) against the float64
+        table on the host, as the JAX package's host coder computes them."""
+        with np.errstate(over='ignore'):     # inf scales take the last row
+            scales = np.exp(plogv.cpu().numpy())
+        return cdf_ops.build_indexes_np(scales, self._head_coder.scale_table)
+
+    def _head_recon_host(self, xs, pm):
+        """The host coder's pixels: clip((xs + pm) * bin, -1, 1) * 0.5 + 0.5
+        in numpy, as the JAX package returns them (float32)."""
+        x_hat = (xs + pm) * self.net.out_net.bin_size
+        return np.clip(np.asarray(x_hat, np.float32), -1, 1) * 0.5 + 0.5
+
     def decompress_to_device(self, body, fH, fW):
         """Decode one body -> (1, H, W, 3) image on the device (asynchronous;
         float16, or uint8 for a lossless model), routed by the stream's lane
         field."""
-        if not self.compressing:
-            raise RuntimeError('call compress_mode() first')
+        self._require_fused('decompress_to_device')
         return self._stream_codec([body]).decode_to_device(body, fH, fW)
 
     def decompress(self, obj):
-        """[body, (1, nH, nW, width)] -> (1, H, W, 3) float32 numpy image."""
+        """compress()'s container -> (nB, H, W, 3) float32 numpy image(s),
+        by the coder compress_mode chose (the fused coder routes by the
+        stream's lane field)."""
+        if self.coder_kind != 'fused':
+            return self._decompress_staged(obj)
         nB, fH, fW, _ = obj[-1]
         if nB != 1:
             raise ValueError(f'stream holds {nB} images; expected 1')
         return host_image(self.decompress_to_device(obj[0], fH, fW))
+
+    def _decompress_staged(self, obj):
+        """The host or device coder's decompress
+        (lvae_tpu/models/qresvae/model.py:751-847)."""
+        if not self.compressing:
+            raise RuntimeError('call compress_mode() first')
+        obj = list(obj)
+        head = obj.pop() if self.lossless else None
+        nB, fH, fW, _ = obj.pop()
+        codec = self._staged_codec()
+        if self.coder_kind == 'device':
+            if nB != 1 or len(obj) != 1:
+                raise ValueError('a device-coder stream holds one image')
+            return host_image(staged.decode_device(codec, obj[0], fH, fW))
+        feature, _, img = staged.decode_host(codec, self._coder, obj, nB, fH,
+                                             fW, want_image=not self.lossless)
+        if not self.lossless:
+            return host_image(img)
+        with torch.no_grad(), codec.trunk_scope():
+            pm, plogv = self._head_tensors_host(feature)
+        idx = self._head_indexes(plogv)
+        xs = np.stack([self._head_coder.decompress_symbols(
+            head[b], idx[b]).reshape(idx[b].shape) for b in range(nB)])
+        return self._head_recon_host(xs, pm.cpu().numpy())
 
     # ---- batch serving (lvae_tpu/models/qresvae/model.py:859-913) -------
 
@@ -332,6 +428,7 @@ class QresModel(VAEModelBase):
         """Dispatch-only half of compress_batch: queues the encode of B
         same-shape images and returns a handle without synchronising the
         host."""
+        self._require_fused('compress_batch')
         ims = self._to_input(ims, batch=True)
         codec = self._get_fused(self.num_lanes)
         return codec, codec.encode_batch_async(ims), self._shape(ims)
@@ -345,8 +442,7 @@ class QresModel(VAEModelBase):
     def decompress_batch_to_device(self, objs):
         """Decode B same-shape objects -> (B, H, W, 3) images on the device
         (asynchronous; float16, or uint8 for a lossless model)."""
-        if not self.compressing:
-            raise RuntimeError('call compress_mode() first')
+        self._require_fused('decompress_batch')
         shapes = {tuple(o[-1]) for o in objs}
         if len(shapes) != 1:
             raise ValueError(f'batch streams must share one image shape, '
@@ -368,13 +464,14 @@ class QresModel(VAEModelBase):
         crops back to the stored size. Files are portable streams when the
         codec supports them (supports_portable), so that they decode in any
         process; portable=False writes a legacy stream, bound to the writing
-        process."""
+        process. The host and device coders write their own containers
+        (compress())."""
         if not self.compressing:
             raise RuntimeError('call compress_mode() first')
         img = coding.read_png(img_path)
         padded = (coding.pad_divisible_by(img, div=self.net.max_stride)
                   if pad_hw is None else coding.pad_to_shape(img, *pad_hw))
-        if portable is None:
+        if portable is None and self.coder_kind == 'fused':
             portable = self._fused.supports_portable
         obj = self.compress(padded.astype(np.float32) / 255.0,
                             portable=portable)

@@ -1,6 +1,6 @@
 """QRes-VAE model zoo, counterpart of ``lvae_tpu/models/qresvae/zoo.py``:
-qres34m with the MSE head and qres34m_lossless with the GaussianNLL pixel
-head. qres17m is a later slice of the port."""
+qres34m with the MSE head, qres34m_lossless with the GaussianNLL pixel head,
+and qres17m (CelebA, deconv upsamplers: legacy streams only)."""
 import math
 
 from lvae_tpu_torch.registry import register_model
@@ -12,6 +12,9 @@ from lvae_tpu_torch.models.qresvae.model import (
 # ImageNet pixel stats
 IMAGENET_SHIFT = -0.4546259594901961
 IMAGENET_SCALE = 3.67572653978347
+# CelebA pixel stats (qres17m; lvae_tpu/models/qresvae/zoo.py:148)
+CELEBA_SHIFT = -0.4356
+CELEBA_SCALE = 3.397893306150187
 
 
 def _check_pretrained(pretrained):
@@ -102,5 +105,51 @@ def qres34m_lossless(pretrained=False, device=None):
         conv_scale=common.patch_upsample(ch * 2, 3, rate=4))
     net = HierarchicalVAENet(enc_blocks, dec_blocks, out_net,
                              im_shift=IMAGENET_SHIFT, im_scale=IMAGENET_SCALE,
+                             max_stride=64)
+    return build(net, pretrained, device)
+
+
+@register_model
+def qres17m(lmb=8, pretrained=False, device=None):
+    """The smaller QRes-VAE trained on CelebA (lvae_tpu/models/qresvae/
+    zoo.py:111-150), max stride 64: widths 144/288, 12 latent blocks at
+    1/64 .. 1/4 resolution with z dims 16/8/6/4 and kernel sizes 1/3/5/7,
+    a nearest-neighbour x4 upsample and two transposed-conv upsamplers
+    (common.deconv). The deconv has no portable kernel, so the model codes
+    legacy streams (portable=False) only."""
+    _check_pretrained(pretrained)
+    enc_nums = [6, 6, 4, 2]
+    dec_nums = [1, 2, 4, 5]
+    z_dims = [16, 8, 6, 4]
+    ch = 72
+    B, D = common.MyConvNeXtBlock, common.MyConvNeXtPatchDown
+    enc_blocks = [
+        common.patch_downsample(3, ch * 2, rate=4),
+        *[B(ch * 2, kernel_size=7) for _ in range(enc_nums[0])],
+        D(ch * 2, ch * 4),
+        *[B(ch * 4, kernel_size=5) for _ in range(enc_nums[1])],
+        D(ch * 4, ch * 4),
+        *[B(ch * 4, kernel_size=3) for _ in range(enc_nums[2])],
+        D(ch * 4, ch * 4, down_rate=4),
+        *[B(ch * 4, kernel_size=1) for _ in range(enc_nums[3])],
+    ]
+    rs = math.sqrt(sum(dec_nums) / 3)
+
+    def latent(width, stage, ks):
+        return [QLatentBlock(width, z_dims[stage], kernel_size=ks,
+                             rescale_z=rs) for _ in range(dec_nums[stage])]
+
+    dec_blocks = [
+        *latent(ch * 4, 0, 1),
+        common.upsample_nearest(rate=4),
+        *latent(ch * 4, 1, 3),
+        common.deconv(ch * 4, ch * 4, kernel_size=3),
+        *latent(ch * 4, 2, 5),
+        common.deconv(ch * 4, ch * 2),
+        *latent(ch * 2, 3, 7),
+        common.patch_upsample(ch * 2, 3, rate=4),
+    ]
+    net = HierarchicalVAENet(enc_blocks, dec_blocks, MSEOutputNet(lmb),
+                             im_shift=CELEBA_SHIFT, im_scale=CELEBA_SCALE,
                              max_stride=64)
     return build(net, pretrained, device)

@@ -123,23 +123,36 @@ def _torch_key(path):
     return '.'.join(parts)
 
 
-def params_from_flax(tree):
+def params_from_flax(tree, net=None):
     """Flax parameter tree (numpy leaves) -> the port's state dict, as
     float32 tensors (the committed checkpoints store float16).
 
     conv kernel (kh, kw, in, out) -> (out, in, kh, kw), 1x1 and 3x3 alike;
     depthwise (K, K, 1, C) -> (C, 1, K, K) by the same transpose; dense
     (in, out) -> (out, in); a LayerNorm's scale -> its weight; the
-    decoder's NHWC seed bias (1, 1, 1, C) -> (1, C, 1, 1)."""
+    decoder's NHWC seed bias (1, 1, 1, C) -> (1, C, 1, 1).
+
+    A transposed conv's kernel (a deconv's, flax ConvTranspose: (kh, kw,
+    in, out) in conv orientation) -> torch's (in, out, kh, kw), spatially
+    flipped: the inverse of lvae_tpu/models/port.py:t_convT. Its path looks
+    like any conv's, and with in == out its shape too, so the rule is
+    chosen by the module: pass the `net` the state dict is for whenever it
+    holds an nn.ConvTranspose2d."""
+    transposed = set()
+    if net is not None:
+        transposed = {f'{name}.weight' for name, m in net.named_modules()
+                      if isinstance(m, torch.nn.ConvTranspose2d)}
     sd = {}
     for path, leaf in flatten(tree).items():
         a = np.asarray(leaf)
-        if path[-1] == 'kernel' and a.ndim == 4:
+        key = _torch_key(path)
+        if key in transposed:
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif path[-1] == 'kernel' and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         elif path[-1] == 'kernel' and a.ndim == 2:
             a = a.T
         elif path == ('bias',) and a.ndim == 4:
             a = a.transpose(0, 3, 1, 2)
-        sd[_torch_key(path)] = torch.from_numpy(
-            np.array(a, dtype=np.float32, order='C'))
+        sd[key] = torch.from_numpy(np.array(a, dtype=np.float32, order='C'))
     return sd

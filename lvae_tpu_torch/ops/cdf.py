@@ -117,6 +117,14 @@ class CdfTable:
     cdf_lengths: np.ndarray   # (S,) int32, valid entries per row
     offsets: np.ndarray       # (S,) int32
 
+    @property
+    def num_scales(self):
+        return int(self.scale_table.shape[0])
+
+    @property
+    def max_cdf_length(self):
+        return int(self.cdfs.shape[1])
+
 
 def build_cdf_table(scale_table, tail_mass=1e-9) -> CdfTable:
     """Quantized CDF table of the discretized Gaussian family: per scale,
@@ -146,3 +154,12 @@ def build_cdf_table(scale_table, tail_mass=1e-9) -> CdfTable:
     return CdfTable(scale_table=scale_table, cdfs=cdfs,
                     cdf_lengths=cdf_lengths,
                     offsets=(-centers).astype(np.int32))
+
+
+def build_indexes_np(scales, scale_table):
+    """Per-element scale-table index on the host: the smallest index whose
+    float64 table entry is >= the scale, capped at the last entry
+    (lvae_tpu/ops/cdf.py:217; the host coder's lossless head uses it)."""
+    scales = np.maximum(np.asarray(scales, dtype=np.float64), scale_table[0])
+    idx = np.searchsorted(scale_table, scales, side='left')
+    return np.minimum(idx, len(scale_table) - 1).astype(np.int32)

@@ -1,7 +1,8 @@
 """Host-side stream glue, image IO and RD bookkeeping, free of PIL.
 
-Copies of the byte formats in ``lvae_tpu/utils/coding.py`` (escape varints,
-compact lane states, LEB128, edge padding), which must stay byte-identical
+Copies of the byte formats in ``lvae_tpu/utils/coding.py`` (the host
+coder's string container, escape varints, compact lane states, LEB128, edge
+padding), which must stay byte-identical
 to the JAX package's (tests/test_torch_payload.py), a small PNG reader so
 that the port runs on machines without Pillow, and the eval harness's
 helpers (shape buckets, BD-rate, RD curves) on numpy HWC arrays.
@@ -13,6 +14,31 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+# ---------------------------------------------------------------------------
+# The host coder's container of per-block strings
+# ---------------------------------------------------------------------------
+
+
+def pack_byte_strings(list_of_strings):
+    """Pack byte strings into one: [B num][num x I lengths][payload]
+    (lvae_tpu/utils/coding.py:28)."""
+    lengths = [len(s) for s in list_of_strings]
+    return (struct.pack('B', len(lengths))
+            + struct.pack(f'{len(lengths)}I', *lengths)
+            + b''.join(list_of_strings))
+
+
+def unpack_byte_string(string):
+    """Inverse of pack_byte_strings."""
+    num, = struct.unpack('B', string[:1])
+    lengths = struct.unpack(f'{num}I', string[1:1 + 4 * num])
+    string = string[1 + 4 * num:]
+    if sum(lengths) != len(string):
+        raise ValueError(f'{sum(lengths)=} != {len(string)=}')
+    edges = np.cumsum((0,) + lengths)
+    return [string[edges[i]:edges[i + 1]] for i in range(num)]
+
 
 # ---------------------------------------------------------------------------
 # LEB128 varints and escape records (delta-coded positions, zigzag values)

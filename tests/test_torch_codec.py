@@ -173,8 +173,9 @@ def test_overflows_and_refusals(models, image):
     bits[19] |= 0x80                                    # portable marker
     with pytest.raises(ValueError, match=r'stream trunk kind \(portable\)'):
         tm._fused.parse_payload(bytes(bits[10:]))
-    with pytest.raises(NotImplementedError):
-        tm.compress_mode(coder='host')
+    # 'host' and 'device' are coders too; an unknown coder is refused
+    with pytest.raises(ValueError, match='coder'):
+        tm.compress_mode(coder='cpu')
 
 
 # ---- the portable trunk ----------------------------------------------------

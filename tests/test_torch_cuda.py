@@ -15,8 +15,10 @@ upsample_head bitwise against the chains of launches they fold, qarv_tiny,
 qres_tiny and qres_tiny_lossless round trips (legacy and portable) through
 them, the golden portable streams of tests/golden/, and the eval forward
 of the three tiny models (stats, each block's kl, self_evaluate,
-image_self_evaluate) on the card against the CPU, and the eval CLI.
-Skips without a card. On the card (which has no JAX, so the suite's
+image_self_evaluate) on the card against the CPU, the eval CLI, the
+native host coder on the card's machine against its numpy version, the
+device coder's decode against the host coder's, and qres17m's legacy
+batch round trip. Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1147,3 +1149,75 @@ def test_eval_var_rate_on_the_card(card, tmp_path, monkeypatch):
     assert saved.is_file() and len(out['lambdas']) == 2
     assert out['device'].startswith(torch.cuda.get_device_name(0))
     assert all(v > 0 for v in out['results']['bpp'])
+
+
+# ---- the staged coders (coder='host' and 'device') and qres17m -----------
+
+def test_native_coder_equals_numpy_on_the_card_machine(card):
+    """The g++-built host coder (ops/crans.py) on the card's machine: its
+    bytes those of the numpy coder, its N-lane streams those of the numpy
+    interleaved encoder."""
+    from lvae_tpu_torch.ops import crans, rans_interleaved, rans_numpy
+    table = cdf.build_cdf_table(cdf.qres_latent_scale_table())
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 64, 3000).astype(np.int32)
+    vals = np.round(rng.normal(0, table.scale_table[idx])).astype(np.int32)
+    vals[::97] = rng.integers(-(2 ** 30), 2 ** 30, vals[::97].size)
+    data = crans.encode_with_indexes(vals, idx, table)
+    assert data == rans_numpy.encode_with_indexes(vals, idx, table)
+    assert np.array_equal(crans.decode_with_indexes(data, idx, table), vals)
+    got = crans.interleaved_encode(vals, idx, [1000, 0, 2000], table, 128)
+    enc = rans_interleaved.InterleavedEncoder(table, 128)
+    for a, b in ((0, 1000), (1000, 1000), (1000, 3000)):
+        enc.append_block(vals[a:b], idx[a:b])
+    for a, b in zip(got, enc.finish()):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize('name', ['qarv_tiny', 'qres_tiny'])
+def test_device_coder_decode_equals_host_decode_on_card(card, name):
+    """The device coder's decode (kernel #1 once a latent block) equals
+    the host coder's and the legacy fused codec's reconstruction bitwise,
+    with escapes."""
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model(name)
+    with torch.no_grad():
+        for pname, p in model.net.named_parameters():
+            if pname.endswith(('posterior.weight', 'posterior.c4.weight')):
+                p.mul_(300.0)                        # make escapes occur
+    kw = {} if name.startswith('qres') else {'lmb': 1024.0}
+    im = np.random.default_rng(0).uniform(0, 1, (1, 128, 192, 3))
+    model.compress_mode(num_lanes=128, esc_cap=1 << 16)
+    _, legacy = model.compress_check(im, portable=False, **kw)
+    recs = {}
+    for coder in ('host', 'device'):
+        model.compress_mode(coder=coder)
+        obj, recon = model.compress_check(im, **kw)
+        launches = rd.rans_decode_block.launches
+        recs[coder] = model.decompress(obj)
+        assert np.array_equal(recs[coder], recon)
+        assert rd.rans_decode_block.launches - launches == (
+            (3 if name == 'qres_tiny' else 2) if coder == 'device' else 0)
+    assert np.array_equal(recs['host'], legacy)
+    assert np.array_equal(recs['device'], legacy)
+
+
+def test_qres17m_legacy_batch_roundtrip_on_card(card):
+    """qres17m at full width (flax-style random weights, seed 0) on the
+    legacy fused codec: B = 2 exact against encode_check_batch, and each
+    image's single stream exact; the portable trunk refused."""
+    from lvae_tpu_torch.models import common
+    model = lvae_tpu_torch.get_model('qres17m')
+    common.flax_init_(model.net, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match='deconv'):
+        model.compress_mode(portable=True)
+    model.compress_mode(esc_cap=1 << 18)
+    ims = np.random.default_rng(1).uniform(0, 1, (2, 128, 192, 3)).astype(
+        np.float32)
+    objs = model.compress_batch(ims)
+    bodies, recon = model._fused.encode_check_batch(
+        torch.as_tensor(ims, device=card).permute(0, 3, 1, 2).contiguous())
+    assert [o[0] for o in objs] == bodies
+    assert np.array_equal(model.decompress_batch(objs), recon)
+    obj, rec1 = model.compress_check(ims[:1])
+    assert np.array_equal(model.decompress(obj), rec1)

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports, codes (qarv_tiny and qres_tiny) and
-evaluates (a file sweep, the forward-only sweeps) with jax, flax, msgpack
+"""The port stands alone: it imports, codes (qarv_tiny and qres_tiny, on
+the fused, host and device coders) and evaluates (a file sweep, the forward-only sweeps) with jax, flax, msgpack
 and PIL all blocked, and no file of it imports them or the JAX package."""
 import ast
 import os
@@ -45,6 +45,19 @@ assert np.isfinite(stats['loss']) and 'kodak' in paths.known_datasets
 sweep = model.self_evaluate(sys.argv[3], steps=2)
 assert abs(sweep['lambda'][0] - 16) < 1e-9 and len(sweep['bpp']) == 2
 assert datasets.parse_transform_cfg('lmb=64') == {'lmb': 64}
+# the host and device coders (the native coder built by g++) and qres17m
+from lvae_tpu_torch.models import staged
+from lvae_tpu_torch.ops import crans, rans_interleaved, rans_numpy
+im = coding.read_png('images/collie64.png').astype(np.float32)[None] / 255
+for coder in ('host', 'device'):
+    model.compress_mode(coder=coder)
+    s, recon = model.compress_check(im, lmb=512.0)
+    assert np.array_equal(model.decompress(s), recon)
+    qres.compress_mode(coder=coder)
+    obj, recon = qres.compress_check(im)
+    assert np.array_equal(qres.decompress(obj), recon)
+assert crans.LIBRARY.exists()
+assert 'qres17m' in lvae_tpu_torch.registry._all_models
 if not torch.cuda.is_available():
     try:
         lvae_tpu_torch.get_model('qarv_tiny')
