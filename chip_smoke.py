@@ -225,7 +225,25 @@
    round trip exact too); the host, device and legacy fused
    reconstructions bitwise equal; compress_mode(portable=True) and
    compress_file() in fused mode refused (no deconv kernel); bpp, PSNR and
-   bench.py's enc/dec ms.
+   bench.py's enc/dec ms;
+14. with TF32 off (exact_f32), the paths that run no kernel of csrc/
+   (library convolutions and products): rd_model_base at full width
+   (run_rd: seeded random weights; unscaled, the crop's KL must be inf;
+   then its z projections scaled by ZPROJ_SCALE) with the JAX tree's
+   parameter count, its training forward on photo1 at lambda 4, 64 and
+   2048 (ms, peak memory, FlopCounterMode's operations and their bound),
+   card against CPU on the 256x256 crop on CPU-drawn noise (bppix and loss
+   rtol 1e-4, PSNR 1e-3 dB), unconditional samples (finite, in [0, 1],
+   bitwise again), t = 0 card against CPU and study()'s PNGs; the sampling entry points (run_sampling): qarv_base
+   and qres34m (unscaled, a prior sample must hold NaN; then scaled as
+   rd_model_base), the decoder on forward_get_latents' z against the
+   reconstruction (within 1e-5; bitwise expected), t = 0 samples card
+   against CPU (1e-4), qres34m's two-step inpaint on the crop (finite,
+   bitwise again); and the original project's checkpoint format
+   (run_torch_checkpoint): qarv_base's weights written as a .pt under
+   models/port.py's keys, loaded by get_model(pretrained=...), its state
+   dict and photo1's portable stream at lambda 2048 bitwise the
+   msgpack-loaded model's.
 
 Standard output: one JSON object per line (build, card (the card's name,
 power limit, driver version, nvcc's version, torch and its CUDA),
@@ -233,7 +251,8 @@ multi_kernels,
 rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
 nll_zadd, shuffle, codec, trunk, batch, qres,
 qres_trunk, lossless, lossless_trunk, golden, fresh_process, eval,
-host_coder, device_coder, qres17m), the card line of nvidia-smi, the
+host_coder, device_coder, qres17m, rd, sampling, torch_checkpoint), the
+card line of nvidia-smi, the
 kernels line (the rANS kernels' entries with their new_paths: the device
 coder's and qres17m's launches, times and bounds), then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -4348,6 +4367,372 @@ def run_qres17m(torch, tmpdir):
     return result
 
 
+# ---- the RD model, sampling and the original project's checkpoints -------
+# (no kernel of csrc/ runs on these paths: library convolutions and
+# products under exact float32)
+
+RD_SEED = 20
+# the RD models' parameter counts, the JAX trees' (tests/test_torch_rd_zoo.py)
+RD_PARAMS = {'rd_model_base': 186670384,
+             'rd_ablation_c64_l5_nosmooth': 34178160,
+             'rd_ablation_c64_l5': 34178160,
+             'rd_ablation_c64_l10': 46111344,
+             'rd_ablation_c64_l15': 55792496,
+             'rd_ablation_c96_l15': 111829072,
+             'rd_ablation_c128_l10': 147485616,
+             'rd_ablation_base_nosmooth': 186670384}
+RD_LMBS = (4.0, 64.0, 2048.0)
+RD_REPEATS = 5
+RD_STATS_RTOL, RD_PSNR_DB = 1e-4, 1e-3
+SAMPLE_T0_ATOL = 1e-4          # t = 0 samples, card against the CPU
+COND_ATOL = 1e-5               # the decoder on its own latents vs reconstruct
+SAMPLE_LMB = 2048.0
+SAMPLE_TIMES = (f'CUDA events (host arrays in and out): each call\'s first '
+                f'(first_ms) and the median of {RD_REPEATS} after it (ms)')
+INPAINT_BOX = (0.25, 0.25, 0.75, 0.75)
+# each latent block's z projection (rd: z_proj; QRes: z_proj_1) at this
+# share of its flax-style init: at flax init the decoder's features grow
+# block by block with the z fed back, until rd_model_base's prior scales
+# underflow (its KL inf in float32) and qres34m's prior samples overflow
+# (inf, then NaN): random weights, not trained ones, which keep them in
+# range. The JAX package does the same at the models' depth
+# (tests/test_torch_init_overflow*.py); run_rd and run_sampling require
+# the unscaled models to overflow on the card too
+ZPROJ_SCALE = 0.1
+
+
+def warm_timed(torch, fn, repeats=RD_REPEATS):
+    """(fn(), its first call's ms, the median of `repeats` calls after it):
+    CUDA events; the first call also pays the libraries' first use of its
+    shapes."""
+    out, first = timed(torch, fn)
+    return out, first, cuda_ms(torch, fn, repeats)
+
+
+def forward_ms(torch, fn, repeats=RD_REPEATS):
+    """fn() once to warm up, then the median of `repeats` CUDA-event
+    timings (ms), the peak of allocated device memory over them and what
+    was allocated before them (the weights and whatever else the process
+    holds): the peak less that is the call's own."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = cuda_ms(torch, fn, repeats)
+    return ms, torch.cuda.max_memory_allocated(), before
+
+
+def cpu_twin(torch, model):
+    """The same handle on the CPU with a copy of the card's weights."""
+    import copy
+    twin = copy.copy(model)
+    twin.device = torch.device('cpu')
+    twin.net = copy.deepcopy(model.net).cpu()
+    return twin
+
+
+def scale_zproj(torch, model, name):
+    """Each latent block's `name` conv weight times ZPROJ_SCALE."""
+    with torch.no_grad():
+        for blk in model.net.dec_blocks:
+            if getattr(blk, 'is_latent_block', False):
+                getattr(blk, name).weight.mul_(ZPROJ_SCALE)
+
+
+def run_rd(torch, tmpdir):
+    """rd_model_base at full width with seeded random weights (flax-style
+    init from torch's generator seeded RD_SEED; no trained RD weights
+    exist), after each of the eight RD models is built on the card with
+    the JAX tree's parameter count: unscaled, its KL on photo1's 256x256
+    crop must overflow (inf); then with the z projections scaled
+    (ZPROJ_SCALE) the training forward on photo1 at three lambdas (ms, peak
+    memory, the operations FlopCounterMode counts and their bound at 67
+    TFLOP/s), card against the same seeded weights built on the CPU on the
+    crop on the same CPU-drawn noise, unconditional samples at (6, 1, 1)
+    and (6, 2, 2) (finite, in [0, 1], bitwise again for the seed), t = 0
+    card against CPU, study()'s two PNGs read back."""
+    import lvae_tpu_torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from lvae_tpu_torch.utils import coding
+    t0 = time.perf_counter()
+    # every registered RD model builds on the card with the JAX tree's
+    # parameter count
+    built = {}
+    for name, n in RD_PARAMS.items():
+        t = time.perf_counter()
+        m = lvae_tpu_torch.get_model(name)
+        built[name] = dict(params=m.num_params(), params_jax=n,
+                           device=str(next(m.net.parameters()).device),
+                           build_s=time.perf_counter() - t)
+        del m
+        require(built[name]['params'] == n and
+                built[name]['device'].startswith('cuda'),
+                f'{name}: {built[name]}')
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    torch.manual_seed(RD_SEED)
+    model = lvae_tpu_torch.get_model('rd_model_base')
+    build_s = time.perf_counter() - t
+    n_params = model.num_params()
+    progress(f'rd_model_base: {n_params} parameters, built in '
+             f'{build_s:.1f} s; the eight RD models: {built}')
+    img = coding.read_png(PHOTO)
+    im = img.astype(np.float32)[None] / 255.0
+    crop = img[:SPREAD_CROP, :SPREAD_CROP].astype(np.float32)[None] / 255.0
+    # unscaled, the seeded init overflows: the crop's KL is inf
+    unscaled = model.forward(crop, lmb=RD_LMBS[1],
+                             generator=torch.Generator().manual_seed(RD_SEED))
+    require(not math.isfinite(unscaled['bppix']),
+            f'rd_model_base unscaled: finite stats {unscaled}')
+    scale_zproj(torch, model, 'z_proj')
+    # no gradients here (FlopCounterMode's module hooks want none)
+    net = model.net.requires_grad_(False)
+    with FlopCounterMode(display=False) as fc:
+        net.forward_end2end(model._checked(im), model._lmbs(64.0, 1))
+    flops = fc.get_total_flops()
+    bound_ms = flops / SCALAR_OPS_PER_S * 1e3
+    forward = []
+    for lmb in RD_LMBS:
+        stats = model.forward(im, lmb=lmb)
+        require(all(math.isfinite(v) for v in stats.values()),
+                f'rd forward at lambda {lmb:g}: {stats}')
+        ms, peak, before = forward_ms(torch,
+                                      lambda: model.forward(im, lmb=lmb))
+        forward.append(dict(lmb=lmb, stats=stats, ms=ms, peak_bytes=peak,
+                            allocated_before_bytes=before,
+                            forward_peak_bytes=peak - before))
+        progress(f'rd forward lambda {lmb:g}: {stats}, {ms:.2f} ms, peak '
+                 f'{peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.2f} '
+                 f'GiB over the {before / 2**30:.2f} held before)')
+    # card against the CPU on the crop, the noise drawn on the CPU; the
+    # CPU model built with device='cpu' from the same seed
+    torch.manual_seed(RD_SEED)
+    cpu = lvae_tpu_torch.get_model('rd_model_base', device='cpu')
+    scale_zproj(torch, cpu, 'z_proj')
+    card_sd = model.net.state_dict()
+    same_init = all(torch.equal(v, card_sd[k].cpu())
+                    for k, v in cpu.net.state_dict().items())
+    require(same_init, 'rd_model_base: the seeded init differs between '
+                       'the card and the CPU')
+    vs_cpu = []
+    for lmb in (RD_LMBS[0], RD_LMBS[-1]):
+        g, c = (m.forward(crop, lmb=lmb,
+                          generator=torch.Generator().manual_seed(RD_SEED))
+                for m in (model, cpu))
+        rel = {k: abs(g[k] / c[k] - 1) for k in ('bppix', 'loss')}
+        gap = abs(g['psnr'] - c['psnr'])
+        vs_cpu.append(dict(lmb=lmb, card=g, cpu=c, rel_gap=rel,
+                           psnr_gap_db=gap))
+        require(max(rel.values()) <= RD_STATS_RTOL and gap <= RD_PSNR_DB,
+                f'rd crop at lambda {lmb:g}: card {g} against CPU {c}')
+    samples = {}
+    for bhw in ((6, 1, 1), (6, 2, 2)):
+        a, first, ms = warm_timed(torch, lambda: model.unconditional_sample(
+            SAMPLE_LMB, bhw, seed=1))
+        b = model.unconditional_sample(SAMPLE_LMB, bhw, seed=1)
+        ok = bool(np.isfinite(a).all() and a.min() >= 0 and a.max() <= 1)
+        same = bool(np.array_equal(a, b))
+        samples[str(bhw)] = dict(shape=list(a.shape), finite_in_range=ok,
+                                 repeats_bitwise=same, ms=ms, first_ms=first)
+        require(ok and same and a.shape == (6, 64 * bhw[1], 64 * bhw[2], 3),
+                f'rd unconditional_sample {bhw}: {samples[str(bhw)]}')
+    a = model.unconditional_sample(SAMPLE_LMB, (6, 1, 1), t=0.0)
+    b = cpu.unconditional_sample(SAMPLE_LMB, (6, 1, 1), t=0.0)
+    t0_err = float(np.abs(a - b).max())
+    require(t0_err <= SAMPLE_T0_ATOL, f'rd t = 0 sample: card against CPU '
+                                      f'{t0_err}')
+    study = os.path.join(tmpdir, 'rd_study')
+    model.study(study)
+    pngs = {}
+    for k, hw in ((1, 64), (2, 128)):
+        path = os.path.join(study, f'samples_k{k}_hw{hw}.png')
+        pngs[os.path.basename(path)] = list(coding.read_png(path).shape)
+        require(pngs[os.path.basename(path)] == [hw, 6 * hw, 3],
+                f'rd study: {path} reads back as {pngs}')
+    del cpu, model, net
+    torch.cuda.empty_cache()
+    out = dict(model='rd_model_base', params=n_params,
+               params_jax=RD_PARAMS['rd_model_base'], build_s=build_s,
+               registered=built, cpu_init_bitwise=same_init,
+               weights=f'random, flax-style init, torch seed {RD_SEED}, '
+                       f'z_proj x{ZPROJ_SCALE:g}',
+               unscaled_crop_stats={k: repr(v) for k, v in unscaled.items()},
+               image=os.path.relpath(PHOTO, ROOT), forward=forward,
+               forward_times=f'RDModel.forward (host image to stats), CUDA '
+                             f'events, median of {RD_REPEATS} after a warm-up',
+               flops=flops, bound_ms=bound_ms, bound_by='operations',
+               bound_derivation='FlopCounterMode operations (convolutions '
+                                'and products, 2 a multiply-add) / 67 '
+                                'TFLOP/s float32',
+               card_vs_cpu=dict(crop=f'{SPREAD_CROP}x{SPREAD_CROP}',
+                                results=vs_cpu,
+                                bounds=f'bppix and loss rtol '
+                                       f'{RD_STATS_RTOL:g}, PSNR '
+                                       f'{RD_PSNR_DB:g} dB'),
+               samples=samples, sample_times=SAMPLE_TIMES,
+               t0_card_vs_cpu_max_abs=t0_err,
+               study_pngs=pngs, seconds=time.perf_counter() - t0)
+    progress(f'rd phase: {out["seconds"]:.1f} s')
+    return out
+
+
+def run_sampling(torch, model, tmpdir):
+    """The sampling entry points: qarv_base (the committed weights) and
+    qres34m (build_qres34m's seeded weights; unscaled, a (2, 2, 2) prior
+    sample must overflow to NaN; then the z projections scaled:
+    ZPROJ_SCALE) on photo1: the decoder on forward_get_latents' z against
+    the eval reconstruction, t = 0 samples card against CPU, and qres34m's
+    two-step inpaint on the 256x256 crop (finite, bitwise again for the
+    seed). Each call timed as SAMPLE_TIMES says."""
+    import lvae_tpu_torch
+    from lvae_tpu_torch.utils import coding
+    t0 = time.perf_counter()
+    img = coding.read_png(PHOTO)
+    im = img.astype(np.float32)[None] / 255.0
+    out = {}
+    # qarv_base
+    lat, lat_first, lat_ms = warm_timed(
+        torch, lambda: model.forward_get_latents(im, SAMPLE_LMB))
+    z = [st['z'] for st in lat]
+    cond, cond_first, cond_ms = warm_timed(
+        torch, lambda: model.conditional_sample(SAMPLE_LMB, z))
+    rec, rec_first, rec_ms = warm_timed(
+        torch, lambda: model.reconstruct(im, SAMPLE_LMB))
+    cond_err = float(np.abs(cond - rec).max())
+    uncond, uncond_first, uncond_ms = warm_timed(
+        torch, lambda: model.unconditional_sample(SAMPLE_LMB, (2, 1, 1),
+                                                  t=0.0))
+    cpu = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT,
+                                   device='cpu')
+    t0_err = float(np.abs(uncond - cpu.unconditional_sample(
+        SAMPLE_LMB, (2, 1, 1), t=0.0)).max())
+    del cpu
+    out['qarv_base'] = dict(
+        lmb=SAMPLE_LMB, latents=len(z), cond_vs_reconstruct_max_abs=cond_err,
+        cond_bitwise=bool(np.array_equal(cond, rec)),
+        t0_card_vs_cpu_max_abs=t0_err, forward_get_latents_ms=lat_ms,
+        conditional_sample_ms=cond_ms, reconstruct_ms=rec_ms,
+        unconditional_sample_2x1x1_ms=uncond_ms,
+        first_ms=dict(forward_get_latents=lat_first,
+                      conditional_sample=cond_first,
+                      reconstruct=rec_first,
+                      unconditional_sample_2x1x1=uncond_first))
+    require(cond_err <= COND_ATOL, f'qarv_base: conditional_sample on its '
+                                   f'latents is {cond_err} from reconstruct')
+    require(t0_err <= SAMPLE_T0_ATOL, f'qarv_base t = 0: card against CPU '
+                                      f'{t0_err}')
+    # qres34m: unscaled, the seeded init overflows: a prior sample on a
+    # (2, 2, 2) grid (CPU-drawn noise) holds NaN
+    qm = build_qres34m(torch)
+    unscaled = qm.uncond_sample((2, 2, 2), temprature=1.0,
+                                generator=torch.Generator().manual_seed(0))
+    unscaled_nan = int(np.isnan(unscaled).sum())
+    require(unscaled_nan > 0, 'qres34m unscaled: the (2, 2, 2) prior sample '
+                              'is finite')
+    scale_zproj(torch, qm, 'z_proj_1')
+    lat, lat_first, lat_ms = warm_timed(torch,
+                                        lambda: qm.forward_get_latents(im))
+    z = [st['z'] for st in lat]
+    cond, cond_first, cond_ms = warm_timed(torch, lambda: qm.cond_sample(z))
+    rec, rec_first, rec_ms = warm_timed(torch, lambda: qm.reconstruct(im))
+    cond_err = float(np.abs(cond - rec).max())
+    uncond, uncond_first, uncond_ms = warm_timed(torch, lambda: (
+        qm.uncond_sample((2, 1, 1), temprature=0.0)))
+    cpu = cpu_twin(torch, qm)
+    t0_err = float(np.abs(uncond - cpu.uncond_sample(
+        (2, 1, 1), temprature=0.0)).max())
+    del cpu
+    crop = img[:SPREAD_CROP, :SPREAD_CROP].astype(np.float32)[None] / 255.0
+    a, inpaint_first, inpaint_ms = warm_timed(
+        torch, lambda: qm.inpaint(crop, INPAINT_BOX, steps=2, seed=3))
+    b = qm.inpaint(crop, INPAINT_BOX, steps=2, seed=3)
+    ok = bool(np.isfinite(a).all() and a.shape == crop.shape)
+    same = bool(np.array_equal(a, b))
+    out['qres34m'] = dict(
+        weights=f'random, flax-style init, seed {QRES_SEED}, prior.c4 '
+                f'redrawn (build_qres34m), z_proj_1 x{ZPROJ_SCALE:g}',
+        unscaled_2x2x2_sample_nan=unscaled_nan,
+        unscaled_2x2x2_sample_values=int(unscaled.size),
+        latents=len(z),
+        cond_vs_reconstruct_max_abs=cond_err,
+        cond_bitwise=bool(np.array_equal(cond, rec)),
+        t0_card_vs_cpu_max_abs=t0_err, inpaint_finite=ok,
+        inpaint_repeats_bitwise=same, forward_get_latents_ms=lat_ms,
+        cond_sample_ms=cond_ms, reconstruct_ms=rec_ms,
+        uncond_sample_2x1x1_ms=uncond_ms, inpaint_two_steps_ms=inpaint_ms,
+        first_ms=dict(forward_get_latents=lat_first, cond_sample=cond_first,
+                      reconstruct=rec_first, uncond_sample_2x1x1=uncond_first,
+                      inpaint_two_steps=inpaint_first),
+        inpaint=f'{SPREAD_CROP}x{SPREAD_CROP} crop of photo1, box '
+                f'{INPAINT_BOX}, steps 2')
+    del qm
+    torch.cuda.empty_cache()
+    require(cond_err <= COND_ATOL, f'qres34m: cond_sample on its latents is '
+                                   f'{cond_err} from reconstruct')
+    require(t0_err <= SAMPLE_T0_ATOL, f'qres34m t = 0: card against CPU '
+                                      f'{t0_err}')
+    require(ok and same, f'qres34m inpaint: finite {ok}, repeats {same}')
+    out['image'] = os.path.relpath(PHOTO, ROOT)
+    out['times'] = SAMPLE_TIMES
+    out['seconds'] = time.perf_counter() - t0
+    progress(f'sampling phase: {out["seconds"]:.1f} s: {out}')
+    return out
+
+
+def original_checkpoint(model):
+    """The model's weights as an original-project state dict: each tensor
+    under its original key (models/port.py's key map), the layer scales in
+    the original's (1, C, 1, 1) shape."""
+    from lvae_tpu_torch.models import port
+    ours = model.net.state_dict()
+    sd = {}
+    for key, tk, fn in port.build_key_map(model):
+        t = ours[key].detach().cpu().clone()
+        sd[tk] = t.reshape(1, -1, 1, 1) if fn is port.t_flat else t
+    return sd
+
+
+def run_torch_checkpoint(torch, model, tmpdir):
+    """qarv_base's committed weights written as an original-project .pt
+    ({'model': state dict} beside a dummy optimizer state) and loaded
+    through get_model(pretrained='*.pt'): the state dict bitwise the
+    msgpack-loaded one, and photo1's portable stream at lambda 2048
+    byte-identical between the two."""
+    import lvae_tpu_torch
+    from lvae_tpu_torch.utils import coding
+    t0 = time.perf_counter()
+    path = os.path.join(tmpdir, 'qarv_base_original.pt')
+    torch.save({'model': original_checkpoint(model),
+                'optimizer': {'state': {}, 'param_groups': [{'lr': 2e-4}]},
+                'iteration': 0}, path)
+    size = os.path.getsize(path)
+    t = time.perf_counter()
+    loaded = lvae_tpu_torch.get_model('qarv_base', pretrained=path)
+    load_s = time.perf_counter() - t
+    a, b = model.net.state_dict(), loaded.net.state_dict()
+    same_sd = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    im = coding.read_png(PHOTO).astype(np.float32)[None] / 255.0
+    streams = []
+    for m in (model, loaded):
+        m.compress_mode(num_lanes='auto', portable=True)
+        streams.append(m.compress(im, lmb=SAMPLE_LMB))
+    same_bytes = streams[0] == streams[1]
+    del loaded
+    torch.cuda.empty_cache()
+    out = dict(model='qarv_base', weights=os.path.relpath(CHECKPOINT, ROOT),
+               pt_bytes=size, tensors=len(a), load_s=load_s,
+               state_dict_bitwise=bool(same_sd),
+               portable_stream_bytes=len(streams[0]),
+               stream_byte_identical=bool(same_bytes), lmb=SAMPLE_LMB,
+               seconds=time.perf_counter() - t0)
+    progress(f'torch_checkpoint: {out}')
+    require(same_sd, 'the .pt-loaded state dict differs from the msgpack '
+                     'one')
+    require(same_bytes, 'the .pt-loaded model codes other bytes')
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4355,6 +4740,7 @@ def main():
               file=sys.stderr)
         return 1
     import lvae_tpu_torch
+    from lvae_tpu_torch.models.base import exact_f32
     from lvae_tpu_torch.models.qarv.model import QarvModel
     from lvae_tpu_torch.ops import build, cdf
     from lvae_tpu_torch.utils import coding
@@ -4489,6 +4875,11 @@ def main():
         emit({'device_coder': device_coder})
         qres17m = run_qres17m(torch, tmpdir)
         emit({'qres17m': qres17m})
+        with exact_f32():
+            emit({'rd': run_rd(torch, tmpdir)})
+            emit({'sampling': run_sampling(torch, model, tmpdir)})
+            emit({'torch_checkpoint': run_torch_checkpoint(torch, model,
+                                                           tmpdir)})
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),

@@ -11,6 +11,8 @@ from lvae_tpu_torch.registry import get_model, register_model
 # import the zoos so that their @register_model decorators run
 import lvae_tpu_torch.models.qarv.zoo  # noqa: F401,E402
 import lvae_tpu_torch.models.qresvae.zoo  # noqa: F401,E402
+import lvae_tpu_torch.models.rd.zoo  # noqa: F401,E402
+import lvae_tpu_torch.models.rd.zoo_ablation  # noqa: F401,E402
 import lvae_tpu_torch.models.dev_zoo  # noqa: F401,E402
 
 __all__ = ['get_model', 'register_model']

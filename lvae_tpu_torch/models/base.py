@@ -5,11 +5,13 @@ of a model family (models/fused_base.py)."""
 import contextlib
 import math
 import struct
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from lvae_tpu_torch.models.weights import params_from_flax, read_flax_msgpack
+from lvae_tpu_torch.utils import coding
 
 
 def resolve_device(device=None):
@@ -70,6 +72,33 @@ def host_image(img):
     return a.astype(np.float32)
 
 
+def nhwc_numpy(x):
+    """(B, C, H, W) tensor -> float32 NHWC numpy on the host."""
+    return x.permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def latents_to_device(latents, device):
+    """NHWC numpy latents (None entries kept) -> NCHW float32 tensors."""
+    return [None if z is None else
+            torch.as_tensor(np.asarray(z, np.float32)).permute(
+                0, 3, 1, 2).contiguous().to(device) for z in latents]
+
+
+def save_sample_grids(model, save_dir):
+    """study()'s sample grids: for k = 1, 2 six unconditional samples at
+    the default lambda and a (6, k, k) latent grid, side by side, as
+    samples_k<k>_hw<H>.png."""
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    for k in (1, 2):
+        ims = model.unconditional_sample(model.default_lmb,
+                                         bhw_repeat=(6, k, k))
+        grid = np.concatenate(list(ims), axis=1)
+        coding.write_png(save_dir / f'samples_k{k}_hw{ims.shape[1]}.png',
+                         coding.batch_to_image(grid))
+    return save_dir
+
+
 class VAEModelBase:
     """Owns the network, the device it runs on and its fused codecs. A
     family sets `_coder` (models/entropy_coding.DiscretizedGaussian of its
@@ -86,6 +115,19 @@ class VAEModelBase:
     def max_stride(self):
         return self.net.max_stride
 
+    def _lmbs(self, lmb, n):
+        """A scalar or per-image lambdas -> (n,) float32 on the device."""
+        if not torch.is_tensor(lmb) and np.ndim(lmb) == 0:
+            return torch.full((n,), float(lmb), dtype=torch.float32,
+                              device=self.device)
+        return torch.as_tensor(lmb, dtype=torch.float32, device=self.device)
+
+    def _generator(self, seed, generator=None):
+        """`generator`, or a new one on the model's device seeded `seed`."""
+        if generator is not None:
+            return generator
+        return torch.Generator(self.device).manual_seed(seed)
+
     def num_params(self):
         return sum(p.numel() for p in self.net.parameters())
 
@@ -94,6 +136,17 @@ class VAEModelBase:
         float16 or float32; the port computes in float32)."""
         sd = params_from_flax(read_flax_msgpack(path), self.net)
         self.net.load_state_dict(sd, strict=True)
+
+    def load_pretrained(self, path):
+        """Load weights by the file's suffix: a .pt / .pth checkpoint of the
+        original PyTorch project (models/port.py), else a flax msgpack file
+        of the JAX package (load_weights)."""
+        if str(path).endswith(('.pt', '.pth')):
+            from lvae_tpu_torch.models import port
+            self.net.load_state_dict(port.load_torch_checkpoint(self, path),
+                                     strict=True)
+        else:
+            self.load_weights(path)
 
     # ---- the fused codecs ------------------------------------------------
 

@@ -84,11 +84,28 @@ def discrete_likelihood(x, scales, means, scale_bound,
     return torch.clamp(upper - lower, min=likelihood_bound)
 
 
+def _draw_device(like, generator):
+    """Where a draw happens: on the generator's device when one is given
+    (a CPU generator gives the same numbers to a CPU and a card run), else
+    on `like`'s."""
+    return like.device if generator is None else generator.device
+
+
 def uniform_noise(like, generator=None):
-    """U(-0.5, 0.5) noise of `like`'s shape, dtype and device: the training
-    branch's stand-in for rounding. `generator` must live on that device."""
-    return torch.rand(like.shape, generator=generator, dtype=like.dtype,
-                      device=like.device) - 0.5
+    """U(-0.5, 0.5) noise of `like`'s shape and dtype on `like`'s device:
+    the training branch's stand-in for rounding, and the sampling blocks'
+    dequantization noise. Drawn on `generator`'s device (_draw_device)."""
+    u = torch.rand(like.shape, generator=generator, dtype=like.dtype,
+                   device=_draw_device(like, generator))
+    return u.to(like.device) - 0.5
+
+
+def normal_noise(like, generator=None):
+    """Standard normal noise of `like`'s shape and dtype on `like`'s device:
+    the RD model's reparameterised latents and the sampling blocks' prior
+    draws. Drawn on `generator`'s device (_draw_device)."""
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=_draw_device(like, generator)).to(like.device)
 
 
 def build_indexes(scales, scale_table):

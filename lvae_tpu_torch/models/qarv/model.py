@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from lvae_tpu_torch.models import common, staged
+from lvae_tpu_torch.models import base, common, staged
 from lvae_tpu_torch.models import entropy_coding as ec
 from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
                                          host_stats)
@@ -27,6 +27,8 @@ from lvae_tpu_torch.utils import coding
 
 MAX_LMB = 8192.0
 log2_e = math.log2(math.e)
+# study()'s logging images: the checkout's images/
+IMAGES = Path(__file__).resolve().parents[3] / 'images'
 
 
 class VRLVBlockBase(nn.Module):
@@ -64,11 +66,13 @@ class VRLVBlockBase(nn.Module):
 
     def prior_stage(self, feature, emb):
         """p(z_i | z_<i) -> (feature_mid, pm, pv, coding indexes int32)."""
+        feature, pm, pv = self._prior(feature, emb)
+        return feature, pm, pv, ec.build_indexes(pv, self.scale_table)
+
+    def _prior(self, feature, emb):
         feature = self.resnet_front(feature, emb)
         pm, plogv = self.prior(feature).float().chunk(2, dim=1)
-        pv = torch.exp(common.softplus(plogv + 2.3) - 2.3)
-        indexes = ec.build_indexes(pv, self.scale_table)
-        return feature, pm, pv, indexes
+        return feature, pm, torch.exp(common.softplus(plogv + 2.3) - 2.3)
 
     def posterior_qm(self, feature, enc_feature, emb):
         enc_feature = self.posterior0(enc_feature, emb)
@@ -80,7 +84,8 @@ class VRLVBlockBase(nn.Module):
         return self._fuse(feature, symbols.float() + pm.float(), emb)
 
     def _fuse(self, feature, z, emb):
-        return self.resnet_end(feature + self.z_proj(z), emb)
+        # one layout of z whatever made it (qresvae/model.py:_fuse)
+        return self.resnet_end(feature + self.z_proj(z.contiguous()), emb)
 
     def forward_train(self, feature, enc_feature, emb, training=False,
                       get_latent=False, generator=None):
@@ -101,6 +106,19 @@ class VRLVBlockBase(nn.Module):
         if get_latent:
             stats['z'] = z.detach()
         return self._fuse(feature, z, emb), stats
+
+    def forward_uncond(self, feature, emb, t=1.0, latent=None,
+                       generator=None):
+        """Sampling: z = pm + pv * eps * t + u * t (eps normal, u uniform in
+        [-0.5, 0.5), drawn in that order from `generator`), or `latent`."""
+        feature, pm, pv = self._prior(feature, emb)
+        if latent is None:
+            eps = ec.normal_noise(pm, generator)
+            u = ec.uniform_noise(pm, generator)
+            z = pm + pv * eps * t + u * t
+        else:
+            z = latent
+        return self._fuse(feature, z, emb)
 
 
 class VRLVBlockSmall(VRLVBlockBase):
@@ -184,6 +202,25 @@ class VariableRateLossyVAENet(nn.Module):
                 feature = block(feature)
         return feature, block_stats
 
+    def forward_sampling(self, lmb, latents, bhw_repeat, t=1.0,
+                         generator=None):
+        """The decoder on given latents (NCHW; None entries sample from the
+        prior at temperature t) from a (nB, nH, nW) seed."""
+        emb = self.get_lmb_embedding(lmb)
+        nB, nH, nW = bhw_repeat
+        feature = self.seed_feature(nB, nH, nW)
+        idx = 0
+        for block in self.dec_blocks:
+            if getattr(block, 'is_latent_block', False):
+                feature = block.forward_uncond(feature, emb, t, latents[idx],
+                                               generator)
+                idx += 1
+            elif getattr(block, 'requires_embedding', False):
+                feature = block(feature, emb)
+            elif not isinstance(block, common.CompressionStopFlag):
+                feature = block(feature)
+        return feature
+
 
 class QarvModel(VAEModelBase):
     """User-facing QARV handle: single-image and batch compression through
@@ -191,22 +228,18 @@ class QarvModel(VAEModelBase):
 
     codec_classes = (fused.FusedQarvCodec, fused.PortableQarvCodec)
 
-    def __init__(self, net, device=None):
+    def __init__(self, net, device=None, log_images=()):
         super().__init__(net, device)
         self.lmb_range = tuple(float(v) for v in net.lmb_range)
         self.default_lmb = self.lmb_range[1]
+        self._logging_images = list(log_images)
+        self.num_latents = sum(1 for b in net.dec_blocks
+                               if getattr(b, 'is_latent_block', False))
         self._coder = ec.DiscretizedGaussian()
         self.compressing = False
 
     # ---- the training/eval forward (lvae_tpu/models/qarv/model.py:
     # 383-491) -----------------------------------------------------------
-
-    def _lmbs(self, lmb, n):
-        """A scalar or per-image lambdas -> (n,) float32 on the device."""
-        if not torch.is_tensor(lmb) and np.ndim(lmb) == 0:
-            return torch.full((n,), float(lmb), dtype=torch.float32,
-                              device=self.device)
-        return torch.as_tensor(lmb, dtype=torch.float32, device=self.device)
 
     def sample_lmb(self, n, generator=None):
         """Per-image lambda, uniform in cube-root space."""
@@ -259,6 +292,60 @@ class QarvModel(VAEModelBase):
                                                 self._lmbs(lmb, im.shape[0]))
             rec = torch.clamp(x_hat, -1, 1) * 0.5 + 0.5
         return rec.permute(0, 2, 3, 1).cpu().numpy()
+
+    # ---- sampling (lvae_tpu/models/qarv/model.py:493-548) ---------------
+
+    def conditional_sample(self, lmb, latents, bhw_repeat=None, t=1.0,
+                           seed=0, generator=None):
+        """The decoder on `latents` (NHWC arrays, one a latent block, as
+        forward_get_latents gives them; None entries sampled at temperature
+        t, on a (nB, nH, nW) bhw_repeat grid when the first is None) ->
+        NHWC float32 numpy in [0, 1]. The noise comes from a generator on
+        the device seeded `seed`, or from `generator`."""
+        if latents[0] is None:
+            assert bhw_repeat is not None
+            nB, nH, nW = bhw_repeat
+        else:
+            assert len(latents) == self.num_latents
+            nB, nH, nW = np.shape(latents[0])[:3]
+        latents = base.latents_to_device(latents, self.device)
+        with torch.no_grad(), exact_f32():
+            x = self.net.forward_sampling(self._lmbs(lmb, nB), latents,
+                                          (nB, nH, nW), t,
+                                          self._generator(seed, generator))
+            return base.nhwc_numpy(torch.clamp(x, -1, 1) * 0.5 + 0.5)
+
+    def unconditional_sample(self, lmb, bhw_repeat, t=1.0, seed=0,
+                             generator=None):
+        return self.conditional_sample(lmb, [None] * self.num_latents,
+                                       bhw_repeat=bhw_repeat, t=t, seed=seed,
+                                       generator=generator)
+
+    def forward_get_latents(self, im, lmb=None):
+        """Each latent block's eval-forward {'kl', 'z'} (NHWC float32
+        numpy): z is what conditional_sample takes."""
+        im = self._checked(im)
+        lmb = self._lmbs(self.default_lmb if lmb is None else lmb,
+                         im.shape[0])
+        with torch.no_grad(), exact_f32():
+            _, stats_all = self.net.forward_end2end(im, lmb, False, True)
+            return [{k: base.nhwc_numpy(v) for k, v in st.items()}
+                    for st in stats_all]
+
+    def study(self, save_dir, **kwargs):
+        """Write the unconditional sample grids (models/base.py:
+        save_sample_grids) and, for each logging image found in the
+        checkout's images/, the image beside its reconstruction at the
+        default lambda."""
+        save_dir = base.save_sample_grids(self, save_dir)
+        for imname in self._logging_images:
+            impath = IMAGES / imname
+            if not impath.is_file():
+                continue
+            im = coding.read_png(impath).astype(np.float32)[None] / 255.0
+            rec = self.reconstruct(im, self.default_lmb)
+            coding.write_png(save_dir / imname, coding.batch_to_image(
+                np.concatenate([im[0], rec[0]], axis=1)))
 
     # ---- forward-only lambda sweep (lvae_tpu/models/qarv/model.py:550-679)
 

@@ -8,8 +8,9 @@ from lvae_tpu_torch.models.qarv.model import (
 @register_model
 def qarv_base(lmb_range=(16, 2048), pretrained=False, device=None):
     """Continuously variable-rate codec with 9 latent blocks. pretrained:
-    False (random init) or the path of a flax msgpack weight file of the
-    JAX package."""
+    False (random init), the path of a flax msgpack weight file of the JAX
+    package, or of a .pt / .pth checkpoint of the original PyTorch
+    project."""
     # ImageNet pixel stats
     im_shift = -0.4546259594901961
     im_scale = 3.67572653978347
@@ -90,7 +91,12 @@ def qarv_base(lmb_range=(16, 2048), pretrained=False, device=None):
         enc_blocks, dec_blocks, im_shift=im_shift, im_scale=im_scale,
         max_stride=64, lmb_range=(float(lmb_range[0]), float(lmb_range[1])),
         lmb_embed_dim=lmb_embed_dim, sin_period=64)
-    model = QarvModel(net, device=device)
+    model = QarvModel(net, device=device,
+                      log_images=['collie64.png', 'gun128.png',
+                                  'motor256.png'])
+    if pretrained is True:
+        raise RuntimeError('nothing can be downloaded; pass '
+                           'pretrained=<local path>')
     if pretrained:
-        model.load_weights(pretrained)
+        model.load_pretrained(pretrained)
     return model

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from lvae_tpu_torch.models import common, staged
+from lvae_tpu_torch.models import base, common, staged
 from lvae_tpu_torch.models import entropy_coding as ec
 from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
                                          host_stats)
@@ -48,6 +48,12 @@ class MSEOutputNet(nn.Module):
         """-> (lambda * per-image MSE, x_hat)."""
         mse = torch.square(x_hat - x_tgt).mean(dim=(1, 2, 3))
         return mse * self.mse_lmb, x_hat
+
+    def mean(self, x_hat, temprature=None):
+        return x_hat
+
+    def sample(self, x_hat, generator=None, temprature=None):
+        return x_hat
 
 
 class GaussianNLLOutputNet(nn.Module):
@@ -79,6 +85,18 @@ class GaussianNLLOutputNet(nn.Module):
         log_prob = ec.gaussian_log_prob_mass(
             p_mean, torch.exp(p_logscale), x_tgt, bin_size=self.bin_size)
         return -log_prob.mean(dim=(1, 2, 3)), p_mean
+
+    def mean(self, feature, temprature=None):
+        return self._params(feature)[0]
+
+    def sample(self, feature, generator=None, temprature=None):
+        """Pixels drawn from each pixel's Gaussian (its scale times
+        temprature when given), the noise from `generator`."""
+        p_mean, p_logscale = self._params(feature)
+        p_scale = torch.exp(p_logscale)
+        if temprature is not None:
+            p_scale = p_scale * temprature
+        return p_mean + p_scale * ec.normal_noise(p_mean, generator)
 
     def codec_tensors(self, feature):
         """The legacy trunk's head: NCHW feature -> (pm, plogv) in bin units,
@@ -124,11 +142,13 @@ class QLatentBlock(nn.Module):
 
     def prior_stage(self, feature):
         """p(z_i | z_<i) -> (feature_mid, pm, pv, coding indexes int32)."""
+        feature, pm, pv = self._prior(feature)
+        return feature, pm, pv, ec.build_indexes(pv, self.scale_table)
+
+    def _prior(self, feature):
         feature = self.resnet_front(feature)
         pm, plogv = self.prior(feature).float().chunk(2, dim=1)
-        pv = torch.exp(common.softplus(plogv + 2.3) - 2.3)
-        indexes = ec.build_indexes(pv, self.scale_table)
-        return feature, pm, pv, indexes
+        return feature, pm, torch.exp(common.softplus(plogv + 2.3) - 2.3)
 
     def posterior_qm(self, feature, enc_feature):
         return self.posterior(torch.cat([feature, enc_feature], dim=1))
@@ -137,7 +157,10 @@ class QLatentBlock(nn.Module):
         return self._fuse(feature, symbols.float() + pm.float())
 
     def _fuse(self, feature, z):
-        z = self.z_proj_1(common.gelu(self.z_proj_0(z)))
+        # z in one layout whatever made it (a posterior conv's output is
+        # channels-last on the CPU, a latent given to cond_sample is not),
+        # so that the z projection's sums do not depend on its source
+        z = self.z_proj_1(common.gelu(self.z_proj_0(z.contiguous())))
         return self.resnet_end(feature + z)
 
     def forward_train(self, feature, enc_feature, training=False,
@@ -157,6 +180,24 @@ class QLatentBlock(nn.Module):
         if get_latents:
             stats['z'] = z.detach()
         return self._fuse(feature, z), stats
+
+    def forward_uncond(self, feature, t=1.0, latent=None, paint_mask=None,
+                       generator=None):
+        """Sampling: z = pm + pv * t * eps + u * t (eps normal, u uniform in
+        [-0.5, 0.5), drawn in that order from `generator`), or `latent`;
+        with a paint_mask (1 where a fresh sample replaces the latent)
+        latent * (1 - mask) + sample * mask."""
+        feature, pm, pv = self._prior(feature)
+        pv = pv * t
+        if latent is None or paint_mask is not None:
+            eps = ec.normal_noise(pm, generator)
+            u = ec.uniform_noise(pm, generator)
+            z = pm + pv * eps + u * t
+            if latent is not None:
+                z = latent * (1.0 - paint_mask) + z * paint_mask
+        else:
+            z = latent
+        return self._fuse(feature, z)
 
 
 class HierarchicalVAENet(nn.Module):
@@ -209,6 +250,39 @@ class HierarchicalVAENet(nn.Module):
                                                     (im - 0.5) * 2.0)
         return out_loss, x_hat, stats_all
 
+    def forward_uncond(self, nhw_repeat=(1, 1, 1), t=1.0, generator=None):
+        """The decoder with every latent sampled at temperature t."""
+        return self.forward_with_latents(None, nhw_repeat, t,
+                                         generator=generator)
+
+    def forward_with_latents(self, latents, nhw_repeat=None, t=1.0,
+                             paint_masks=None, generator=None):
+        """The decoder on given latents (NCHW; None: all sampled), each
+        block's paint mask applied where given; the seed grid is
+        nhw_repeat, or the first latent's."""
+        if nhw_repeat is None:
+            nB, _, nH, nW = latents[0].shape
+        else:
+            nB, nH, nW = nhw_repeat
+        feature = self.seed_feature(nB, nH, nW)
+        idx = 0
+        for block in self.dec_blocks:
+            if getattr(block, 'is_latent_block', False):
+                feature = block.forward_uncond(
+                    feature, t, None if latents is None else latents[idx],
+                    None if paint_masks is None else paint_masks[idx],
+                    generator)
+                idx += 1
+            else:
+                feature = block(feature)
+        return feature
+
+    def sample_output(self, feature, generator=None, temprature=None):
+        return self.out_net.sample(feature, generator, temprature)
+
+    def out_mean(self, feature):
+        return self.out_net.mean(feature)
+
 
 class _Container(pickle.Unpickler):
     """Reads the pickled container of compress_file: lists, tuples, bytes
@@ -234,6 +308,8 @@ class QresModel(VAEModelBase):
             cdf_ops.qres_latent_scale_table())
         self._head_coder = (ec.DiscretizedGaussian(
             cdf_ops.lossless_head_scale_table()) if self.lossless else None)
+        self.num_latents = sum(1 for b in net.dec_blocks
+                               if getattr(b, 'is_latent_block', False))
         self.compressing = False
 
     # ---- the training/eval forward (lvae_tpu/models/qresvae/model.py:
@@ -277,6 +353,79 @@ class QresModel(VAEModelBase):
             _, x_hat, _ = self.net.forward(im)
             rec = torch.clamp(x_hat, -1.0, 1.0) * 0.5 + 0.5
         return rec.permute(0, 2, 3, 1).cpu().numpy()
+
+    # ---- sampling (lvae_tpu/models/qresvae/model.py:473-534) ------------
+
+    def uncond_sample(self, nhw_repeat, temprature=1.0, seed=0,
+                      generator=None):
+        """Images from the prior on a (nB, nH, nW) latent grid at
+        temperature `temprature` -> NHWC float32 numpy in [0, 1]. The noise
+        comes from a generator on the device seeded `seed`, or from
+        `generator`."""
+        return self._sample(None, tuple(nhw_repeat), temprature, None, seed,
+                            generator)
+
+    def cond_sample(self, latents, nhw_repeat=None, temprature=1.0,
+                    paint_masks=None, seed=0, generator=None):
+        """The decoder on `latents` (NHWC arrays, one a latent block, as
+        forward_get_latents gives them), fresh samples where a block's
+        paint mask (NHWC, broadcast to its latent) is 1 -> NHWC float32
+        numpy in [0, 1]. A lossless model draws its pixels from the head."""
+        latents = base.latents_to_device(latents, self.device)
+        if paint_masks is not None:
+            paint_masks = base.latents_to_device(paint_masks, self.device)
+        return self._sample(latents, nhw_repeat, temprature, paint_masks,
+                            seed, generator)
+
+    def _sample(self, latents, nhw_repeat, temprature, paint_masks, seed,
+                generator):
+        generator = self._generator(seed, generator)
+        with torch.no_grad(), exact_f32():
+            feature = self.net.forward_with_latents(
+                latents, nhw_repeat, temprature, paint_masks, generator)
+            x = self.net.sample_output(feature, generator, temprature)
+            return base.nhwc_numpy(torch.clamp(x, -1, 1) * 0.5 + 0.5)
+
+    def forward_get_latents(self, im):
+        """Each latent block's eval-forward {'kl', 'z'} (NHWC float32
+        numpy): z is what cond_sample takes."""
+        return self._latents(self._checked(im))
+
+    def _latents(self, im):
+        with torch.no_grad(), exact_f32():
+            _, _, stats_all = self.net.forward(im, False, True)
+            return [{k: base.nhwc_numpy(v) for k, v in st.items()}
+                    for st in stats_all]
+
+    def inpaint(self, im, paint_box, steps=1, temprature=1.0, seed=0):
+        """Iterative inpainting of the (x1, y1, x2, y2) box (fractions of
+        the image's width and height) of NHWC image(s) in [0, 1]: each step
+        takes the latents of the current image, samples them afresh inside
+        the box (seed + step) and pastes the sample's box into the input.
+        -> the last sample, NHWC float32 numpy."""
+        im = base.nhwc_numpy(self._checked(im))     # checked once, as given
+        _, imH, imW, _ = im.shape
+        x1, y1, x2, y2 = paint_box
+        hs = slice(round(y1 * imH), round(y2 * imH))
+        ws = slice(round(x1 * imW), round(x2 * imW))
+        im_input, im_sample = im.copy(), None
+        for i in range(steps):
+            latents = [st['z'] for st in self._latents(
+                base.to_nchw_batch(im_input, self.device))]
+            masks = []
+            for z in latents:
+                zH, zW = z.shape[1], z.shape[2]
+                m = np.zeros((1, zH, zW, 1), np.float32)
+                if min(zH, zW) > 1:
+                    m[:, round(y1 * zH):round(y2 * zH),
+                      round(x1 * zW):round(x2 * zW)] = 1.0
+                masks.append(m)
+            im_sample = np.clip(self.cond_sample(
+                latents, temprature=temprature, paint_masks=masks,
+                seed=seed + i), 0, 1)
+            im_input = im.copy()
+            im_input[:, hs, ws, :] = im_sample[:, hs, ws, :]
+        return im_sample
 
     # ---- the codec ------------------------------------------------------
 

@@ -21,18 +21,20 @@ def _check_pretrained(pretrained):
     if pretrained is True:
         raise RuntimeError(
             'no QRes-VAE weights are bundled and nothing can be downloaded; '
-            'pass pretrained=<local path> to a flax .msgpack weight file')
+            'pass pretrained=<local path> to a flax .msgpack weight file or '
+            'a .pt / .pth checkpoint of the original PyTorch project')
 
 
 def build(net, pretrained, device):
     """A QresModel of `net`, its weights initialised as the JAX package's
     flax modules initialise theirs (random) or read from a flax msgpack
-    file of the JAX package (`pretrained`: a local path)."""
+    file of the JAX package or a .pt / .pth checkpoint of the original
+    PyTorch project (`pretrained`: a local path)."""
     _check_pretrained(pretrained)
     common.flax_init_(net)
     model = QresModel(net, device=device)
     if pretrained:
-        model.load_weights(pretrained)
+        model.load_pretrained(pretrained)
     return model
 
 

@@ -400,6 +400,39 @@ def read_png(path) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+def batch_to_image(batch) -> np.ndarray:
+    """(1, H, W, 3) or (H, W, 3) float array in [0, 1] -> uint8 (H, W, 3),
+    clip(x * 255 + 0.5) truncated, as the JAX package's batch_to_image
+    rounds before Pillow (lvae_tpu/models/base.py:34-40)."""
+    arr = np.asarray(batch)
+    if arr.ndim == 4:
+        arr = arr[0]
+    return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _png_chunk(kind, body):
+    return (struct.pack('>I', len(body)) + kind + body
+            + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path, arr):
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG, rows unfiltered
+    (zlib and struct only: the card's machine has no image library)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f'write_png takes (H, W, 3) uint8, got '
+                         f'{arr.dtype} {arr.shape}')
+    h, w, _ = arr.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)        # filter byte 0 a row
+    raw[:, 1:] = arr.reshape(h, 3 * w)
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0,
+                                                  0, 0))
+                + _png_chunk(b'IDAT', zlib.compress(raw.tobytes()))
+                + _png_chunk(b'IEND', b''))
+
+
 # ---------------------------------------------------------------------------
 # BD-rate and RD-curve bookkeeping
 # ---------------------------------------------------------------------------

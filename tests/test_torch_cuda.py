@@ -17,8 +17,10 @@ them, the golden portable streams of tests/golden/, and the eval forward
 of the three tiny models (stats, each block's kl, self_evaluate,
 image_self_evaluate) on the card against the CPU, the eval CLI, the
 native host coder on the card's machine against its numpy version, the
-device coder's decode against the host coder's, and qres17m's legacy
-batch round trip. Skips without a card. On the card (which has no JAX, so the suite's
+device coder's decode against the host coder's, qres17m's legacy
+batch round trip, rd_tiny's forward on the card against the CPU on
+CPU-drawn noise, and the decoder on a tiny model's own latents equal to
+its reconstruction. Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1221,3 +1223,49 @@ def test_qres17m_legacy_batch_roundtrip_on_card(card):
     assert np.array_equal(model.decompress_batch(objs), recon)
     obj, rec1 = model.compress_check(ims[:1])
     assert np.array_equal(model.decompress(obj), rec1)
+
+
+def test_rd_forward_on_the_card_equals_the_cpu(card):
+    """rd_tiny's training forward on the card against the same weights on
+    the CPU, on the same noise (drawn on the CPU from one seed and copied to
+    the card: a CUDA generator draws other normals): bppix and loss rtol
+    1e-4, PSNR within 1e-3 dB; t = 0 samples within 1e-4."""
+    torch.manual_seed(0)
+    cpu = lvae_tpu_torch.get_model('rd_tiny', device='cpu')
+    gpu = lvae_tpu_torch.get_model('rd_tiny')
+    gpu.net.load_state_dict(cpu.net.state_dict())
+    im = np.random.default_rng(4).uniform(0, 1, (2, 128, 128, 3)).astype(
+        np.float32)
+    kw = dict(lmb=[4.0, 2048.0])
+    want = cpu.forward(im, generator=torch.Generator().manual_seed(3), **kw)
+    got = gpu.forward(im, generator=torch.Generator().manual_seed(3), **kw)
+    for k in ('bppix', 'loss'):
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), k
+    assert abs(got['psnr'] - want['psnr']) <= 1e-3
+    a = cpu.unconditional_sample(64.0, (2, 1, 1), t=0.0)
+    b = gpu.unconditional_sample(64.0, (2, 1, 1), t=0.0)
+    assert np.abs(a - b).max() <= 1e-4
+
+
+@pytest.mark.parametrize('name', ['qarv_tiny', 'qres_tiny',
+                                  'qres_tiny_lossless'])
+def test_cond_sample_on_own_latents_equals_reconstruct_on_card(card, name):
+    """On the card, the decoder on forward_get_latents' z gives the eval
+    reconstruction bitwise (the lossless head at temperature 0: its
+    means); inpaint repeats bitwise for a seed."""
+    torch.manual_seed(0)
+    m = lvae_tpu_torch.get_model(name)
+    im = np.random.default_rng(5).uniform(0, 1, (1, 128, 128, 3)).astype(
+        np.float32)
+    if name == 'qarv_tiny':
+        z = [st['z'] for st in m.forward_get_latents(im, 512.0)]
+        assert np.array_equal(m.conditional_sample(512.0, z),
+                              m.reconstruct(im, 512.0))
+        return
+    z = [st['z'] for st in m.forward_get_latents(im)]
+    got = m.cond_sample(z, temprature=0.0 if m.lossless else 1.0)
+    assert np.array_equal(got, m.reconstruct(im))
+    box = (0.25, 0.25, 0.75, 0.75)
+    a = m.inpaint(im, box, steps=2, seed=1)
+    assert np.isfinite(a).all()
+    assert np.array_equal(a, m.inpaint(im, box, steps=2, seed=1))

@@ -1,6 +1,8 @@
 """The port stands alone: it imports, codes (qarv_tiny and qres_tiny, on
-the fused, host and device coders) and evaluates (a file sweep, the forward-only sweeps) with jax, flax, msgpack
-and PIL all blocked, and no file of it imports them or the JAX package."""
+the fused, host and device coders), evaluates (a file sweep, the
+forward-only sweeps), runs rd_tiny's forward and samples from each family
+with jax, flax, msgpack and PIL all blocked, and no file of it imports them
+or the JAX package."""
 import ast
 import os
 import shutil
@@ -58,6 +60,17 @@ for coder in ('host', 'device'):
     assert np.array_equal(qres.decompress(obj), recon)
 assert crans.LIBRARY.exists()
 assert 'qres17m' in lvae_tpu_torch.registry._all_models
+# the RD model's forward and one sample of each family
+rd = lvae_tpu_torch.get_model('rd_tiny', device='cpu')
+stats = rd.forward(im, lmb=64.0)
+assert np.isfinite(stats['bppix']) and np.isfinite(stats['psnr'])
+for s in (rd.unconditional_sample(64.0, (1, 1, 1)),
+          model.unconditional_sample(512.0, (1, 1, 1)),
+          qres.uncond_sample((1, 1, 1))):
+    assert s.shape == (1, 64, 64, 3) and np.isfinite(s).all()
+assert 'rd_model_base' in lvae_tpu_torch.registry._all_models
+from lvae_tpu_torch.models import port
+from lvae_tpu_torch.models.rd import evaluate
 if not torch.cuda.is_available():
     try:
         lvae_tpu_torch.get_model('qarv_tiny')
