@@ -243,7 +243,24 @@
    (run_torch_checkpoint): qarv_base's weights written as a .pt under
    models/port.py's keys, loaded by get_model(pretrained=...), its state
    dict and photo1's portable stream at lambda 2048 bitwise the
-   msgpack-loaded model's.
+   msgpack-loaded model's;
+15. the bf16 encoder backbone (run_bf16_codec, before 9, whose fresh
+   process also decodes its two bf16 portable files):
+   compress_mode(compute_dtype='bfloat16') on qarv_base (committed
+   weights, photo1 at lambda 512 and 2048, both trunks) and qres34m (7's
+   weights, photo1, portable): B = 1 and B = 2 round trips bitwise, the
+   encode's kernel launches equal to float32's, bpp and PSNR beside
+   float32's (qarv_base within 2 % and 0.2 dB), enc_ms of both in turns;
+16. training (run_train, last): python -m lvae_tpu_torch.train_var_rate's
+   main() on qarv_base from the committed weights, images/ as training and
+   validation set, crop 256, batch 16, Adam at 2e-4, 6 steps each at
+   float32, --amp, --amp --remat and float32 with --device_data, then a
+   --resume for 2 steps; train_fix_rate on qres34m (7's weights; z
+   projections scaled by ZPROJ_SCALE where the unscaled step-0 loss is
+   not finite), 3 steps: every step's loss and grad norm finite, the step
+   time (host clock, and the step alone by CUDA events), a step's
+   operations (3 forwards by FlopCounterMode, 4 with --remat) and their
+   bound, peak memory, the checkpoint files.
 
 Standard output: one JSON object per line (build, card (the card's name,
 power limit, driver version, nvcc's version, torch and its CUDA),
@@ -251,8 +268,8 @@ multi_kernels,
 rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
 nll_zadd, shuffle, codec, trunk, batch, qres,
 qres_trunk, lossless, lossless_trunk, golden, fresh_process, eval,
-host_coder, device_coder, qres17m, rd, sampling, torch_checkpoint), the
-card line of nvidia-smi, the
+bf16_codec, host_coder, device_coder, qres17m, rd, sampling,
+torch_checkpoint, train), the card line of nvidia-smi, the
 kernels line (the rANS kernels' entries with their new_paths: the device
 coder's and qres17m's launches, times and bounds), then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -4733,6 +4750,307 @@ def run_torch_checkpoint(torch, model, tmpdir):
     return out
 
 
+# ---- the bf16 encoder backbone -------------------------------------------------
+
+BF16 = 'bfloat16'
+BF16_LAMBDAS = (512.0, 2048.0)
+BF16_REPEATS = 3
+
+
+def enc_ms_pair(torch, set_mode, encode):
+    """enc_ms at float32 and at bf16 in one call: a warm-up of each, then
+    BF16_REPEATS CUDA-event timings of each in turns; the medians."""
+    times = {None: [], BF16: []}
+    for cd in times:
+        set_mode(cd)
+        encode()
+    for i in range(BF16_REPEATS):
+        for cd in ((None, BF16) if i % 2 == 0 else (BF16, None)):
+            set_mode(cd)
+            times[cd].append(timed(torch, encode)[1])
+    return {'f32' if cd is None else 'bf16': sorted(t)[len(t) // 2]
+            for cd, t in times.items()}
+
+
+def bf16_case(torch, set_mode, compress_check, decompress, encode,
+              batch_check, im):
+    """One model and trunk at float32 and bf16: the B = 1 round trip, bpp
+    and PSNR of the stream, the kernel launches of one encode, the B = 2
+    round trip (batch_check) and enc_ms of both."""
+    out = {}
+    for cd in (None, BF16):
+        set_mode(cd)
+        stream, recon = compress_check()
+        dec = decompress(stream)
+        size = len(stream) if isinstance(stream, bytes) else len(stream[0])
+        psnr, bpp = psnr_bpp(dec, im, size)
+        _, launches = counted_call(encode)
+        out['f32' if cd is None else 'bf16'] = dict(
+            bpp=bpp, psnr=psnr, bytes=size,
+            bit_exact=bool(np.array_equal(dec, recon)),
+            batch2_bit_exact=batch_check(),
+            encode_launches={k: v for k, v in launches.items() if v})
+    out['same_launches'] = out['f32']['encode_launches'] == \
+        out['bf16']['encode_launches']
+    out['enc_ms'] = enc_ms_pair(torch, set_mode, encode)
+    return out
+
+
+def run_bf16_codec(torch, model, qres_state, tmpdir):
+    """compress_mode(compute_dtype='bfloat16'): the encoder backbone alone
+    in bf16. qarv_base (the committed weights) on photo1 at lambda 512 and
+    2048 on both trunks, and qres34m (run_qres's seeded weights) on photo1
+    on the portable trunk: B = 1 and B = 2 (photo1, photo2) round trips
+    bitwise, bpp and PSNR beside float32's (qarv_base's within BPP_REL_TOL
+    and PSNR_TOL_DB), the encode's kernel launches equal to float32's,
+    enc_ms of both (enc_ms_pair). -> (result, fresh-process cases: a bf16
+    portable file of each model)."""
+    import lvae_tpu_torch
+    from lvae_tpu_torch.utils import coding
+    t0 = time.perf_counter()
+    u8 = np.stack([coding.read_png(p) for p in QRES_PHOTOS])
+    ims = u8.astype(np.float32) / 255.0
+    im = ims[:1]
+    ims_t = torch.as_tensor(ims, device=model.device).permute(0, 3, 1, 2)
+    rows = []
+    for portable in (True, False):
+        for lmb in BF16_LAMBDAS:
+            def set_mode(cd, portable=portable):
+                model.compress_mode(num_lanes='auto', portable=portable,
+                                    compute_dtype=cd)
+
+            def batch_check(lmb=lmb):
+                objs = model.compress_batch(ims, lmb=lmb)
+                _, want = model._fused.encode_check_batch(
+                    ims_t.contiguous(),
+                    torch.full((2,), lmb, device=model.device))
+                return bool(np.array_equal(model.decompress_batch(objs),
+                                           want))
+            row = bf16_case(
+                torch, set_mode,
+                lambda lmb=lmb: model.compress_check(im, lmb=lmb),
+                model.decompress, lambda lmb=lmb: model.compress(im, lmb=lmb),
+                batch_check, im)
+            row.update(model='qarv_base', lmb=lmb,
+                       trunk='portable' if portable else 'legacy')
+            rows.append(row)
+            progress(f'bf16 codec qarv_base {row["trunk"]} lambda {lmb:g}: '
+                     f'{row}')
+    model.compress_mode(num_lanes='auto', portable=True, compute_dtype=BF16)
+    qarv_path = os.path.join(tmpdir, 'photo1.bf16.lmb512.bits')
+    model.compress_file(PHOTO, qarv_path, lmb=512.0)
+    qarv_rec = model.decompress_file(qarv_path)
+    model.compress_mode(num_lanes='auto', portable=True)
+
+    qm = lvae_tpu_torch.get_model('qres34m', device=model.device)
+    qm.net.load_state_dict(torch.load(qres_state, map_location=qm.device,
+                                      weights_only=True))
+
+    def set_qres(cd):
+        qm.compress_mode(num_lanes=QRES_LANES, esc_cap=QRES_ESC_CAP,
+                         portable=True, compute_dtype=cd)
+
+    def qres_batch():
+        objs = qm.compress_batch(ims)
+        _, want = qm._fused.encode_check_batch(ims_t.contiguous())
+        return bool(np.array_equal(qm.decompress_batch(objs), want))
+    row = bf16_case(torch, set_qres, lambda: qm.compress_check(im),
+                    qm.decompress, lambda: qm.compress(im), qres_batch, im)
+    row.update(model='qres34m', trunk='portable', weights='run_qres seeded')
+    rows.append(row)
+    progress(f'bf16 codec qres34m portable: {row}')
+    set_qres(BF16)
+    qres_path = os.path.join(tmpdir, 'photo1.qres34m.bf16.bits')
+    qm.compress_file(QRES_PHOTOS[0], qres_path)
+    qres_rec = qm.decompress_file(qres_path)
+    del qm
+    torch.cuda.empty_cache()
+    for row in rows:
+        what = f'bf16 {row["model"]} {row["trunk"]} {row.get("lmb", "")}'
+        for cd in ('f32', 'bf16'):
+            require(row[cd]['bit_exact'] and row[cd]['batch2_bit_exact'],
+                    f'{what}: a {cd} round trip is not bit-exact')
+        require(row['same_launches'], f'{what}: the encode launches '
+                                      f'{row["bf16"]["encode_launches"]}, '
+                                      f'not {row["f32"]["encode_launches"]}')
+        if row['model'] == 'qarv_base':
+            row['bpp_rel_diff'] = row['bf16']['bpp'] / row['f32']['bpp'] - 1
+            row['psnr_diff_db'] = row['bf16']['psnr'] - row['f32']['psnr']
+            require(abs(row['bpp_rel_diff']) <= BPP_REL_TOL
+                    and abs(row['psnr_diff_db']) <= PSNR_TOL_DB,
+                    f'{what}: bf16 {row["bf16"]} against f32 {row["f32"]}')
+    out = dict(results=rows, image=os.path.relpath(PHOTO, ROOT),
+               batch=[os.path.relpath(p, ROOT) for p in QRES_PHOTOS],
+               bpp='stream bytes * 8 / pixels (compress(), header included)',
+               enc_ms=f'CUDA events around compress() (host image in, bytes '
+                      f'out), median of {BF16_REPEATS} in turns after a '
+                      f'warm-up of each',
+               seconds=time.perf_counter() - t0)
+    fresh = [('photo1 bf16 file, lambda 512', 'qarv', qarv_path, qarv_rec),
+             ('qres34m photo1 bf16 file', 'qres', qres_path, qres_rec)]
+    return out, fresh
+
+
+# ---- training ------------------------------------------------------------------
+
+TRAIN_STEPS = 5             # of each qarv_base run; the resume adds 2
+TRAIN_ARGS = ['--transform', 'crop=256,hflip=True', '--batch_size', '16',
+              '--optimizer', 'adam', '--lr', '2e-4', '--lr_sched', 'constant',
+              '--val_interval', '0', '--workers', '6', '--data_cache',
+              '--probe_device_step']
+TRAIN_RUNS = (('f32', []), ('amp', ['--amp']),
+              ('amp_remat', ['--amp', '--remat']),
+              ('f32_device_data', ['--device_data']))
+
+
+def train_row(torch, t):
+    """What a finished trainer shows: each step's loss and grad norm
+    (required finite), the step time (host clock between the metric pulls,
+    median after the first two steps; the device time alone and its peak
+    memory from --probe_device_step), the operations of a step
+    (trainer._count_step_flops) and their bound at the card's dense peak
+    for the compute dtype, the run's peak memory, the run directory's
+    files."""
+    from lvae_tpu_torch.training.trainer import PEAK_FLOPS
+    hist = t.history
+    secs = [h['seconds'] for h in hist[2:] if h['seconds'] is not None]
+    peak = PEAK_FLOPS[t.compute_dtype or 'float32']
+    row = dict(steps=[h['step'] for h in hist],
+               loss=[h['loss'] for h in hist],
+               grad_norm=[h['grad_norm'] for h in hist],
+               step_ms=1e3 * float(np.median(secs)) if secs else None,
+               device_step_ms=t._device_step_ms,
+               step_tflop=t._step_flops / 1e12,
+               bound_ms=t._step_flops / peak * 1e3,
+               bound_peak_tflops=peak / 1e12,
+               step_peak_gb=t.step_peak_bytes / 1e9
+               if t.step_peak_bytes is not None else None,
+               run_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               files=sorted(os.listdir(t._log_dir)),
+               compute_dtype=t.compute_dtype or 'float32',
+               remat=bool(t.cfg.remat), device_data=bool(t.cfg.device_data),
+               results={k: v for k, v in t._results.items()
+                        if isinstance(v, (int, float))})
+    require(hist and all(math.isfinite(h['loss'])
+                         and math.isfinite(h['grad_norm']) for h in hist),
+            f'non-finite training step: {row}')
+    return row
+
+
+def run_train(torch, tmpdir):
+    """The two train CLIs on the card. train_var_rate on qarv_base from the
+    committed weights, the PNGs of images/ as training and validation set
+    (copied to the temporary directory, decoded once by --data_cache),
+    crop 256, batch 16, Adam at lr 2e-4, TRAIN_STEPS steps, in each of
+    TRAIN_RUNS (f32, --amp, --amp --remat, and f32 from the device cache),
+    then a --resume of the f32 run for 2 more steps; train_fix_rate on
+    qres34m (build_qres34m's weights, the z projections scaled by
+    ZPROJ_SCALE where the unscaled loss of a training batch is not
+    finite), 3 steps. Each run in this process through the CLI's main()
+    (working directory: the temporary one)."""
+    from lvae_tpu_torch import train_fix_rate, train_var_rate
+    from lvae_tpu_torch.training import checkpoint as ckpt
+    t0 = time.perf_counter()
+    data = os.path.join(tmpdir, 'trainset')
+    os.makedirs(data)
+    for name in sorted(os.listdir(os.path.join(ROOT, 'images'))):
+        if name.endswith('.png'):
+            shutil.copy(os.path.join(ROOT, 'images', name), data)
+    common = ['--trainset', data, '--valset', data] + TRAIN_ARGS
+    here = os.getcwd()
+    os.chdir(tmpdir)
+    runs = {}
+    try:
+        def run(cli, label, argv):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            trainer = cli.main(argv)
+            row = train_row(torch, trainer)
+            row['seconds'] = time.perf_counter() - t
+            # a qarv_base checkpoint is 1.9 GB: keep only what the resume
+            # reads
+            for name in ('best', 'last_ema', 'best_ema', 'last'):
+                path = os.path.join(trainer._log_dir, name)
+                if os.path.exists(path) and (
+                        name != 'last' or label not in ('f32', 'resume')):
+                    row.setdefault('checkpoint_bytes', {})[name] = \
+                        os.path.getsize(path)
+                    os.remove(path)
+            del trainer
+            gc_cuda(torch)
+            progress(f'train {label}: {row}')
+            return row
+
+        qarv = ['--model', 'qarv_base', '--weights', CHECKPOINT,
+                '--val_steps', '2'] + common
+        for label, extra in TRAIN_RUNS:
+            runs[label] = run(train_var_rate, label, qarv + [
+                '--iterations', str(TRAIN_STEPS), '--name', label] + extra)
+            require({'last', 'best', 'last_ema', 'config.json', 'model.txt',
+                     'optimizer.json'} <= set(runs[label]['files']),
+                    f'{label}: checkpoint files missing')
+        resumed = run(train_var_rate, 'resume', [
+            '--model', 'qarv_base', '--iterations', str(TRAIN_STEPS + 2),
+            '--resume', 'f32', '--val_steps', '2'] + common)
+        require(resumed['steps'] == [TRAIN_STEPS, TRAIN_STEPS + 1],
+                f'the resume ran steps {resumed["steps"]}')
+        saved = ckpt.load_checkpoint(os.path.join('runs', 'default', 'f32',
+                                                  'last'))
+        require(saved['state']['step'] == TRAIN_STEPS + 2,
+                'the resumed run did not carry on the step')
+        runs['resume'] = resumed
+
+        # qres34m from build_qres34m's weights, as a weights file; its
+        # step-0 loss unscaled on a batch of the training set, as the
+        # train step computes it
+        model = build_qres34m(torch)
+        from lvae_tpu_torch.datasets import get_image_dataset
+        from lvae_tpu_torch.datasets.loader import batch_rng
+        from lvae_tpu_torch.models.base import exact_f32
+        ds = get_image_dataset(data, 'crop=256,hflip=True')
+        rng = batch_rng(0, 0, 0)
+        ims = np.stack([ds.get(i % len(ds), rng) for i in range(16)])
+        with exact_f32(), torch.no_grad():
+            loss, _ = model.loss_and_stats(
+                torch.as_tensor(ims, device=model.device).permute(
+                    0, 3, 1, 2).contiguous(),
+                generator=torch.Generator(model.device).manual_seed(0))
+        step0 = float(loss)
+        scaled_zproj = not math.isfinite(step0)
+        if scaled_zproj:
+            scale_zproj(torch, model, 'z_proj_1')
+        weights = os.path.join(tmpdir, 'qres34m_train_start.pt')
+        ckpt.save_weights(weights, model.net)
+        del model
+
+        def fix(name, steps):
+            return ['--model', 'qres34m', '--weights', weights, '--name',
+                    name, '--iterations', str(steps)] + common
+        runs['qres34m'] = run(train_fix_rate, 'qres34m', fix('qres34m', 3))
+        runs['qres34m'].update(unscaled_step0_loss=step0,
+                               zproj_scaled=scaled_zproj)
+    finally:
+        os.chdir(here)
+    return dict(runs=runs, trainset=os.path.relpath(
+        os.path.join(ROOT, 'images'), ROOT) + '/*.png',
+        args=TRAIN_ARGS, steps=TRAIN_STEPS,
+        step_ms='host clock between metric pulls, median of steps >= 2',
+        device_step_ms='CUDA events around one step alone, median of 3 '
+                       'after a warm-up (--probe_device_step)',
+        bound_ms="a step's operations (the forward's convolutions and "
+                 "products by FlopCounterMode, x 3, x 4 with --remat: "
+                 "trainer._count_step_flops) / the dense peak (67 TFLOP/s "
+                 "float32, 989 TFLOP/s bf16)",
+        seconds=time.perf_counter() - t0)
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4865,10 +5183,16 @@ def main():
         emit({'golden': check_golden(torch, {
             'qarv_base': model, 'qres34m_lossless': golden_lossless}, card)})
         del golden_lossless
-        emit({'fresh_process': fresh_process_decode(
+        bf16, fresh_bf16 = run_bf16_codec(torch, model, qres_state, tmpdir)
+        fresh = fresh_process_decode(
             [('photo1 file, lambda 512', 'qarv', photo512['path'], rec512),
-             fresh_batch, fresh_qres, fresh_lossless], tmpdir,
-            dict(qres=qres_state, lossless=lossless_state))})
+             fresh_batch, fresh_qres, fresh_lossless] + fresh_bf16, tmpdir,
+            dict(qres=qres_state, lossless=lossless_state))
+        emit({'fresh_process': fresh})
+        bf16['fresh_process_bitwise'] = {
+            r['file']: r['bitwise_equal'] for r in fresh['files']
+            if 'bf16' in r['file']}
+        emit({'bf16_codec': bf16})
         emit({'eval': run_eval(torch, model, tmpdir)})
         host_coder, device_coder = run_staged(torch, model)
         emit({'host_coder': host_coder})
@@ -4880,6 +5204,8 @@ def main():
             emit({'sampling': run_sampling(torch, model, tmpdir)})
             emit({'torch_checkpoint': run_torch_checkpoint(torch, model,
                                                            tmpdir)})
+        # the trainer sets exact float32 (and restores the flags) itself
+        emit({'train': run_train(torch, tmpdir)})
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lvae_tpu_torch.models import common
 from lvae_tpu_torch.models.weights import params_from_flax, read_flax_msgpack
 from lvae_tpu_torch.utils import coding
 
@@ -37,6 +38,46 @@ def exact_f32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def torch_dtype(name):
+    """A floating dtype's name ('bfloat16', as the JAX package's
+    compute_dtype names it) -> the torch dtype."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f'compute_dtype={name!r}: not a floating dtype')
+    return dt
+
+
+def cast_forward(net, compute_dtype, im, *args):
+    """net(im, *args) (its training forward), or with compute_dtype
+    ('bfloat16') on casts of the image and of its float32 parameters
+    through torch.func.functional_call: the float32 parameters stay the
+    masters, and the gradient flows back through the casts into them, as
+    ``x.astype(cd)`` does under jax.grad (lvae_tpu/models/qarv/model.py:
+    418-423). Buffers (the scale tables) stay as they are."""
+    if compute_dtype is None:
+        return net(im, *args)
+    dt = torch_dtype(compute_dtype)
+    params = {k: p.to(dt) if p.dtype == torch.float32 else p
+              for k, p in net.named_parameters()}
+    with cpu_lowp_convs(net.bias.device):
+        return torch.func.functional_call(net, params, (im.to(dt),) + args)
+
+
+@contextlib.contextmanager
+def cpu_lowp_convs(device):
+    """On the CPU, ATen's own convolution kernels for the duration, in
+    place of oneDNN's, whose bf16 forward convolution in torch's CPU build
+    is wrong at some shapes (16 -> 16 channels, 4x4 stride 4: a relative
+    error of 1.15; ATen's kernel and oneDNN's backward are right). Wraps
+    the low-precision forwards (cast_forward, the bf16 codec backbone); a
+    no-op on the card."""
+    if torch.device(device).type != 'cpu':
+        yield
+        return
+    with common.mkldnn_enabled(False):
+        yield
 
 
 def to_nchw_batch(im, device) -> torch.Tensor:
@@ -133,8 +174,16 @@ class VAEModelBase:
 
     def load_weights(self, path):
         """Load a flax msgpack weight file of the JAX package (stored at
-        float16 or float32; the port computes in float32)."""
-        sd = params_from_flax(read_flax_msgpack(path), self.net)
+        float16 or float32; the port computes in float32), or a file the
+        port's training wrote (training/checkpoint.py: a weights file or a
+        whole training state, whose parameters are taken)."""
+        with open(path, 'rb') as f:
+            is_torch = f.read(2) == b'PK'          # torch.save's zip
+        if is_torch:
+            from lvae_tpu_torch.training.checkpoint import read_weights
+            sd = read_weights(path)
+        else:
+            sd = params_from_flax(read_flax_msgpack(path), self.net)
         self.net.load_state_dict(sd, strict=True)
 
     def load_pretrained(self, path):
@@ -152,7 +201,7 @@ class VAEModelBase:
 
     def compress_mode(self, mode=True, coder='fused', num_lanes=128,
                       esc_cap=8192, word_cap=None, portable=False,
-                      max_program_batch=None):
+                      max_program_batch=None, compute_dtype=None):
         """Prepare entropy coding through one of three coders:
 
         coder='fused'  the fused codec: the trunk and the rANS kernels on
@@ -173,16 +222,25 @@ class VAEModelBase:
         word_cap caps the coded stream length in 16-bit words; streams that
         overflow it (or esc_cap escapes) raise OverflowError.
         max_program_batch caps the images coded at once: larger
-        compress_batch requests run as balanced chunks. Codecs stay cached
-        across calls, keyed by their whole configuration."""
+        compress_batch requests run as balanced chunks.
+        compute_dtype='bfloat16' runs the encoder backbone alone in bf16
+        (on every coder: the host and device coders run the legacy fused
+        codec's encode): its features only choose the symbols written, and
+        decode never runs it. The posterior, the lambda embedding, the
+        priors, the fuses, the tail and the probability math stay float32.
+        Codecs stay cached across calls, keyed by their whole configuration:
+        switching f32, bf16 and portable reuses the ones built."""
         if coder not in ('host', 'device', 'fused'):
             raise ValueError(f"coder={coder!r}: 'host', 'device' or "
                              f"'fused'")
         if mode:
             self._coder.update()
+            if compute_dtype is not None:
+                torch_dtype(compute_dtype)              # checked here
             self._fused_cfg = dict(esc_cap=esc_cap, word_cap=word_cap,
                                    portable=bool(portable),
-                                   max_program_batch=max_program_batch)
+                                   max_program_batch=max_program_batch,
+                                   compute_dtype=compute_dtype)
             self._fused_codecs = getattr(self, '_fused_codecs', {})
             self.coder_kind = coder
             if coder == 'fused':

@@ -6,11 +6,72 @@ Parameter names mirror the flax modules' so that
 the state dict. Unlike flax, a torch convolution needs its input width, so
 the constructors take it explicitly.
 """
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def apply_block(block, *args, remat=False, **kwargs):
+    """block(*args, **kwargs), optionally under gradient rematerialization
+    (lvae_tpu/models/common.py:24-44): remat=True drops the block's
+    activations after the forward and recomputes them in the backward pass
+    (torch.utils.checkpoint, non-reentrant), for ~one more forward of
+    operations and O(1) blocks of activation memory.
+
+    The recomputation runs the block on the parameter tensors it saw in the
+    forward, under its oneDNN flag: inside torch.func.functional_call (the bf16 training forward's
+    casts) those are the casts, which the call has swapped back out by the
+    time the backward runs. A block must draw no noise from an explicit
+    torch.Generator: checkpoint restores only the global RNG states, so
+    callers draw it outside and pass it in."""
+    params = dict(block.named_parameters()) if remat else None
+    if not params:
+        return block(*args, **kwargs)
+    # the recomputation picks the forward's convolution kernels
+    # (base.cpu_lowp_convs may have switched oneDNN off around it)
+    mkldnn = torch.backends.mkldnn.enabled
+    return checkpoint(lambda *a, **kw: torch.func.functional_call(
+        block, params, a, kw), *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            mkldnn_enabled(mkldnn)),
+        **kwargs)
+
+
+@contextlib.contextmanager
+def mkldnn_enabled(enabled):
+    """torch.backends.mkldnn.enabled set to `enabled` for the duration."""
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
+def latent_noise(draw, block, feature, generator):
+    """draw(like, generator) (entropy_coding.uniform_noise or normal_noise)
+    of a latent block's posterior shape (B, zdim, H, W) and dtype, for the
+    block's input feature: drawn before the block runs, so that a
+    rematerialized block recomputes on the same noise and the generator
+    advances once."""
+    B, _, H, W = feature.shape
+    return draw(feature.new_empty(B, block.zdim, H, W), generator)
+
+
+def apply_promoted(module, x):
+    """module(x) with its floating parameters cast to x's dtype: flax's
+    promotion where a float32 input meets bfloat16 parameters (the bf16
+    training forward's lambda embedding and lossless head compute in
+    float32 on the bf16-rounded weights, as the JAX package's do)."""
+    params = dict(module.named_parameters())
+    if all(p.dtype == x.dtype for p in params.values()):
+        return module(x)
+    return torch.func.functional_call(
+        module, {k: p.to(x.dtype) for k, p in params.items()}, (x,))
 
 
 def gelu(x):

@@ -23,7 +23,9 @@ and `_posterior`), on one of two trunks:
 
 On both trunks the encoder backbone and the posterior stay library
 convolutions (NCHW), because their outputs only choose which symbols are
-written (lvae_tpu/models/qarv/fused.py:36-41).
+written (lvae_tpu/models/qarv/fused.py:36-41). With compute_dtype
+('bfloat16') the backbone alone runs in that dtype, on a cast copy of its
+blocks (`backbone_blocks`), and hands each feature on as float32.
 
 A lossless pixel head (QRes's GaussianNLL head, given by `head_cdf_table`)
 is coded as one more block after the latent ones, in the same stream
@@ -51,6 +53,7 @@ a chunk's (B, P) payload holds exactly the bytes `pack_payload` gives that
 image alone.
 """
 import contextlib
+import copy
 import struct
 
 import numpy as np
@@ -58,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from lvae_tpu_torch.models import common
-from lvae_tpu_torch.models.base import exact_f32, host_image
+from lvae_tpu_torch.models.base import exact_f32, host_image, torch_dtype
 from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
 from lvae_tpu_torch.ops import trunk
@@ -141,8 +144,11 @@ class FusedCodecBase:
 
     def __init__(self, net, cdf_table, num_lanes=128, esc_cap=8192,
                  word_cap=None, max_program_batch=None, device=None,
-                 head_cdf_table=None):
+                 head_cdf_table=None, compute_dtype=None):
         self.net = net
+        self.compute_dtype = (None if compute_dtype is None
+                              else torch_dtype(compute_dtype))
+        self._backbone_copy = (None, None)         # (source key, blocks)
         self.device = (torch.device(device) if device is not None
                        else net.bias.device)
         self._check_table(cdf_table)
@@ -193,6 +199,17 @@ class FusedCodecBase:
         if (np.abs(cdf_table.offsets).max() >= (1 << 15)
                 or cdf_table.cdf_lengths.max() >= (1 << 15)):
             raise ValueError('CDF offsets/lengths must fit 15 bits')
+
+    def backbone_blocks(self):
+        """The encoder blocks in compute_dtype: a copy cast once, and cast
+        again only when a weight of the net's blocks has changed since (a
+        load_state_dict or an optimizer step bumps its version)."""
+        src = self.net.enc_blocks
+        key = tuple((p.data_ptr(), p._version) for p in src.parameters())
+        if self._backbone_copy[0] != key:
+            blocks = copy.deepcopy(src).to(self.compute_dtype)
+            self._backbone_copy = (key, blocks.requires_grad_(False))
+        return self._backbone_copy[1]
 
     def _to(self, t, layout):
         """A feature of this trunk -> a view in `layout`."""

@@ -22,6 +22,7 @@ launch, and one decode launch per latent block.
 import torch
 
 from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models.base import cpu_lowp_convs
 from lvae_tpu_torch.models.fused_base import FusedCodecBase, PortableTrunk
 from lvae_tpu_torch.ops import cdf as cdf_ops
 from lvae_tpu_torch.ops import trunk
@@ -60,7 +61,15 @@ class FusedQarvCodec(FusedCodecBase):
                 else blk(feature))
 
     def _backbone(self, im, emb, gemb):
-        return self.net.encode_features(im, emb)
+        cd = self.compute_dtype
+        if cd is None:
+            return self.net.encode_features(im, emb)
+        # the image and the embedding enter in bf16; each feature leaves as
+        # float32 (lvae_tpu/models/qarv/fused.py:222-241)
+        with cpu_lowp_convs(im.device):
+            feats = self.net.encode_features(im.to(cd), emb.to(cd),
+                                             blocks=self.backbone_blocks())
+        return {k: v.float() for k, v in feats.items()}
 
     def _posterior(self, blk, f_mid, enc_features, emb, gemb):
         return blk.posterior_qm(f_mid, enc_features[blk.enc_key], emb)

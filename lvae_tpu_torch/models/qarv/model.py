@@ -84,19 +84,22 @@ class VRLVBlockBase(nn.Module):
         return self._fuse(feature, symbols.float() + pm.float(), emb)
 
     def _fuse(self, feature, z, emb):
-        # one layout of z whatever made it (qresvae/model.py:_fuse)
-        return self.resnet_end(feature + self.z_proj(z.contiguous()), emb)
+        # one layout of z whatever made it (qresvae/model.py:_fuse), in the
+        # feature's dtype (the bf16 training forward's eval branch)
+        z = z.to(feature.dtype).contiguous()
+        return self.resnet_end(feature + self.z_proj(z), emb)
 
     def forward_train(self, feature, enc_feature, emb, training=False,
-                      get_latent=False, generator=None):
+                      get_latent=False, noise=None):
         """The block in the training/eval forward -> (feature, {'kl': -log
-        P(z)[, 'z': z]}). training: z = posterior mean + U(-0.5, 0.5) noise
-        drawn from `generator`, P the Gaussian's mass at z; eval: z the
+        P(z)[, 'z': z]}). training: z = posterior mean + `noise`, the
+        U(-0.5, 0.5) draw of the posterior's shape and dtype that the caller
+        makes (common.latent_noise), P the Gaussian's mass at z; eval: z the
         quantized residual, P its discretized likelihood."""
-        feature, pm, pv, _ = self.prior_stage(feature, emb)
+        feature, pm, pv = self._prior(feature, emb)
         qm = self.posterior_qm(feature, enc_feature, emb)
         if training:
-            z = qm + ec.uniform_noise(qm, generator)
+            z = qm + noise
             kl = -ec.gaussian_log_prob_mass(pm, pv, z, 1.0, 1e-6)
         else:
             z = ec.quantize_dequantize(qm, pm)
@@ -106,6 +109,8 @@ class VRLVBlockBase(nn.Module):
         if get_latent:
             stats['z'] = z.detach()
         return self._fuse(feature, z, emb), stats
+
+    forward = forward_train
 
     def forward_uncond(self, feature, emb, t=1.0, latent=None,
                        generator=None):
@@ -154,53 +159,64 @@ class VariableRateLossyVAENet(nn.Module):
         self.lmb_embed_1 = nn.Linear(lmb_embed_dim[1], lmb_embed_dim[1])
 
     def get_lmb_embedding(self, lmb):
-        """lmb: (B,) float -> (B, embed_dim)."""
+        """lmb: (B,) float -> (B, embed_dim), computed in float32 (on the
+        bf16-rounded weights in the bf16 training forward)."""
         scaled = torch.log(lmb) * (self.sin_period / math.log(MAX_LMB))
         emb = common.sinusoidal_embedding(scaled, dim=self.lmb_embed_dim[0],
                                           max_period=self.sin_period)
-        return self.lmb_embed_1(common.gelu(self.lmb_embed_0(emb)))
+        emb = common.gelu(common.apply_promoted(self.lmb_embed_0, emb))
+        return common.apply_promoted(self.lmb_embed_1, emb)
 
     def preprocess_input(self, im):
         return (im + self.im_shift) * self.im_scale
 
-    def encode_features(self, im, emb):
-        """Encoder backbone -> {key: feature} at the SetKey markers."""
+    def encode_features(self, im, emb, remat=False, blocks=None):
+        """Encoder backbone -> {key: feature} at the SetKey markers; `blocks`
+        in place of enc_blocks (the bf16 codec's cast copy)."""
         x = self.preprocess_input(im)
         features = {}
-        for block in self.enc_blocks:
+        for block in self.enc_blocks if blocks is None else blocks:
             if isinstance(block, common.SetKey):
                 features[block.key] = x
             elif getattr(block, 'requires_embedding', False):
-                x = block(x, emb)
+                x = common.apply_block(block, x, emb, remat=remat)
             else:
-                x = block(x)
+                x = common.apply_block(block, x, remat=remat)
         return features
 
     def seed_feature(self, batch, h, w):
         return self.bias.expand(batch, -1, h, w)
 
     def forward_end2end(self, im, lmb, training=False, get_latent=False,
-                        generator=None):
-        """The training/eval forward: NCHW image in [0, 1], (B,) lambdas ->
-        (the decoder's output, one stats dict per latent block). Library
-        convolutions throughout (no kernel of ops/trunk.py)."""
-        emb = self.get_lmb_embedding(lmb)
-        enc_features = self.encode_features(im, emb)
+                        generator=None, remat=False):
+        """The training/eval forward: NCHW image in [0, 1] (in the compute
+        dtype), (B,) lambdas -> (the decoder's output, one stats dict per
+        latent block). Library convolutions throughout (no kernel of
+        ops/trunk.py). training draws each latent block's noise from
+        `generator`; remat checkpoints every block (common.apply_block)."""
+        # the embedding in the compute dtype, as the JAX forward casts it
+        emb = self.get_lmb_embedding(lmb).to(im.dtype)
+        enc_features = self.encode_features(im, emb, remat)
         s = self.max_stride
         feature = self.seed_feature(im.shape[0], im.shape[2] // s,
                                     im.shape[3] // s)
         block_stats = []
         for block in self.dec_blocks:
             if getattr(block, 'is_latent_block', False):
-                feature, stats = block.forward_train(
-                    feature, enc_features[block.enc_key], emb, training,
-                    get_latent, generator)
+                noise = (common.latent_noise(ec.uniform_noise, block,
+                                             feature, generator)
+                         if training else None)
+                feature, stats = common.apply_block(
+                    block, feature, enc_features[block.enc_key], emb,
+                    training, get_latent, noise, remat=remat)
                 block_stats.append(stats)
             elif getattr(block, 'requires_embedding', False):
-                feature = block(feature, emb)
+                feature = common.apply_block(block, feature, emb, remat=remat)
             elif not isinstance(block, common.CompressionStopFlag):
-                feature = block(feature)
+                feature = common.apply_block(block, feature, remat=remat)
         return feature, block_stats
+
+    forward = forward_end2end
 
     def forward_sampling(self, lmb, latents, bhw_repeat, t=1.0,
                          generator=None):
@@ -248,15 +264,23 @@ class QarvModel(VAEModelBase):
         u = torch.rand(n, generator=generator, device=self.device)
         return torch.pow(u * (hi - lo) + lo, 3)
 
-    def loss_and_stats(self, im, lmb=None, training=True, generator=None):
-        """Loss and stats of an NCHW batch in [0, 1] on the device: rate
-        (the blocks' kl over the pixels) + lambda * MSE on the [-1, 1]
-        scale. Lambdas are drawn (sample_lmb) when not given."""
+    def loss_and_stats(self, im, lmb=None, training=True, generator=None,
+                       compute_dtype=None, remat=False):
+        """Loss and stats of an NCHW float32 batch in [0, 1] on the device:
+        rate (the blocks' kl over the pixels) + lambda * MSE on the [-1, 1]
+        scale. Lambdas are drawn (sample_lmb) when not given.
+        compute_dtype='bfloat16' runs the network on bf16 casts of its
+        float32 parameters and of the image (base.cast_forward): x_hat, kl
+        and the distortion come back as float32, and the rate's probability
+        math stays float32 (entropy_coding). remat=True checkpoints every
+        block of the encoder and the decoder (lvae_tpu/models/qarv/model.py:
+        401-437)."""
         nB, C, H, W = im.shape
         if lmb is None:
             lmb = self.sample_lmb(nB, generator)
-        x_hat, stats_all = self.net.forward_end2end(im, lmb, training, False,
-                                                    generator)
+        x_hat, stats_all = base.cast_forward(
+            self.net, compute_dtype, im, lmb, training, False, generator,
+            remat)
         x_hat = x_hat.float()
         kl = sum(st['kl'].float().sum(dim=(1, 2, 3))
                  for st in stats_all) / float(C * H * W)

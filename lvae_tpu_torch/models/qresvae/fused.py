@@ -22,6 +22,7 @@ indexes are trunk, and the pixels are one more coded block
 import torch
 
 from lvae_tpu_torch.models import common
+from lvae_tpu_torch.models.base import cpu_lowp_convs
 from lvae_tpu_torch.models import entropy_coding as ec
 from lvae_tpu_torch.models.fused_base import FusedCodecBase, PortableTrunk
 from lvae_tpu_torch.ops import cdf as cdf_ops
@@ -74,7 +75,15 @@ class FusedQresCodec(FusedCodecBase):
         return blk(feature)
 
     def _backbone(self, im):
-        return self.net.encode_features(im)
+        cd = self.compute_dtype
+        if cd is None:
+            return self.net.encode_features(im)
+        # bf16 in, each feature out as float32
+        # (lvae_tpu/models/qresvae/fused.py:183-188)
+        with cpu_lowp_convs(im.device):
+            feats = self.net.encode_features(im.to(cd),
+                                             blocks=self.backbone_blocks())
+        return {k: v.float() for k, v in feats.items()}
 
     def _posterior(self, blk, f_mid, enc_features):
         return blk.posterior_qm(f_mid, enc_features[int(f_mid.shape[2])])

@@ -72,11 +72,13 @@ class GaussianNLLOutputNet(nn.Module):
 
     def _params(self, feature):
         """NCHW feature -> (pixel means, log-scales floored at -16) through
-        the library convs; softplus in jax.nn.softplus's form, as the JAX
+        the library convs, in float32 (on bf16-rounded weights in the bf16
+        training forward); softplus in jax.nn.softplus's form, as the JAX
         module computes it."""
         feature = feature.float()
-        p_mean = self.conv_mean(feature)
-        p_logscale = common.softplus(self.conv_scale(feature) + 16.0) - 16.0
+        p_mean = common.apply_promoted(self.conv_mean, feature)
+        p_logscale = common.softplus(
+            common.apply_promoted(self.conv_scale, feature) + 16.0) - 16.0
         return p_mean, p_logscale
 
     def forward_loss(self, feature, x_tgt):
@@ -159,18 +161,21 @@ class QLatentBlock(nn.Module):
     def _fuse(self, feature, z):
         # z in one layout whatever made it (a posterior conv's output is
         # channels-last on the CPU, a latent given to cond_sample is not),
-        # so that the z projection's sums do not depend on its source
-        z = self.z_proj_1(common.gelu(self.z_proj_0(z.contiguous())))
+        # so that the z projection's sums do not depend on its source; in
+        # the feature's dtype (the bf16 training forward's eval branch)
+        z = z.to(feature.dtype).contiguous()
+        z = self.z_proj_1(common.gelu(self.z_proj_0(z)))
         return self.resnet_end(feature + z)
 
     def forward_train(self, feature, enc_feature, training=False,
-                      get_latents=False, generator=None):
+                      get_latents=False, noise=None):
         """The block in the training/eval forward -> (feature, {'kl': -log
-        P(z)[, 'z': z]}), as VRLVBlockBase.forward_train without lambda."""
-        feature, pm, pv, _ = self.prior_stage(feature)
+        P(z)[, 'z': z]}), as VRLVBlockBase.forward_train without lambda
+        (`noise`: the caller's U(-0.5, 0.5) draw when training)."""
+        feature, pm, pv = self._prior(feature)
         qm = self.posterior_qm(feature, enc_feature)
         if training:
-            z = qm + ec.uniform_noise(qm, generator)
+            z = qm + noise
             kl = -ec.gaussian_log_prob_mass(pm, pv, z, 1.0, 1e-6)
         else:
             z = ec.quantize_dequantize(qm, pm)
@@ -180,6 +185,8 @@ class QLatentBlock(nn.Module):
         if get_latents:
             stats['z'] = z.detach()
         return self._fuse(feature, z), stats
+
+    forward = forward_train
 
     def forward_uncond(self, feature, t=1.0, latent=None, paint_mask=None,
                        generator=None):
@@ -217,35 +224,42 @@ class HierarchicalVAENet(nn.Module):
     def preprocess_input(self, im):
         return (im + self.im_shift) * self.im_scale
 
-    def encode_features(self, im):
+    def encode_features(self, im, remat=False, blocks=None):
         """Encoder features keyed by their height: the last block at each
-        resolution wins (lvae_tpu/models/qresvae/model.py:102-114)."""
+        resolution wins (lvae_tpu/models/qresvae/model.py:102-114); `blocks`
+        in place of enc_blocks (the bf16 codec's cast copy)."""
         x = self.preprocess_input(im)
         features = {}
-        for block in self.enc_blocks:
-            x = block(x)
+        for block in self.enc_blocks if blocks is None else blocks:
+            x = common.apply_block(block, x, remat=remat)
             features[int(x.shape[2])] = x
         return features
 
     def seed_feature(self, batch, h, w):
         return self.bias.expand(batch, -1, h, w)
 
-    def forward(self, im, training=False, get_latents=False, generator=None):
-        """The training/eval forward: NCHW image in [0, 1] -> (the head's
-        per-image loss, its output x_hat, one stats dict per latent block).
-        Library convolutions throughout."""
-        enc_features = self.encode_features(im)
+    def forward(self, im, training=False, get_latents=False, generator=None,
+                remat=False):
+        """The training/eval forward: NCHW image in [0, 1] (in the compute
+        dtype) -> (the head's per-image loss, its output x_hat, one stats
+        dict per latent block). Library convolutions throughout. training
+        draws each latent block's noise from `generator`; remat checkpoints
+        every block (common.apply_block)."""
+        enc_features = self.encode_features(im, remat)
         f0 = enc_features[min(enc_features)]
         feature = self.seed_feature(f0.shape[0], f0.shape[2], f0.shape[3])
         stats_all = []
         for block in self.dec_blocks:
             if getattr(block, 'is_latent_block', False):
-                feature, stats = block.forward_train(
-                    feature, enc_features[int(feature.shape[2])], training,
-                    get_latents, generator)
+                noise = (common.latent_noise(ec.uniform_noise, block,
+                                             feature, generator)
+                         if training else None)
+                feature, stats = common.apply_block(
+                    block, feature, enc_features[int(feature.shape[2])],
+                    training, get_latents, noise, remat=remat)
                 stats_all.append(stats)
             else:
-                feature = block(feature)
+                feature = common.apply_block(block, feature, remat=remat)
         out_loss, x_hat = self.out_net.forward_loss(feature,
                                                     (im - 0.5) * 2.0)
         return out_loss, x_hat, stats_all
@@ -315,12 +329,16 @@ class QresModel(VAEModelBase):
     # ---- the training/eval forward (lvae_tpu/models/qresvae/model.py:
     # 389-468) -----------------------------------------------------------
 
-    def loss_and_stats(self, im, training=True, generator=None):
-        """Loss and stats of an NCHW batch in [0, 1] on the device: rate
-        (the blocks' kl over the pixels) + the head's loss (lambda * MSE,
-        or the pixels' NLL)."""
-        out_loss, x_hat, stats_all = self.net.forward(im, training, False,
-                                                      generator)
+    def loss_and_stats(self, im, training=True, generator=None,
+                       compute_dtype=None, remat=False):
+        """Loss and stats of an NCHW float32 batch in [0, 1] on the device:
+        rate (the blocks' kl over the pixels) + the head's loss (lambda *
+        MSE, or the pixels' NLL). compute_dtype and remat as
+        QarvModel.loss_and_stats's (lvae_tpu/models/qresvae/model.py:
+        389-410)."""
+        out_loss, x_hat, stats_all = base.cast_forward(
+            self.net, compute_dtype, im, training, False, generator,
+            remat)
         x_hat, out_loss = x_hat.float(), out_loss.float()
         nB, C, H, W = im.shape
         kl = sum(st['kl'].float().sum(dim=(1, 2, 3))
@@ -435,10 +453,14 @@ class QresModel(VAEModelBase):
             return {}
         return dict(head_cdf_table=self._head_coder.update())
 
-    def compress_mode(self, mode=True, coder='fused', num_lanes=128, **cfg):
-        """See VAEModelBase.compress_mode; num_lanes is 16, 32, 64 or 128
-        (the JAX package's default 128): a fixed-rate model has no lambda
-        to choose it by. The device coder has no lossless head."""
+    def compress_mode(self, mode=True, coder=None, num_lanes=128, **cfg):
+        """See VAEModelBase.compress_mode; coder None is 'fused', as in the
+        JAX package (lvae_tpu/models/qresvae/model.py:552-553); num_lanes is
+        16, 32, 64 or 128 (the JAX package's default 128): a fixed-rate
+        model has no lambda to choose it by. The device coder has no
+        lossless head."""
+        if coder is None:
+            coder = 'fused'
         if num_lanes not in (16, 32, 64, 128):
             raise ValueError(f'num_lanes={num_lanes!r}: 16, 32, 64 or 128')
         if coder == 'device' and self.lossless:

@@ -115,18 +115,21 @@ class LatentVariableBlock(nn.Module):
         return qm, std_smooth(qv)
 
     def forward_train(self, feature, enc_feature, emb, training=True,
-                      get_latent=False, generator=None):
-        """-> (feature, {'kl': KL(q || p)[, 'z': z]}), z = qm + qv * eps with
-        eps from `generator` (training or not: the model always samples)."""
+                      get_latent=False, noise=None):
+        """-> (feature, {'kl': KL(q || p)[, 'z': z]}), z = qm + qv * `noise`,
+        the caller's standard normal draw of the posterior's shape and dtype
+        (training or not: the model always samples)."""
         feature, pm, pv = self.transform_prior(feature, emb)
         qm, qv = self.transform_posterior(feature, enc_feature, emb)
         kl = gaussian_kl(qm.float(), qv.float(), pm.float(), pv.float())
-        z = qm + qv * ec.normal_noise(qm, generator)
+        z = qm + qv * noise
         feature = self.resnet_end(feature + self.z_proj(z), emb)
         stats = {'kl': kl}
         if get_latent:
             stats['z'] = z.detach()
         return feature, stats
+
+    forward = forward_train
 
     def forward_uncond(self, feature, emb, t=1.0, latent=None,
                        generator=None):
@@ -167,20 +170,22 @@ class RDVAENet(nn.Module):
 
     def get_lmb_embedding(self, lmb):
         """(B,) lambdas -> (B, embed_dim): log(lambda) * 64 / log(8192)
-        through a sinusoid and two dense layers."""
+        through a sinusoid and two dense layers, in float32 (on the
+        bf16-rounded weights in the bf16 training forward)."""
         scaled = torch.log(lmb) * (self.sin_period / math.log(MAX_LMB))
         emb = common.sinusoidal_embedding(scaled, dim=self.lmb_embed_dim[0],
                                           max_period=self.sin_period)
-        return self.lmb_embed_1(common.gelu(self.lmb_embed_0(emb)))
+        emb = common.gelu(common.apply_promoted(self.lmb_embed_0, emb))
+        return common.apply_promoted(self.lmb_embed_1, emb)
 
-    def encode(self, x, emb):
+    def encode(self, x, emb, remat=False):
         """-> {height: the last encoder feature at that height}."""
         features = {}
         for block in self.enc_blocks:
             if getattr(block, 'requires_embedding', False):
-                x = block(x, emb)
+                x = common.apply_block(block, x, emb, remat=remat)
             else:
-                x = block(x)
+                x = common.apply_block(block, x, remat=remat)
             features[int(x.shape[2])] = x
         return features
 
@@ -202,23 +207,32 @@ class RDVAENet(nn.Module):
         return feature
 
     def forward_end2end(self, im, lmb, training=True, get_latents=False,
-                        generator=None):
-        """NCHW image in [0, 1], (B,) lambdas -> (the decoder's output, one
-        stats dict per latent block)."""
+                        generator=None, remat=False):
+        """NCHW image in [0, 1] (in the compute dtype), (B,) lambdas -> (the
+        decoder's output, one stats dict per latent block). Each latent
+        block's noise is drawn from `generator` before the block runs;
+        remat checkpoints every block (common.apply_block)."""
         x = (im + self.im_shift) * self.im_scale
-        emb = self.get_lmb_embedding(lmb)
-        enc_features = self.encode(x, emb)
+        emb = self.get_lmb_embedding(lmb).to(x.dtype)
+        enc_features = self.encode(x, emb, remat)
         f0 = enc_features[min(enc_features)]
+        feature = self.seed_feature(f0.shape[0], f0.shape[2], f0.shape[3])
         stats_all = []
+        for block in self.dec_blocks:
+            if getattr(block, 'is_latent_block', False):
+                noise = common.latent_noise(ec.normal_noise, block, feature,
+                                            generator)
+                feature, stats = common.apply_block(
+                    block, feature, enc_features[int(feature.shape[2])], emb,
+                    training, get_latents, noise, remat=remat)
+                stats_all.append(stats)
+            elif getattr(block, 'requires_embedding', False):
+                feature = common.apply_block(block, feature, emb, remat=remat)
+            else:
+                feature = common.apply_block(block, feature, remat=remat)
+        return feature, stats_all
 
-        def latent(i, block, feature):
-            feature, stats = block.forward_train(
-                feature, enc_features[int(feature.shape[2])], emb, training,
-                get_latents, generator)
-            stats_all.append(stats)
-            return feature
-        seed = self.seed_feature(f0.shape[0], f0.shape[2], f0.shape[3])
-        return self._walk(seed, emb, latent), stats_all
+    forward = forward_end2end
 
     def forward_sampling(self, lmb, latents, bhw_repeat, t=1.0,
                          generator=None):
@@ -250,15 +264,19 @@ class RDModel(VAEModelBase):
         u = torch.rand(n, generator=generator, device=self.device)
         return torch.exp(u * (hi - lo) + lo)
 
-    def loss_and_stats(self, im, lmb=None, training=True, generator=None):
-        """Loss and stats of an NCHW batch in [0, 1] on the device: rate
-        (the blocks' KL over the pixels) + lambda * MSE on the [-1, 1]
-        scale; lambdas drawn (sample_lmb) when not given."""
+    def loss_and_stats(self, im, lmb=None, training=True, generator=None,
+                       compute_dtype=None, remat=False):
+        """Loss and stats of an NCHW float32 batch in [0, 1] on the device:
+        rate (the blocks' KL over the pixels) + lambda * MSE on the [-1, 1]
+        scale; lambdas drawn (sample_lmb) when not given. compute_dtype and
+        remat as QarvModel.loss_and_stats's (lvae_tpu/models/rd/model.py:
+        268-290)."""
         nB, C, H, W = im.shape
         if lmb is None:
             lmb = self.sample_lmb(nB, generator)
-        x_hat, stats_all = self.net.forward_end2end(im, lmb, training, False,
-                                                    generator)
+        x_hat, stats_all = base.cast_forward(
+            self.net, compute_dtype, im, lmb, training, False, generator,
+            remat)
         x_hat = x_hat.float()
         kl = sum(st['kl'].float().sum(dim=(1, 2, 3))
                  for st in stats_all) / float(C * H * W)

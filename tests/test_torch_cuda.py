@@ -20,7 +20,8 @@ native host coder on the card's machine against its numpy version, the
 device coder's decode against the host coder's, qres17m's legacy
 batch round trip, rd_tiny's forward on the card against the CPU on
 CPU-drawn noise, and the decoder on a tiny model's own latents equal to
-its reconstruction. Skips without a card. On the card (which has no JAX, so the suite's
+its reconstruction, the bf16 backbone's round trips (both trunks, B = 1
+and 2) and a train step of each precision. Skips without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1269,3 +1270,70 @@ def test_cond_sample_on_own_latents_equals_reconstruct_on_card(card, name):
     a = m.inpaint(im, box, steps=2, seed=1)
     assert np.isfinite(a).all()
     assert np.array_equal(a, m.inpaint(im, box, steps=2, seed=1))
+
+
+# ---- the bf16 encoder backbone and training on the card --------------------
+
+@pytest.mark.parametrize('name', ['qarv_tiny', 'qres_tiny'])
+@pytest.mark.parametrize('portable', [False, True])
+def test_bf16_backbone_round_trips_on_card(card, name, portable):
+    """compress_mode(compute_dtype='bfloat16') on the card: B = 1 and B = 2
+    round trips bit-exact on both trunks, and the trunk kernels launched as
+    often as at float32."""
+    from lvae_tpu_torch.ops import trunk
+    torch.manual_seed(0)
+    m = lvae_tpu_torch.get_model(name)
+    with torch.no_grad():
+        for pname, p in m.net.named_parameters():
+            if pname.endswith(('posterior.weight', 'posterior.c4.weight')):
+                p.mul_(300.0)
+    ims = np.random.default_rng(2).uniform(0, 1, (2, 128, 128, 3)).astype(
+        np.float32)
+    kw = dict(lmb=512.0) if name == 'qarv_tiny' else {}
+    counted = [f for f in vars(trunk).values() if hasattr(f, 'launches')]
+    launches = {}
+    for cd in (None, 'bfloat16'):
+        m.compress_mode(num_lanes=16, portable=portable, compute_dtype=cd)
+        before = {f: f.launches for f in counted}
+        stream, recon = m.compress_check(ims[:1], **kw)
+        launches[cd] = {f.__name__: f.launches - before[f] for f in counted}
+        assert np.array_equal(m.decompress(stream), recon)
+        objs = m.compress_batch(ims, **kw)
+        _, want = m._fused.encode_check_batch(
+            torch.from_numpy(ims).permute(0, 3, 1, 2).contiguous().cuda(),
+            *((torch.full((2,), 512.0, device='cuda'),) if kw else ()))
+        assert np.array_equal(m.decompress_batch(objs), want)
+    assert launches[None] == launches['bfloat16']
+    assert m._fused.compute_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize('amp', [False, True])
+def test_one_train_step_on_card(card, amp, tmp_path, monkeypatch):
+    """Two steps of train_fix_rate at qres_tiny on the card (f32 under
+    exact_f32, or --amp --remat): finite losses and grad norms, the
+    parameters moved, and the process's TF32 flags as they were."""
+    from lvae_tpu_torch import train_fix_rate
+    from lvae_tpu_torch.utils import coding
+    d = tmp_path / 'set'
+    d.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        coding.write_png(d / f'{i}.png', rng.integers(0, 256, (96, 96, 3),
+                                                      dtype=np.uint8))
+    monkeypatch.chdir(tmp_path)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    argv = ['--model', 'qres_tiny', '--model_args', 'lmb=64',
+            '--trainset', str(d), '--valset', str(d), '--transform',
+            'crop=64,hflip=True', '--batch_size', '2', '--workers', '1',
+            '--iterations', '2', '--lr_warmup', '0', '--val_interval', '0',
+            '--probe_device_step'] + (['--amp', '--remat'] if amp else [])
+    t = train_fix_rate.main(argv)
+    assert t.device.type == 'cuda' and t.state.flat.is_cuda
+    assert len(t.history) == 2 and all(
+        np.isfinite(h['loss']) and np.isfinite(h['grad_norm'])
+        for h in t.history)
+    assert t._device_step_ms > 0 and t._step_flops > 0
+    assert (flags == (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32))
+    assert (t._log_dir / 'last').is_file()

@@ -1,8 +1,9 @@
 """The port stands alone: it imports, codes (qarv_tiny and qres_tiny, on
-the fused, host and device coders), evaluates (a file sweep, the
-forward-only sweeps), runs rd_tiny's forward and samples from each family
-with jax, flax, msgpack and PIL all blocked, and no file of it imports them
-or the JAX package."""
+the fused, host and device coders, and with the bf16 backbone), evaluates
+(a file sweep, the forward-only sweeps), runs rd_tiny's forward, samples
+from each family and trains with both CLIs with jax, flax, msgpack and PIL
+all blocked, and no file of it imports them or the JAX package (Pillow
+only inside the reader of non-PNG images, datasets/image.py:read_rgb)."""
 import ast
 import os
 import shutil
@@ -71,6 +72,22 @@ for s in (rd.unconditional_sample(64.0, (1, 1, 1)),
 assert 'rd_model_base' in lvae_tpu_torch.registry._all_models
 from lvae_tpu_torch.models import port
 from lvae_tpu_torch.models.rd import evaluate
+# training: every module, the bf16 codec and a short run of each CLI
+from lvae_tpu_torch import train_fix_rate, train_var_rate, training
+from lvae_tpu_torch.datasets import device_cache, image, loader, video
+from lvae_tpu_torch.training import checkpoint, optim, schedules, trainer
+from lvae_tpu_torch.utils import general
+model.compress_mode(num_lanes=16, compute_dtype='bfloat16', portable=True)
+s, recon = model.compress_check(im, lmb=512.0)
+assert np.array_equal(model.decompress(s), recon)
+import os
+os.chdir(sys.argv[4])
+for cli, name in ((train_fix_rate, 'qres_tiny'), (train_var_rate, 'qarv_tiny')):
+    t = cli.main(['--model', name, '--trainset', sys.argv[3], '--valset',
+                  sys.argv[3], '--transform', 'crop=64', '--batch_size', '1',
+                  '--workers', '1', '--iterations', '2', '--val_steps', '2']
+                 [:-2 if cli is train_fix_rate else None], device='cpu')
+    assert t.state.step == 2 and (t._log_dir / 'last').is_file()
 if not torch.cuda.is_available():
     try:
         lvae_tpu_torch.get_model('qarv_tiny')
@@ -91,7 +108,7 @@ def test_port_runs_without_jax_flax_msgpack_pil(tmp_path):
     shutil.copy(ROOT / 'images/collie64.png', dataset)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, '-c', _CHILD, str(png), str(bits),
-                          str(dataset)],
+                          str(dataset), str(tmp_path)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -101,12 +118,24 @@ def test_port_runs_without_jax_flax_msgpack_pil(tmp_path):
     assert bits.stat().st_size > 4
 
 
+# the one import of a forbidden package the port may make: Pillow, inside
+# the reader of non-PNG images, when such a file is read
+LAZY = {('lvae_tpu_torch/datasets/image.py', 'read_rgb', 'PIL')}
+
+
 def _imported_modules(path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    """(module, the function whose body imports it or None) of a file."""
+    tree = ast.parse(path.read_text(), str(path))
+    owner = {}
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for node in ast.walk(fn):
+                owner.setdefault(node, fn.name)
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, owner.get(node)) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, owner.get(node)
 
 
 def test_no_source_imports_the_reference_or_its_packages():
@@ -114,8 +143,14 @@ def test_no_source_imports_the_reference_or_its_packages():
                    if '_build' not in p.parts)         # build output
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 10
+    lazy = set()
     for path in files:
-        for mod in _imported_modules(path):
+        rel = str(path.relative_to(ROOT))
+        for mod, fn in _imported_modules(path):
             for bad in FORBIDDEN:
+                if (rel, fn, bad) in LAZY:
+                    lazy.add((rel, fn, bad))
+                    continue
                 assert not (mod == bad or mod.startswith(bad + '.')), \
-                    f'{path.relative_to(ROOT)} imports {mod}'
+                    f'{rel} imports {mod}'
+    assert lazy == LAZY
