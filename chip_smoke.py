@@ -261,6 +261,21 @@
    time (host clock, and the step alone by CUDA events), a step's
    operations (3 forwards by FlopCounterMode, 4 with --remat) and their
    bound, peak memory, the checkpoint files.
+17. multi-GPU (lvae_tpu_torch/parallel/; one card, so NCCL runs at world
+   size 1 and several ranks share cuda:0 over gloo): dp_nccl1, the float32
+   run of 16 again in a process group of one on NCCL (the step's
+   all_reduce runs), its parameters bitwise the run's without one; then
+   torchrun starts DIST_RANKS ranks of this script (--rank-phases, gloo
+   on cuda:0): dp_gloo2, two ranks of 8 crops against one process's 16,
+   spatial, spatial_eval of qarv_base on photo1 (lambda 512) at 1x2 and
+   1x4 and of qres34m (7's random weights) at 1x2 against the
+   unsharded forward (SPATIAL_RTOL), with the halo exchange's time and
+   share, and dp_sp, the 2x2 (data, space) step at batch 4 against one
+   process's; each step's ranks bitwise equal, its loss and first
+   averaged gradient held against one process (DIST_LOSS_RTOL, DIST_ATOL;
+   the parameters' gap after two Adam steps reported), the gradient
+   all-reduce's time; then NCCL at two ranks on the one card, its refusal
+   recorded, not required.
 
 Standard output: one JSON object per line (build, card (the card's name,
 power limit, driver version, nvcc's version, torch and its CUDA),
@@ -269,7 +284,8 @@ rans_decode_checks, rans_encode_checks, tiled_core, dw_tile, emb_zadd,
 nll_zadd, shuffle, codec, trunk, batch, qres,
 qres_trunk, lossless, lossless_trunk, golden, fresh_process, eval,
 bf16_codec, host_coder, device_coder, qres17m, rd, sampling,
-torch_checkpoint, train), the card line of nvidia-smi, the
+torch_checkpoint, train, dp_nccl1, dp_gloo2, spatial, dp_sp,
+nccl_two_ranks, seconds), the card line of nvidia-smi, the
 kernels line (the rANS kernels' entries with their new_paths: the device
 coder's and qres17m's launches, times and bounds), then the result line.
 Progress goes to standard error. Any failure raises and exits non-zero;
@@ -281,6 +297,7 @@ import math
 import os
 import pickle
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -4943,11 +4960,16 @@ def run_train(torch, tmpdir):
     (copied to the temporary directory, decoded once by --data_cache),
     crop 256, batch 16, Adam at lr 2e-4, TRAIN_STEPS steps, in each of
     TRAIN_RUNS (f32, --amp, --amp --remat, and f32 from the device cache),
-    then a --resume of the f32 run for 2 more steps; train_fix_rate on
-    qres34m (build_qres34m's weights, the z projections scaled by
-    ZPROJ_SCALE where the unscaled loss of a training batch is not
-    finite), 3 steps. Each run in this process through the CLI's main()
-    (working directory: the temporary one)."""
+    then a --resume of the f32 run for 2 more steps; the f32 run again in
+    a process group of one on NCCL (parallel/mesh.init_distributed(backend=
+    'nccl'); the step's all_reduce runs), whose parameters must equal the
+    f32 run's bitwise (dp_nccl1); train_fix_rate on qres34m
+    (build_qres34m's weights, the z projections scaled by ZPROJ_SCALE where
+    the unscaled loss of a training batch is not finite), 3 steps. Each
+    run in this process through the CLI's main() (working directory: the
+    temporary one). -> (the dp_nccl1 line, the train line)."""
+    import torch.distributed as dist
+    from lvae_tpu_torch.parallel import mesh as pmesh
     from lvae_tpu_torch import train_fix_rate, train_var_rate
     from lvae_tpu_torch.training import checkpoint as ckpt
     t0 = time.perf_counter()
@@ -4959,7 +4981,7 @@ def run_train(torch, tmpdir):
     common = ['--trainset', data, '--valset', data] + TRAIN_ARGS
     here = os.getcwd()
     os.chdir(tmpdir)
-    runs = {}
+    runs, flats = {}, {}
     try:
         def run(cli, label, argv):
             torch.cuda.empty_cache()
@@ -4968,6 +4990,8 @@ def run_train(torch, tmpdir):
             trainer = cli.main(argv)
             row = train_row(torch, trainer)
             row['seconds'] = time.perf_counter() - t
+            if label in ('f32', 'dp_nccl1'):
+                flats[label] = trainer.state.flat.cpu()
             # a qarv_base checkpoint is 1.9 GB: keep only what the resume
             # reads
             for name in ('best', 'last_ema', 'best_ema', 'last'):
@@ -5001,6 +5025,21 @@ def run_train(torch, tmpdir):
                 'the resumed run did not carry on the step')
         runs['resume'] = resumed
 
+        # dp_nccl1: the f32 run through a process group of one on NCCL
+        pmesh.init_distributed(backend='nccl')
+        try:
+            nccl1 = run(train_var_rate, 'dp_nccl1', qarv + [
+                '--iterations', str(TRAIN_STEPS), '--name', 'dp_nccl1'])
+            nccl1.update(backend=dist.get_backend(), world_size=
+                         dist.get_world_size())
+        finally:
+            dist.destroy_process_group()
+        nccl1['bitwise_f32_run'] = torch.equal(flats['dp_nccl1'],
+                                               flats['f32'])
+        require(nccl1['bitwise_f32_run'], 'dp_nccl1: the parameters differ '
+                'from the run without a process group')
+        del flats
+
         # qres34m from build_qres34m's weights, as a weights file; its
         # step-0 loss unscaled on a batch of the training set, as the
         # train step computes it
@@ -5032,7 +5071,7 @@ def run_train(torch, tmpdir):
                                zproj_scaled=scaled_zproj)
     finally:
         os.chdir(here)
-    return dict(runs=runs, trainset=os.path.relpath(
+    return nccl1, dict(runs=runs, trainset=os.path.relpath(
         os.path.join(ROOT, 'images'), ROOT) + '/*.png',
         args=TRAIN_ARGS, steps=TRAIN_STEPS,
         step_ms='host clock between metric pulls, median of steps >= 2',
@@ -5043,6 +5082,371 @@ def run_train(torch, tmpdir):
                  "trainer._count_step_flops) / the dense peak (67 TFLOP/s "
                  "float32, 989 TFLOP/s bf16)",
         seconds=time.perf_counter() - t0)
+
+
+# the multi-process phases (lvae_tpu_torch/parallel/): DIST_RANKS processes
+# of torchrun share cuda:0 over gloo (NCCL takes one card a rank), each
+# phase's row written by rank 0 to the work directory (run_distributed)
+DIST_RANKS = 4
+DIST_PHASES = ('dp_gloo2', 'spatial', 'dp_sp')
+DIST_TIMEOUT = 420          # s, the torchrun launch of the three phases
+NCCL_PROBE_TIMEOUT = 90     # s, NCCL's two ranks on the one card
+DIST_SEEDS = (42, 43)       # the steps' noise generators, the same a rank
+DP_BATCH = 16               # global: 8 a rank at two ranks
+DPSP_BATCH = 4              # the 2x2 (data, space) step's global batch
+DIST_LR, DIST_EMA = 2e-4, 0.999
+# against the one-process step: the loss, and each element of the first
+# step's averaged gradient (the summation orders of batch 16 and of two
+# batches of 8, or of slabs, differ)
+DIST_LOSS_RTOL, DIST_ATOL = 1e-5, 5e-6
+SPATIAL_RTOL = 1e-5         # spatial_eval against the unsharded forward
+SPATIAL_LMB = 512.0
+ALLREDUCE_REPEATS = 3
+
+NCCL_PROBE = '''
+import torch, torch.distributed as dist
+from lvae_tpu_torch.parallel import mesh
+mesh.init_distributed(backend='nccl', device='cuda:0')
+t = torch.ones(4, device='cuda:0')
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print('NCCL_ALL_REDUCE', t.tolist(), flush=True)
+dist.destroy_process_group()
+'''
+
+
+def dist_crops(batch):
+    """`batch` 256x256 crops of images/*.png (RandomCropFlip, the trainer's
+    per-batch rng of batch 0) -> NHWC float32 numpy in [0, 1]."""
+    from lvae_tpu_torch.datasets import get_image_dataset
+    from lvae_tpu_torch.datasets.loader import batch_rng
+    ds = get_image_dataset(os.path.join(ROOT, 'images'),
+                           'crop=256,hflip=True')
+    rng = batch_rng(0, 0, 0)
+    return np.stack([ds.get(i % len(ds), rng) for i in range(batch)])
+
+
+def dist_steps(torch, model, weights, batch, mesh):
+    """len(DIST_SEEDS) Adam steps of `model` from `weights` on the global
+    NHWC `batch` (this rank's block of it under `mesh`; all of it with
+    mesh None), each timed on the host clock to a synchronize -> {state,
+    metrics: the last step's as floats, ms: of each step, grad: the first
+    step's averaged gradient, replicate_ms: the broadcast of the state
+    from the mesh's first rank}. The gradient comes from a micro-step at
+    accum_num=2 on a state of its own, which leaves it in grad_accum,
+    halved."""
+    from lvae_tpu_torch import parallel
+    from lvae_tpu_torch.parallel import image_sharding
+    from lvae_tpu_torch.training.optim import TrainState, make_train_step
+
+    def loss_fn(b, g):
+        return model.loss_and_stats(b, training=True, generator=g)
+    if mesh is not None:
+        batch = image_sharding(mesh).local(batch)
+    x = torch.from_numpy(np.ascontiguousarray(batch)).to(
+        model.device).permute(0, 3, 1, 2).contiguous()
+    model.net.load_state_dict(weights)
+    state = TrainState(model.net, optimizer='sgd', ema=False)
+    make_train_step(loss_fn, state, accum_num=2, mesh=mesh)(
+        x, torch.Generator(model.device).manual_seed(DIST_SEEDS[0]),
+        DIST_LR, 1e9, DIST_EMA)
+    grad = state.grad_accum * 2
+    del state
+    model.net.load_state_dict(weights)
+    state = TrainState(model.net, optimizer='adam', ema=True)
+    replicate_ms = None
+    if mesh is not None:
+        # the trainer's start: every rank takes the first rank's state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        parallel.replicate(state, mesh)
+        torch.cuda.synchronize()
+        replicate_ms = 1e3 * (time.perf_counter() - t)
+    step = make_train_step(loss_fn, state, grad_clip=2.0, use_ema=True,
+                           mesh=mesh)
+    ms = []
+    for seed in DIST_SEEDS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(x, torch.Generator(model.device).manual_seed(seed),
+                       DIST_LR, 1e9, DIST_EMA)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return dict(state=state, metrics={k: float(v) for k, v in
+                                      metrics.items()},
+                ms=ms, grad=grad, replicate_ms=replicate_ms)
+
+
+def step_gaps(torch, state, grad, ref):
+    """max |a - b| of the first step's gradient, and of the parameters and
+    the EMA after the steps, against `ref`'s; the gradient's gap over its
+    largest element, and the L2 norm of the difference over the norm."""
+    d = grad - ref['grad']
+    return dict(
+        grad_max_abs=float(d.abs().max()),
+        grad_max=float(ref['grad'].abs().max()),
+        grad_rel_l2=float(torch.linalg.vector_norm(d)
+                          / torch.linalg.vector_norm(ref['grad'])),
+        params_max_abs=float((state.flat - ref['flat']).abs().max()),
+        ema_max_abs=float((state.ema - ref['ema']).abs().max()))
+
+
+def dist_phase_row(torch, dist_utils, name, mesh, one, dp, extra):
+    """A DP step's row on rank 0 (None elsewhere), after every rank of the
+    mesh held its state bitwise equal to the others'. Against the one-
+    process step it requires the loss and the first step's averaged
+    gradient (DIST_LOSS_RTOL, DIST_ATOL) and reports the parameters' and
+    the EMA's gaps after the steps: Adam divides each gradient element by
+    its own magnitude, so an element whose gradient is rounding noise
+    moves by up to the LR whichever way its sum was rounded (ROADMAP C)."""
+    state, metrics = dp['state'], dp['metrics']
+    bitwise = dist_utils.check_model_equivalence(state, mesh)
+    if not mesh.includes_me or mesh.coords != {k: 0 for k in mesh.shape}:
+        return None
+    gaps = step_gaps(torch, state, dp['grad'], one['state'])
+    row = dict(ranks=mesh.size, mesh=dict(mesh.shape), bitwise=bitwise,
+               loss=metrics['loss'], one_process_loss=one['loss'],
+               grad_norm=metrics['grad_norm'], step_ms=dp['ms'],
+               one_process_step_ms=one['ms'], lr=DIST_LR,
+               replicate_ms=dp['replicate_ms'],
+               state_bytes=sum(t.numel() * t.element_size()
+                               for t in state.flat_buffers().values()),
+               **gaps, **extra)
+    require(bitwise, f'{name}: the ranks disagree')
+    require(gaps['grad_max_abs'] <= DIST_ATOL
+            and abs(metrics['loss'] - one['loss'])
+            <= DIST_LOSS_RTOL * abs(one['loss']),
+            f'{name}: off the one-process step: {row}')
+    return row
+
+
+def one_process(torch, model, weights, batch):
+    """The reference: the steps on one process, the whole batch."""
+    dp = dist_steps(torch, model, weights, batch, None)
+    state = dp['state']
+    ref = dict(state={'flat': state.flat.clone(), 'ema': state.ema.clone(),
+                      'grad': dp['grad']}, loss=dp['metrics']['loss'],
+               ms=dp['ms'])
+    del state, dp
+    gc_cuda(torch)
+    return ref
+
+
+def timed_exchange(torch, spatial):
+    """Wraps the halo exchange's forward to sum its time (to a
+    synchronize) -> (the running totals, the undo)."""
+    real = spatial._HaloPad.forward
+    tot = {'ms': 0.0, 'calls': 0}
+
+    def forward(ctx, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(ctx, *args)
+        torch.cuda.synchronize()
+        tot['ms'] += 1e3 * (time.perf_counter() - t)
+        tot['calls'] += 1
+        return out
+    spatial._HaloPad.forward = staticmethod(forward)
+
+    def undo():
+        spatial._HaloPad.forward = staticmethod(real)
+    return tot, undo
+
+
+def sharded_eval(torch, parallel, model, im, n_space, lmb):
+    """spatial_eval at (1, n_space): its stats, the ms of a second call, and
+    a third call with the exchange timed (exchange_ms, its share)."""
+    from lvae_tpu_torch.parallel import spatial
+    mesh = parallel.get_2d_mesh(1, n_space)
+    parallel.spatial_eval(model, im, mesh, lmb=lmb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stats = parallel.spatial_eval(model, im, mesh, lmb=lmb)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    tot, undo = timed_exchange(torch, spatial)
+    try:
+        t = time.perf_counter()
+        parallel.spatial_eval(model, im, mesh, lmb=lmb)
+        torch.cuda.synchronize()
+        timed_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        undo()
+    return stats, dict(ms=ms, exchange_ms=tot['ms'],
+                       exchange_calls=tot['calls'],
+                       exchange_share=tot['ms'] / timed_ms,
+                       ms_with_exchange_timed=timed_ms)
+
+
+def spatial_rows(torch, parallel, dist_utils, model, im, lmb, spaces):
+    """spatial_eval of `model` on `im` at (1, n) for n in spaces against
+    the unsharded forward of rank 0 (rank 0's rows; None elsewhere)."""
+    rank = parallel.process_index()
+    kw = {} if lmb is None else {'lmb': lmb}
+    ref, unsharded_ms = None, None
+    if rank == 0:
+        model.forward(im, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref = model.forward(im, **kw)
+        unsharded_ms = 1e3 * (time.perf_counter() - t)
+    ref = dist_utils.broadcast_object(ref)
+    rows = {}
+    for n in spaces:
+        stats, times = sharded_eval(torch, parallel, model, im, n, lmb)
+        if rank == 0:
+            rel = {k: abs(stats[k] - ref[k]) / abs(ref[k])
+                   for k in ('loss', 'bppix', 'psnr')}
+            rows[f'1x{n}'] = dict(stats=stats, rel_gap=rel, **times)
+            require(all(math.isfinite(stats[k]) for k in rel)
+                    and max(rel.values()) <= SPATIAL_RTOL,
+                    f'spatial_eval at (1, {n}) off the unsharded forward: '
+                    f'{stats} against {ref}')
+    return (dict(unsharded=ref, unsharded_ms=unsharded_ms, **rows)
+            if rank == 0 else None)
+
+
+def rank_phases(work):
+    """One rank of the shared-card phases (run_distributed launches
+    DIST_RANKS of them with torchrun): dp_gloo2, spatial and dp_sp on
+    cuda:0 over gloo. Rank 0 writes each phase's row to work/<phase>.json
+    and raises where a check fails (torchrun then stops the others)."""
+    import torch
+    import lvae_tpu_torch
+    from lvae_tpu_torch import parallel
+    from lvae_tpu_torch.models.base import exact_f32
+    from lvae_tpu_torch.parallel import dist_utils
+    from lvae_tpu_torch.utils import coding
+    parallel.init_distributed(backend='gloo', device='cuda:0')
+    rank = parallel.process_index()
+
+    def write(name, row, t0):
+        if rank == 0:
+            row['seconds'] = time.perf_counter() - t0
+            with open(os.path.join(work, f'{name}.json'), 'w') as f:
+                json.dump(row, f)
+
+    model = lvae_tpu_torch.get_model('qarv_base', pretrained=CHECKPOINT)
+    weights = {k: v.clone() for k, v in model.net.state_dict().items()}
+    with exact_f32():
+        # dp_gloo2: two ranks, 8 images each, against one process's 16
+        t0 = time.perf_counter()
+        batch = dist_crops(DP_BATCH)
+        one = one_process(torch, model, weights, batch) if rank == 0 \
+            else None
+        dist_utils.barrier('one-process step')
+        mesh = parallel.get_data_mesh(ranks=[0, 1])
+        row = None
+        if mesh.includes_me:
+            flat = torch.zeros(sum(p.numel() for p in model.net.parameters()),
+                               device=model.device)
+            ms = []
+            for _ in range(ALLREDUCE_REPEATS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                mesh.mean(flat)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+            extra = dict(gradient_bytes=flat.numel() * 4,
+                         allreduce_ms=ms)
+            del flat
+            dp = dist_steps(torch, model, weights, batch, mesh)
+            row = dist_phase_row(torch, dist_utils, 'dp_gloo2', mesh, one,
+                                 dp, extra)
+            del dp
+        write('dp_gloo2', row, t0)
+        gc_cuda(torch)
+        dist_utils.barrier('dp_gloo2')
+
+        # spatial: qarv_base at (1, 2) and (1, 4), qres34m at (1, 2)
+        t0 = time.perf_counter()
+        model.net.load_state_dict(weights)
+        photo = coding.read_png(PHOTO).astype(np.float32)[None] / 255.0
+        qarv = spatial_rows(torch, parallel, dist_utils, model, photo,
+                            SPATIAL_LMB, (2, 4))
+        qres = build_qres34m(torch)
+        scaled = False
+        if rank == 0:
+            scaled = not math.isfinite(qres.forward(photo)['loss'])
+        if dist_utils.broadcast_object(scaled):
+            scale_zproj(torch, qres, 'z_proj_1')
+        qres_rows = spatial_rows(torch, parallel, dist_utils, qres, photo,
+                                 None, (2,))
+        del qres
+        gc_cuda(torch)
+        write('spatial', dict(
+            image=os.path.relpath(PHOTO, ROOT), qarv_base=dict(
+                lmb=SPATIAL_LMB, **(qarv or {})),
+            qres34m=dict(zproj_scaled=scaled, **(qres_rows or {}))), t0)
+        dist_utils.barrier('spatial')
+
+        # dp_sp: the 2x2 (data, space) step against one process's
+        t0 = time.perf_counter()
+        batch = dist_crops(DPSP_BATCH)
+        one = one_process(torch, model, weights, batch) if rank == 0 \
+            else None
+        dist_utils.barrier('one-process step')
+        mesh = parallel.get_2d_mesh(2, 2)
+        dp = dist_steps(torch, model, weights, batch, mesh)
+        row = dist_phase_row(torch, dist_utils, 'dp_sp', mesh, one, dp, {})
+        write('dp_sp', row, t0)
+    dist_utils.barrier('end')
+    return 0
+
+
+def run_group(cmd, timeout, env=None):
+    """cmd in a process group of its own, every process of it killed at the
+    timeout -> (exit code, or None when it timed out, stdout + stderr)."""
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+        return p.returncode, out
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        return None, out
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def torchrun(nprocs, *args):
+    return [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            f'--nproc_per_node={nprocs}', *args]
+
+
+def run_distributed(tmpdir):
+    """The shared-card phases (rank_phases, DIST_RANKS processes of
+    torchrun) -> {phase: row}; then NCCL at two ranks on the one card, whose
+    refusal is recorded, not required (row 'nccl_two_ranks')."""
+    work = os.path.join(tmpdir, 'dist')
+    os.makedirs(work)
+    t = time.perf_counter()
+    rc, out = run_group(torchrun(DIST_RANKS, os.path.abspath(__file__),
+                                 '--rank-phases', work), DIST_TIMEOUT)
+    seconds = time.perf_counter() - t
+    require(rc == 0, f'the shared-card phases exited {rc}:\n{out[-6000:]}')
+    rows = {}
+    for name in DIST_PHASES:
+        with open(os.path.join(work, f'{name}.json')) as f:
+            rows[name] = json.load(f)
+    probe = os.path.join(work, 'nccl_probe.py')
+    with open(probe, 'w') as f:
+        f.write(NCCL_PROBE)
+    t = time.perf_counter()
+    rc, out = run_group(torchrun(2, probe), NCCL_PROBE_TIMEOUT,
+                        env=dict(os.environ, PYTHONPATH=ROOT))
+    said = [l.strip() for l in out.splitlines()
+            if 'NCCL' in l or 'Duplicate GPU' in l or 'ncclInvalidUsage' in l]
+    rows['nccl_two_ranks'] = dict(
+        exit_code=rc, timed_out=rc is None, refused=rc != 0,
+        all_reduced='NCCL_ALL_REDUCE' in out, said=said[:12],
+        seconds=time.perf_counter() - t)
+    rows['launch_seconds'] = seconds
+    return rows
 
 
 def gc_cuda(torch):
@@ -5205,7 +5609,25 @@ def main():
             emit({'torch_checkpoint': run_torch_checkpoint(torch, model,
                                                            tmpdir)})
         # the trainer sets exact float32 (and restores the flags) itself
-        emit({'train': run_train(torch, tmpdir)})
+        dp_nccl1, train = run_train(torch, tmpdir)
+        emit({'train': train})
+        where = dict(card=card['name'], power_limit=card['power_limit'])
+        emit({'dp_nccl1': dict(dp_nccl1, **where)})
+        gc_cuda(torch)
+        t = time.perf_counter()
+        dist_rows = run_distributed(tmpdir)
+        for phase in DIST_PHASES:
+            emit({phase: dict(dist_rows[phase], **where, backend='gloo',
+                              world_size=DIST_RANKS, device='cuda:0')})
+        emit({'nccl_two_ranks': dict(dist_rows['nccl_two_ranks'], **where,
+                                     backend='nccl', world_size=2,
+                                     device='cuda:0')})
+        dist_seconds = dict(
+            dp_nccl1=dp_nccl1['seconds'],
+            **{p: dist_rows[p]['seconds'] for p in DIST_PHASES},
+            torchrun_launch=dist_rows['launch_seconds'],
+            nccl_two_ranks=dist_rows['nccl_two_ranks']['seconds'],
+            multi_gpu_total=dp_nccl1['seconds'] + time.perf_counter() - t)
 
     # one entry per kernel. The single-image kernels and the trunk's: one
     # photo1 image at the largest lambda on the file path (portable files),
@@ -5441,6 +5863,8 @@ def main():
         max_abs_err=fin['max_abs_err'], tolerance='bitwise',
         ms=fin['ms'], plain_ms=fin['plain_ms'], bound_ms=fin['bound_ms'],
         bound_by=fin['bound_by'], library_ms=None))
+    emit({'seconds': dict(build=info['seconds'], **dist_seconds,
+                          total=elapsed())})
     print(smi, flush=True)
     emit({'kernels': entries})
     print(json.dumps({'ok': True, 'device': {
@@ -5450,4 +5874,5 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(rank_phases(sys.argv[2]) if sys.argv[1:2] == ['--rank-phases']
+             else main())

@@ -91,12 +91,49 @@ def _draw_device(like, generator):
     return like.device if generator is None else generator.device
 
 
+class RowGenerator:
+    """A torch.Generator whose draws are made at the global shape, of which
+    this rank keeps its block: of the leading (batch) dimension the part
+    `batch` = (index, count), and of an NCHW draw's H the part `height` =
+    (index, count). A rank of a sharded step (parallel/spatial.sharded) so
+    draws the rows one process would for the whole batch and image: the
+    JAX package draws the global noise and keeps each device's shard. At
+    (0, 1), (0, 1) the draw is the plain one, bitwise."""
+
+    def __init__(self, generator, batch=(0, 1), height=(0, 1)):
+        self.generator, self.batch, self.height = generator, batch, height
+
+    @property
+    def device(self):
+        return self.generator.device
+
+    def draw(self, fn, shape, dtype=None, device=None):
+        (bi, bn), (hi, hn) = self.batch, self.height
+        full = list(shape)
+        full[0] *= bn
+        if len(shape) == 4:
+            full[2] *= hn
+        x = fn(full, generator=self.generator, dtype=dtype, device=device)
+        x = x[bi * shape[0]:(bi + 1) * shape[0]]
+        if len(shape) == 4:
+            x = x[:, :, hi * shape[2]:(hi + 1) * shape[2]]
+        return x
+
+
+def draw(fn, shape, generator=None, dtype=None, device=None):
+    """fn(shape, generator=, dtype=, device=), torch.rand or torch.randn:
+    this rank's block of a RowGenerator's global draw, or the plain draw."""
+    if isinstance(generator, RowGenerator):
+        return generator.draw(fn, shape, dtype, device)
+    return fn(shape, generator=generator, dtype=dtype, device=device)
+
+
 def uniform_noise(like, generator=None):
     """U(-0.5, 0.5) noise of `like`'s shape and dtype on `like`'s device:
     the training branch's stand-in for rounding, and the sampling blocks'
     dequantization noise. Drawn on `generator`'s device (_draw_device)."""
-    u = torch.rand(like.shape, generator=generator, dtype=like.dtype,
-                   device=_draw_device(like, generator))
+    u = draw(torch.rand, like.shape, generator, like.dtype,
+             _draw_device(like, generator))
     return u.to(like.device) - 0.5
 
 
@@ -104,8 +141,8 @@ def normal_noise(like, generator=None):
     """Standard normal noise of `like`'s shape and dtype on `like`'s device:
     the RD model's reparameterised latents and the sampling blocks' prior
     draws. Drawn on `generator`'s device (_draw_device)."""
-    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
-                       device=_draw_device(like, generator)).to(like.device)
+    return draw(torch.randn, like.shape, generator, like.dtype,
+                _draw_device(like, generator)).to(like.device)
 
 
 def build_indexes(scales, scale_table):

@@ -261,7 +261,7 @@ class QarvModel(VAEModelBase):
         """Per-image lambda, uniform in cube-root space."""
         low, high = self.lmb_range
         lo, hi = low ** (1 / 3), high ** (1 / 3)
-        u = torch.rand(n, generator=generator, device=self.device)
+        u = ec.draw(torch.rand, (n,), generator, device=self.device)
         return torch.pow(u * (hi - lo) + lo, 3)
 
     def loss_and_stats(self, im, lmb=None, training=True, generator=None,

@@ -261,7 +261,7 @@ class RDModel(VAEModelBase):
     def sample_lmb(self, n, generator=None):
         """Per-image lambda, log-uniform over lmb_range."""
         lo, hi = (math.log(v) for v in self.lmb_range)
-        u = torch.rand(n, generator=generator, device=self.device)
+        u = ec.draw(torch.rand, (n,), generator, device=self.device)
         return torch.exp(u * (hi - lo) + lo)
 
     def loss_and_stats(self, im, lmb=None, training=True, generator=None,

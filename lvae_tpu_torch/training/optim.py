@@ -23,10 +23,21 @@ All state lives in flat float32 buffers, one each for the parameters
 accumulator and the EMA: the update is a handful of whole-buffer kernels.
 The step runs on the device with no host synchronisation: the step count,
 the moments' count and the accumulation count are host integers.
+
+Data parallel (and with H sharding, parallel/spatial.py): given a mesh,
+each rank runs the loss on its rows (and slab) under parallel.sharded, so
+that its noise is its rows of the global draw, then averages each
+micro-step's flat gradient and the loss stats over the mesh's ranks (one
+all_reduce each) before it accumulates. Every rank then updates from
+identical buffers: the clip, skip and spike decisions agree and the ranks'
+states stay bitwise equal. On one rank the step is bitwise the one
+without a mesh.
 """
 import numpy as np
 import torch
 import torch.nn as nn
+
+from lvae_tpu_torch.parallel.spatial import sharded
 
 __all__ = ['TrainState', 'make_train_step', 'param_group_label']
 
@@ -84,6 +95,15 @@ class TrainState:
         self.ema = self.flat.clone() if ema else None
         self.step = 0
 
+    def flat_buffers(self):
+        """{name: flat buffer} of the whole state: parameters, gradient
+        accumulator, moments and EMA."""
+        out = dict(flat=self.flat, grad_accum=self.grad_accum,
+                   **self.moments)
+        if self.ema is not None:
+            out['ema'] = self.ema
+        return out
+
     def named(self, flat):
         """{parameter name: its view of a flat buffer}."""
         out, off = {}, 0
@@ -128,11 +148,13 @@ def _f32(x):
 
 
 def make_train_step(loss_fn, state, accum_num=1, grad_clip=2.0, wdecay=0.0,
-                    use_ema=True):
+                    use_ema=True, mesh=None):
     """The train step over `state`:
     step(batch, generator, lr, grad_median, ema_decay) -> metrics, the
     loss_fn's stats and 'grad_norm' as 0-d device tensors (not pulled).
-    loss_fn(batch, generator) -> (loss, stats)."""
+    loss_fn(batch, generator) -> (loss, stats). With a mesh (parallel/):
+    `batch` is this rank's rows (and H slab), `generator` the same on
+    every rank, and gradients and stats are averaged over the mesh."""
     params = state.params
 
     @torch.no_grad()
@@ -175,11 +197,17 @@ def make_train_step(loss_fn, state, accum_num=1, grad_clip=2.0, wdecay=0.0,
         return gnorm
 
     def train_step(batch, generator, lr, grad_median, ema_decay):
-        loss, stats = loss_fn(batch, generator)
+        if mesh is None:
+            loss, stats = loss_fn(batch, generator)
+        else:
+            with sharded(mesh, generator) as rows:
+                loss, stats = loss_fn(batch, rows)
         grads = torch.autograd.grad(loss, params, allow_unused=True,
                                     materialize_grads=True)
         with torch.no_grad():
             g = torch.cat([x.reshape(-1) for x in grads])
+            if mesh is not None:
+                mesh.mean(g)
             state.grad_accum.add_(g if accum_num == 1 else g / accum_num)
         state.accum_count += 1
         state.step += 1
@@ -189,6 +217,10 @@ def make_train_step(loss_fn, state, accum_num=1, grad_clip=2.0, wdecay=0.0,
         else:
             gnorm = torch.linalg.vector_norm(state.grad_accum) * accum_num
         metrics = {k: v.detach() for k, v in stats.items()}
+        if mesh is not None:
+            keys = list(metrics)
+            vals = mesh.mean(torch.stack([metrics[k].float() for k in keys]))
+            metrics = dict(zip(keys, vals))
         metrics['grad_norm'] = gnorm
         return metrics
 

@@ -1,6 +1,8 @@
 """The trainer, counterpart of ``lvae_tpu/training/trainer.py``
-(BaseTrainingWrapper) on one device: `TrainWrapper(cfg, device).main()`,
-with the subclass hooks set_dataset() and eval_model().
+(BaseTrainingWrapper): `TrainWrapper(cfg, device).main()`, with the
+subclass hooks set_dataset() and eval_model(). One process a device; under
+torchrun (`python -m torch.distributed.run --nproc_per_node=N -m
+lvae_tpu_torch.train_var_rate ...`) data parallel over the ranks:
 
   * the LR schedule every 10 steps, the EMA decay ema_decay * (1 -
     exp(-step / warmup)) and the moving grad-norm median, computed on the
@@ -17,6 +19,14 @@ with the subclass hooks set_dataset() and eval_model().
   * the step's operations from torch.utils.flop_counter's count of its
     forward (_count_step_flops), and --probe_device_step times the step
     alone with CUDA events
+  * data parallel: parallel/mesh.init_distributed picks the rank's device
+    (cuda:LOCAL_RANK unless --device says otherwise) and joins the group;
+    each loader draws the rank's shard; the state is checked equal across
+    ranks after it is built or read and taken from rank 0; the step
+    averages gradients and stats over the ranks (training/optim.py), so
+    every rank skips, cuts and aborts on the same step; rank 0 alone
+    writes the run directory, logs, evaluates and checkpoints; the noise
+    seed is 2 + rank, as in the JAX trainer
 
 Training runs under models/base.exact_f32() (no TF32, deterministic cuDNN
 algorithms), so that the card and the CPU compute the same float32
@@ -37,10 +47,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lvae_tpu_torch.datasets.loader import make_trainloader
 from lvae_tpu_torch.datasets.image import parse_transform_cfg
-from lvae_tpu_torch.models.base import exact_f32, resolve_device
+from lvae_tpu_torch.models.base import exact_f32
+from lvae_tpu_torch.parallel import dist_utils
+from lvae_tpu_torch.parallel import mesh as pmesh
 from lvae_tpu_torch.registry import get_model
 from lvae_tpu_torch.training import checkpoint as ckpt
 from lvae_tpu_torch.training.optim import TrainState, make_train_step
@@ -65,7 +78,14 @@ class BaseTrainingWrapper:
 
     def __init__(self, cfg, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = pmesh.init_distributed(device=device)
+        self.world_size = pmesh.process_count()
+        self.local_rank = pmesh.process_index()
+        self.distributed = self.world_size > 1
+        self.is_main = self.local_rank == 0
+        # a process group of one (torchrun --nproc_per_node=1) still runs
+        # the step's collectives
+        self.mesh = pmesh.get_data_mesh() if dist.is_initialized() else None
         self._cur_iter = 0
         self._cur_epoch = 0.0
         self._best_loss = math.inf
@@ -83,9 +103,6 @@ class BaseTrainingWrapper:
         self.wbrun = None
         # per step, as consumed: {'step', 'loss', 'grad_norm', 'seconds'}
         self.history = []
-        # one device: world size 1, rank 0
-        self.world_size = 1
-        self.local_rank = 0
 
     # ------------------------------------------------------------------ setup
     def main(self):
@@ -96,6 +113,7 @@ class BaseTrainingWrapper:
             self.set_model()
             self.set_optimizer()
             self.set_pretrain()
+            self.sync_state()
             self.set_wandb()
             self.training_loops()
         return self
@@ -103,19 +121,24 @@ class BaseTrainingWrapper:
     def set_logging(self):
         cfg = self.cfg
         logging.basicConfig(handlers=[utils.my_stream_handler()],
-                            level=logging.INFO, force=True)
+                            level=logging.INFO if self.is_main
+                            else logging.WARNING, force=True)
         log_parent = Path(f'runs/{cfg.wbproject}').resolve()
         if cfg.resume is not None:
             log_dir = log_parent / str(cfg.resume)
             if not log_dir.is_dir():
                 raise FileNotFoundError(
                     f'Cannot resume: {log_dir} does not exist')
-        else:
+        elif self.is_main:
             run_name = cfg.name or utils.increment_dir(log_parent,
                                                        name=cfg.model)
             log_dir = log_parent / str(run_name)
             os.makedirs(log_dir, exist_ok=False)
             utils.json_dump(vars(cfg), fpath=log_dir / 'config.json')
+        # every rank reads the run directory rank 0 made (for a resume, its
+        # checkpoint), and writes nothing there
+        log_dir = Path(dist_utils.broadcast_object(
+            str(log_dir) if self.is_main else None))
         logging.info(f'Logging run at {log_dir}')
         self.cfg.log_dir = str(log_dir)
         self._log_dir = log_dir
@@ -125,7 +148,8 @@ class BaseTrainingWrapper:
         bs_effective = cfg.batch_size * self.world_size * cfg.accum_num
         logging.info(f'Batch size = {cfg.batch_size}; effective = '
                      f'{bs_effective}; lr = {cfg.lr}; wdecay = {cfg.wdecay}; '
-                     f'device = {self.device}')
+                     f'device = {self.device}; world size = '
+                     f'{self.world_size}')
         cfg.bs_effective = bs_effective
         cfg.world_size = self.world_size
         self._log_ema_weight = 5.0 / (cfg.wandb_log_interval + 8.0)
@@ -151,6 +175,7 @@ class BaseTrainingWrapper:
             from lvae_tpu_torch.datasets.device_cache import DeviceDataLoader
             loader = DeviceDataLoader(
                 dataset, batch_size=cfg.batch_size, device=self.device,
+                num_shards=self.world_size, shard_id=self.local_rank,
                 seed=self._data_seed, start_batch=start_batch)
             logging.info(f'device data cache: {len(dataset)} images '
                          f'({loader.images.numel() / 1e9:.2f} GB on the '
@@ -160,6 +185,7 @@ class BaseTrainingWrapper:
         else:
             loader, self.trainsampler = make_trainloader(
                 dataset, batch_size=cfg.batch_size, workers=cfg.workers,
+                num_shards=self.world_size, shard_id=self.local_rank,
                 seed=self._data_seed, start_batch=start_batch)
         self.trainloader = loader
 
@@ -185,7 +211,9 @@ class BaseTrainingWrapper:
         cfg.num_param = model.num_params()
         logging.info(f'Model {cfg.model}, args={kwargs}, '
                      f'{cfg.num_param / 1e6:.2f}M params')
-        utils.print_to_file(str(model.net), fpath=self._log_dir / 'model.txt')
+        if self.is_main:
+            utils.print_to_file(str(model.net),
+                                fpath=self._log_dir / 'model.txt')
         self.model = model
 
     def set_optimizer(self):
@@ -201,7 +229,8 @@ class BaseTrainingWrapper:
             f'bias:    lr={cfg.lr}, weight_decay=0.0',
             f'other:   lr={cfg.lr}, weight_decay=0.0',
         ]
-        utils.json_dump(groups, fpath=self._log_dir / 'optimizer.json')
+        if self.is_main:
+            utils.json_dump(groups, fpath=self._log_dir / 'optimizer.json')
         logging.info('optimizer parameter groups: ' + ', '.join(
             f'[{k}: {len(v)}]' for k, v in groups.items()))
 
@@ -219,7 +248,8 @@ class BaseTrainingWrapper:
         self.peak_flops = self._peak_flops_of()
         self._train_step = make_train_step(
             loss_fn, self.state, accum_num=cfg.accum_num,
-            grad_clip=cfg.grad_clip, wdecay=cfg.wdecay, use_ema=cfg.ema)
+            grad_clip=cfg.grad_clip, wdecay=cfg.wdecay, use_ema=cfg.ema,
+            mesh=self.mesh)
 
     def set_pretrain(self):
         cfg = self.cfg
@@ -251,9 +281,26 @@ class BaseTrainingWrapper:
         else:
             logging.info('Training from scratch (no pretrained weights).')
 
+    def sync_state(self):
+        """Every rank takes rank 0's state. A state read from a file
+        (--resume, --weights) must already be equal on every rank; a
+        random start that is not (a run without --fixseed) is logged."""
+        if not self.distributed:
+            return
+        same = dist_utils.check_model_equivalence(self.state, self.mesh)
+        if not same and (self.cfg.resume is not None
+                         or self.cfg.weights is not None):
+            raise RuntimeError('the state read from the checkpoint differs '
+                               'across ranks')
+        if not same:
+            logging.warning('the random start differs across ranks; rank '
+                            "0's is taken")
+        pmesh.replicate(self.state, self.mesh)
+
     def set_wandb(self):
         cfg = self.cfg
-        if getattr(cfg, 'wbmode', 'disabled') == 'disabled':
+        if getattr(cfg, 'wbmode', 'disabled') == 'disabled' \
+                or not self.is_main:
             return
         try:
             import wandb
@@ -303,7 +350,7 @@ class BaseTrainingWrapper:
         (step_peak_bytes), on a copy of the state that is restored
         afterwards; no data loading and no metric pulls."""
         st = self.state
-        saved = [t.clone() for t in self._state_buffers()]
+        saved = [t.clone() for t in st.flat_buffers().values()]
         counts = (st.count, st.accum_count, st.step)
         args = (1e-9, 1e9, 0.5)
         g = torch.Generator(self.device).manual_seed(0)
@@ -322,7 +369,7 @@ class BaseTrainingWrapper:
         self.step_peak_bytes = torch.cuda.max_memory_allocated(
             self.device) - sum(t.numel() * t.element_size() for t in saved)
         with torch.no_grad():
-            for t, s in zip(self._state_buffers(), saved):
+            for t, s in zip(st.flat_buffers().values(), saved):
                 t.copy_(s)
         st.count, st.accum_count, st.step = counts
         self._device_step_ms = float(np.median(times))
@@ -331,21 +378,17 @@ class BaseTrainingWrapper:
         logging.info(f'device-only step: {self._device_step_ms:.1f} ms '
                      f'(device MFU {self._device_mfu * 100:.1f}%)')
 
-    def _state_buffers(self):
-        st = self.state
-        return [st.flat, st.grad_accum, *st.moments.values()] + \
-            ([st.ema] if st.ema is not None else [])
-
     # ------------------------------------------------------------- main loop
     def training_loops(self):
         cfg = self.cfg
         pbar = range(self._cur_iter, cfg.iterations)
-        try:
-            from tqdm import tqdm
-            pbar = tqdm(pbar)
-        except ImportError:
-            pass
-        self.init_progress_table()
+        if self.is_main:
+            try:
+                from tqdm import tqdm
+                pbar = tqdm(pbar)
+            except ImportError:
+                pass
+            self.init_progress_table()
         seed = 2 + self.local_rank if cfg.fixseed else int(time.time())
         gen = torch.Generator(self.device)
         # the LR of the last step the schedule was read at (every 10)
@@ -403,6 +446,8 @@ class BaseTrainingWrapper:
                     self.clean_and_exit()
             else:
                 self._nonfinite_streak = 0
+            if not self.is_main:
+                return
             cur = self._cur_iter
             self._cur_iter = step_p          # log under the step's own index
             self.minibatch_log(pbar, metrics, lr_p)
@@ -542,7 +587,13 @@ class BaseTrainingWrapper:
     @torch.no_grad()
     def evaluate(self):
         """Evaluate the plain weights, then the EMA (swapped into the
-        network and back), each followed by its checkpoints."""
+        network and back), each followed by its checkpoints: on rank 0,
+        while the other ranks wait."""
+        if self.is_main:
+            self._evaluate()
+        dist_utils.barrier('evaluate')
+
+    def _evaluate(self):
         cfg = self.cfg
         self._host_state = self.state.state_dict()
         results = self.eval_model(self.model)
@@ -588,7 +639,11 @@ class BaseTrainingWrapper:
             logging.info(f'New best loss = {cur_loss}')
 
     def clean_and_exit(self):
-        logging.error('Terminating the run ...')
-        ckpt.save_checkpoint(self._log_dir / 'failed',
-                             {'state': self.state.state_dict()})
+        """Every rank stops on the same step (the streak is decided from
+        averaged stats); rank 0 writes the failed dump first."""
+        logging.error(f'Terminating the run on rank {self.local_rank} ...')
+        if self.is_main:
+            ckpt.save_checkpoint(self._log_dir / 'failed',
+                                 {'state': self.state.state_dict()})
+        dist_utils.barrier('failed')
         raise SystemExit('Training terminated on non-finite steps.')

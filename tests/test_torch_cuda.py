@@ -21,7 +21,9 @@ device coder's decode against the host coder's, qres17m's legacy
 batch round trip, rd_tiny's forward on the card against the CPU on
 CPU-drawn noise, and the decoder on a tiny model's own latents equal to
 its reconstruction, the bf16 backbone's round trips (both trunks, B = 1
-and 2) and a train step of each precision. Skips without a card. On the card (which has no JAX, so the suite's
+and 2), a train step of each precision, and two gloo ranks sharing the
+card (the halo exchange and its gradient, the data-parallel step). Skips
+without a card. On the card (which has no JAX, so the suite's
 conftest cannot load):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1337,3 +1339,103 @@ def test_one_train_step_on_card(card, amp, tmp_path, monkeypatch):
     assert (flags == (torch.backends.cudnn.allow_tf32,
                       torch.backends.cuda.matmul.allow_tf32))
     assert (t._log_dir / 'last').is_file()
+
+
+_CARD_RANK = r'''
+import hashlib, json, sys
+import numpy as np
+import torch
+import lvae_tpu_torch
+from lvae_tpu_torch import parallel
+from lvae_tpu_torch.models.base import exact_f32
+from lvae_tpu_torch.parallel import dist_utils
+from lvae_tpu_torch.training.optim import TrainState, make_train_step
+
+work = sys.argv[1]
+device = parallel.init_distributed(backend='gloo', device='cuda:0')
+rank = parallel.process_index()
+out = {}
+# the halo exchange and its gradient: a 7x7 / 5x5 stride-2 deconv / 3x3
+# stack in float64, H split over the two ranks
+torch.manual_seed(3)
+net = torch.nn.Sequential(
+    torch.nn.Conv2d(3, 8, 7, padding=3), torch.nn.GELU(),
+    torch.nn.ConvTranspose2d(8, 8, 5, stride=2, padding=2, output_padding=1),
+    torch.nn.Conv2d(8, 4, 3, padding=1)).double().to(device)
+g = torch.Generator().manual_seed(5)
+x = torch.randn(2, 3, 16, 8, generator=g, dtype=torch.float64).to(device)
+w = torch.randn(2, 4, 32, 16, generator=g, dtype=torch.float64).to(device)
+mesh = parallel.get_2d_mesh(1, 2)
+sh = parallel.Sharding(mesh, (None, None, 'space'))
+xs = sh.local(x).clone().requires_grad_()
+with parallel.sharded(mesh):
+    y = net(xs)
+grads = torch.autograd.grad((y * sh.local(w)).sum(), [xs, net[0].weight])
+torch.distributed.all_reduce(grads[1])
+x = x.clone().requires_grad_()
+want = torch.autograd.grad((net(x) * w).sum(), [x, net[0].weight])
+out['halo'] = [float((y - sh.local(net(x))).abs().max()),
+               float((grads[0] - sh.local(want[0])).abs().max()),
+               float((grads[1] - want[1]).abs().max())]
+
+# the data-parallel step on qres_tiny, 2 ranks x 2 images
+model = lvae_tpu_torch.get_model('qres_tiny', device=device)
+model.net.load_state_dict(torch.load(f'{work}/weights.pt',
+                                     weights_only=True))
+state = TrainState(model.net, optimizer='adam', ema=True)
+dmesh = parallel.get_data_mesh()
+step = make_train_step(
+    lambda b, g: model.loss_and_stats(b, training=True, generator=g),
+    state, grad_clip=2.0, mesh=dmesh)
+batch = parallel.shard_batch(np.load(f'{work}/batch.npy'), dmesh,
+                             device=device).permute(0, 3, 1, 2).contiguous()
+with exact_f32():
+    for i in range(2):
+        m = step(batch, torch.Generator(device).manual_seed(42 + i), 1e-3,
+                 1e9, 0.9)
+out['loss'] = float(m['loss'])
+out['equal'] = dist_utils.check_model_equivalence(state, dmesh)
+if rank == 0:
+    torch.save({'flat': state.flat.cpu(), 'ema': state.ema.cpu()},
+               f'{work}/dp.pt')
+print('RESULT ' + json.dumps(out), flush=True)
+'''
+
+
+def test_halo_exchange_and_dp_step_at_two_gloo_ranks_on_card(card,
+                                                             tmp_path):
+    """Two gloo ranks sharing the card (tests/torch_ranks.py): the halo
+    exchange's forward and gradient against the unsharded stack, and the
+    data-parallel step on qres_tiny, its ranks bitwise equal and within
+    atol 5e-6 of the one-process step on the card."""
+    import json
+
+    import torch_ranks
+    from lvae_tpu_torch.training.optim import TrainState, make_train_step
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model('qres_tiny', device=card)
+    torch.save(model.net.state_dict(), tmp_path / 'weights.pt')
+    batch = np.random.default_rng(3).uniform(0, 1, (4, 64, 64, 3)).astype(
+        np.float32)
+    np.save(tmp_path / 'batch.npy', batch)
+    script = tmp_path / 'rank.py'
+    script.write_text(_CARD_RANK)
+    outs = torch_ranks.launch(script, 2, args=(tmp_path,), timeout=240)
+    r0, r1 = (json.loads(next(l for l in o.splitlines()
+                              if l.startswith('RESULT '))[7:]) for o in outs)
+    assert max(r0['halo']) < 1e-10 and max(r1['halo']) < 1e-10
+    assert r0['loss'] == r1['loss'] and r0['equal'] and r1['equal']
+    state = TrainState(model.net, optimizer='adam', ema=True)
+    step = make_train_step(
+        lambda b, g: model.loss_and_stats(b, training=True, generator=g),
+        state, grad_clip=2.0)
+    x = torch.as_tensor(batch, device=card).permute(0, 3, 1, 2).contiguous()
+    from lvae_tpu_torch.models.base import exact_f32
+    with exact_f32():
+        for i in range(2):
+            m = step(x, torch.Generator(card).manual_seed(42 + i), 1e-3,
+                     1e9, 0.9)
+    assert r0['loss'] == pytest.approx(float(m['loss']), rel=1e-5)
+    got = torch.load(tmp_path / 'dp.pt', weights_only=True)
+    for k, want in (('flat', state.flat), ('ema', state.ema)):
+        assert float((got[k] - want.cpu()).abs().max()) <= 5e-6, k

@@ -50,6 +50,17 @@ LOG2_E = math.log2(math.e)
 SIZES = [(100, 90), (128, 128)]
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's torch calls: under the suite's
+    parallel workers torch's default of one thread a core oversubscribes
+    the machine, and these small calls then spend their time waiting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _redraw_prior(params, rng):
     """Each QRes prior's last conv at lecun-normal scale (flax
     zero-initialises it: pm = 0 and one scale everywhere)."""

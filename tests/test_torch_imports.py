@@ -1,9 +1,10 @@
 """The port stands alone: it imports, codes (qarv_tiny and qres_tiny, on
 the fused, host and device coders, and with the bf16 backbone), evaluates
-(a file sweep, the forward-only sweeps), runs rd_tiny's forward, samples
-from each family and trains with both CLIs with jax, flax, msgpack and PIL
-all blocked, and no file of it imports them or the JAX package (Pillow
-only inside the reader of non-PNG images, datasets/image.py:read_rgb)."""
+(a file sweep, the forward-only sweeps, H-sharded eval on a 1x1 grid),
+runs rd_tiny's forward, samples from each family and trains with both
+CLIs with jax, flax, msgpack and PIL all blocked, and no file of it
+imports them or the JAX package (Pillow only inside the reader of non-PNG
+images, datasets/image.py:read_rgb)."""
 import ast
 import os
 import shutil
@@ -80,6 +81,12 @@ from lvae_tpu_torch.utils import general
 model.compress_mode(num_lanes=16, compute_dtype='bfloat16', portable=True)
 s, recon = model.compress_check(im, lmb=512.0)
 assert np.array_equal(model.decompress(s), recon)
+# the multi-process modules, at world size 1: H-sharded eval on a 1x1 grid
+from lvae_tpu_torch import parallel
+from lvae_tpu_torch.parallel import dist_utils, mesh, spatial
+stats = parallel.spatial_eval(model, im, parallel.get_2d_mesh(1, 1), lmb=512.0)
+assert np.isfinite(stats['loss']) and dist_utils.check_model_equivalence(
+    model.net)
 import os
 os.chdir(sys.argv[4])
 for cli, name in ((train_fix_rate, 'qres_tiny'), (train_var_rate, 'qarv_tiny')):

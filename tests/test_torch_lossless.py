@@ -61,6 +61,17 @@ SHAPE = (2, 64, 64, 3)
 f32 = np.float32
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's torch calls: under the suite's
+    parallel workers torch's default of one thread a core oversubscribes
+    the machine, and these small calls then spend their time waiting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---- the two kernels' plain versions ----------------------------------------
 
 def _nudge(x, k):

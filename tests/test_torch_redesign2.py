@@ -28,6 +28,17 @@ _CASES = ('every_lane_renormalises', 'no_lane_renormalises',
           'stream_cut_short', 'ends_mid_row', 'ring_wraps')
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's torch calls: under the suite's
+    parallel workers torch's default of one thread a core oversubscribes
+    the machine, and these small calls then spend their time waiting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _corners(table, N):
     cdfs, offs = rd.prepare_device_cdf(cdf.build_cdf_table(_TABLES[table]))
