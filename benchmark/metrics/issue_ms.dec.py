@@ -1,0 +1,7 @@
+"""Host milliseconds of one dispatch call over the window's requests
+(harness/readers.py)."""
+from harness.readers import issue_ms
+
+
+def read(run):
+    return issue_ms(run) if run.direction == 'dec' else None
