@@ -130,10 +130,7 @@
    seven trunk kernels held against their plain versions as in 4 on the
    inputs of that request at B = 6 and at B = 3 (every distinct shape); the
    dispatch run under torch.cuda.set_sync_debug_mode('error') on both
-   trunks; the launches
-   of each call counted; and bench.py's serving timings (photo1 x 6 at
-   lambda 512: per-image latency and the pipelined loop) beside the
-   single-image path's;
+   trunks; and the launches of each call counted;
 7. runs qres34m at full width (random weights from a seeded generator,
    each prior's last conv re-drawn, N = 128, esc_cap 1 << 18) on photo1 on
    the portable trunk: compress_file / decompress_file and compress /
@@ -320,7 +317,7 @@ PHOTOS = [os.path.join(ROOT, 'images', f'photo{i}_512x768.png')
 SWEEP = os.path.join(ROOT, 'runs', 'results',
                      'realphotos-r5mix-qarv_base.json')
 BATCH_LAMBDAS = (776.0468820533245, 2048.0)
-SERVING_B, SERVING_LMB, SERVING_K = 6, 512.0, 5    # bench.py:418-466
+SERVING_B = 6                                      # bench.py:418-466
 LAMBDAS = (16.0, 512.0, 2048.0)
 # the JAX package's results (runs/suite4-r5mix.json): (bpp, PSNR dB); the
 # photo1 ones gate the run, hopper's is reported beside the port's
@@ -1485,55 +1482,6 @@ def _host_ms(torch, fn, repeats=3):
     return sorted(times)[len(times) // 2], out
 
 
-def serving_times(torch, model, photo):
-    """bench.py's serving section (bench.py:418-466) on photo1 x 6 at
-    lambda 512, word_cap 1<<17, esc_cap 8192, device-resident input:
-    per-image latency (compress_batch + decompress_batch_to_device) / 6,
-    each the median of 3 after a warm-up; the pipelined loop of K = 5
-    batches (dispatch batch k+1 before finishing batch k) per image; and the
-    single-image path's enc + dec on the same image, timed the same way."""
-    B, lmb, K = SERVING_B, SERVING_LMB, SERVING_K
-    model.compress_mode(num_lanes='auto', portable=True, word_cap=1 << 17,
-                        esc_cap=8192)
-    im = torch.as_tensor(photo.astype(np.float32) / 255.0,
-                         device=model.device)[None]
-    ims = im.expand(B, -1, -1, -1).contiguous()
-    lmbs = [lmb] * B
-    enc_ms, bodies = _host_ms(torch, lambda: model.compress_batch(ims, lmbs))
-    dec_ms, _ = _host_ms(torch,
-                         lambda: model.decompress_batch_to_device(bodies))
-    h = model.compress_batch_async(ims, lmb=lmbs)
-    t = time.perf_counter()
-    for _ in range(K):
-        h_next = model.compress_batch_async(ims, lmb=lmbs)
-        bodies = model.compress_batch_finish(h)
-        h = h_next
-    enc_pipe = (time.perf_counter() - t) / K
-    bodies = model.compress_batch_finish(h)
-    prev = model.decompress_batch_to_device(bodies)
-    t = time.perf_counter()
-    for _ in range(K):
-        nxt = model.decompress_batch_to_device(bodies)
-        prev[0, :1, :1, 0].cpu()             # the previous batch is done
-        prev = nxt
-    dec_pipe = (time.perf_counter() - t) / K
-    torch.cuda.synchronize()
-    single_enc, bits = _host_ms(torch, lambda: model.compress(im, lmb=lmb))
-    single_dec, _ = _host_ms(torch, lambda: model.decompress_to_device(bits))
-    out = dict(images=B, lmb=lmb, lanes=struct.unpack('<H', bodies[0][18:20])[
-        0] & 0x7FFF, word_cap=1 << 17, esc_cap=8192,
-        batch_enc_ms=enc_ms, batch_dec_ms=dec_ms,
-        latency_ms_per_image=(enc_ms + dec_ms) / B,
-        pipelined_ms_per_image=(enc_pipe + dec_pipe) * 1e3 / B,
-        single_enc_ms=single_enc, single_dec_ms=single_dec,
-        single_ms_per_image=single_enc + single_dec,
-        bpp=(len(bodies[0]) + 4) * 8 / (photo.shape[0] * photo.shape[1]))
-    progress(f'serving B={B} lambda {lmb:g}: {out["latency_ms_per_image"]:.2f}'
-             f' ms/image, pipelined {out["pipelined_ms_per_image"]:.2f}, '
-             f'single image {out["single_ms_per_image"]:.2f} ms')
-    return out
-
-
 def run_batch(torch, model, tmpdir):
     """The batch main path on the portable trunk, with its checks (see the
     module docstring, 6). -> (result dict, {kernel: launches} of the B = 6
@@ -1619,8 +1567,6 @@ def run_batch(torch, model, tmpdir):
             model.compress_batch_finish(handle) == want
             and (not portable or want == bodies))
 
-    # 5. bench.py's serving timings
-    serving = serving_times(torch, model, photos[0])
     model.compress_mode(num_lanes='auto', portable=True)
 
     result = dict(
@@ -1636,8 +1582,7 @@ def run_batch(torch, model, tmpdir):
         chunked_encode_launches=chunk_enc_l,
         chunked_decode_launches=chunk_dec_l,
         dispatch_without_host_sync=['portable', 'legacy'],
-        dispatch_same_bytes=no_sync_same,
-        serving=serving)
+        dispatch_same_bytes=no_sync_same)
     progress(f'batch B=6: bit_exact={bit_exact} alone={result["batch_stream_alone_bitwise"]} '
              f'singles={singles_ok} chunks={split} chunked={chunk_ok} '
              f'no_sync_same={no_sync_same}')

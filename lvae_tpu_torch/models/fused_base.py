@@ -66,7 +66,7 @@ from lvae_tpu_torch.ops import rans_decode as rd
 from lvae_tpu_torch.ops import rans_encode as re_
 from lvae_tpu_torch.ops import trunk
 from lvae_tpu_torch.ops.trunk import pixel_shuffle_nhwc
-from lvae_tpu_torch.utils import coding
+from lvae_tpu_torch.utils import coding, trace
 
 
 def patch_escapes(z, esc_pos, esc_val, start):
@@ -286,7 +286,7 @@ class FusedCodecBase:
         B, _, imH, imW = im.shape
         ms = self.net.max_stride
         posterior_symbols, _ = self._posterior_symbols(im)
-        with self.trunk_scope():
+        with trace.span('enc.trunk'), self.trunk_scope():
             feature, tctx, syms_flat, idx_flat = self._trunk(
                 ctx, B, imH // ms, imW // ms, posterior_symbols)
             if self.head_index_base is None:
@@ -332,17 +332,19 @@ class FusedCodecBase:
             nsym = flat_idx.shape[1]
             T = max((nsym + N - 1) // N, 1)
             idx_rows = F.pad(flat_idx, (0, T * N - nsym)).reshape(B, T, N)
-            if batch:
-                vals, carry['states'], carry['ptr'] = (
-                    rd.rans_decode_block_multi(
-                        idx_rows, carry['states'], carry['ptr'], streams,
-                        cdfs, offsets, nsym, num_lanes=N))
-            else:
-                vals, carry['states'], carry['ptr'] = rd.rans_decode_block(
-                    idx_rows[0], carry['states'], carry['ptr'], streams[0],
-                    cdfs, offsets, nsym, num_lanes=N)
-            z = patch_escapes(vals.reshape(B, -1)[:, :nsym], esc_pos, esc_val,
-                              carry['start'])
+            with trace.span('dec.rans'):
+                if batch:
+                    vals, carry['states'], carry['ptr'] = (
+                        rd.rans_decode_block_multi(
+                            idx_rows, carry['states'], carry['ptr'], streams,
+                            cdfs, offsets, nsym, num_lanes=N))
+                else:
+                    vals, carry['states'], carry['ptr'] = (
+                        rd.rans_decode_block(
+                            idx_rows[0], carry['states'], carry['ptr'],
+                            streams[0], cdfs, offsets, nsym, num_lanes=N))
+                z = patch_escapes(vals.reshape(B, -1)[:, :nsym], esc_pos,
+                                  esc_val, carry['start'])
             carry['start'] += nsym
             return z
 
@@ -352,7 +354,7 @@ class FusedCodecBase:
                              self.cdfs, self.offsets)
             return self._from(z.reshape(shape), 'NHWC')
 
-        with self.trunk_scope():
+        with trace.span('dec.trunk'), self.trunk_scope():
             feature, tctx, _, _ = self._trunk(ctx, B, nH, nW,
                                               decoded_symbols)
             if self.head_index_base is None:
@@ -368,26 +370,29 @@ class FusedCodecBase:
         """Escapes, row layout, the rANS encode kernel and the payload.
         syms_flat/idx_flat: flat int32 tensors, one per latent block in
         decode order (NHWC symbol order)."""
-        N, esc_cap = self.N, self.esc_cap
-        values = torch.cat(syms_flat)
-        idx_all = torch.cat(idx_flat)
-        inband, esc_mask = re_.prepare_inband(values, idx_all,
-                                              self.enc_offsets,
-                                              self.enc_lengths)
-        n_esc_true = esc_mask.sum()
-        esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values, esc_cap)
+        with trace.span('enc.pack'):
+            N, esc_cap = self.N, self.esc_cap
+            values = torch.cat(syms_flat)
+            idx_all = torch.cat(idx_flat)
+            inband, esc_mask = re_.prepare_inband(values, idx_all,
+                                                  self.enc_offsets,
+                                                  self.enc_lengths)
+            n_esc_true = esc_mask.sum()
+            esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values,
+                                                        esc_cap)
 
-        sym_cat, idx_cat, row_n, w_cap = self._row_layout(
-            inband[None], idx_all[None], [v.shape[0] for v in syms_flat])
-        packed, n_words, states = re_.rans_encode_all(
-            sym_cat[0], idx_cat[0], row_n, self.enc_cdfs, num_lanes=N,
-            w_cap=w_cap)
-        head = torch.cat([
-            torch.stack([n_words, n_esc_true.to(torch.int32),
-                         n_words.new_full((), N)]),
-            states.reshape(-1)])
-        esc_pairs = torch.stack([esc_pos, esc_val], dim=1).reshape(-1)
-        return torch.cat([head, _place_escapes(packed, n_words, esc_pairs)])
+            sym_cat, idx_cat, row_n, w_cap = self._row_layout(
+                inband[None], idx_all[None], [v.shape[0] for v in syms_flat])
+            packed, n_words, states = re_.rans_encode_all(
+                sym_cat[0], idx_cat[0], row_n, self.enc_cdfs, num_lanes=N,
+                w_cap=w_cap)
+            head = torch.cat([
+                torch.stack([n_words, n_esc_true.to(torch.int32),
+                             n_words.new_full((), N)]),
+                states.reshape(-1)])
+            esc_pairs = torch.stack([esc_pos, esc_val], dim=1).reshape(-1)
+            return torch.cat([head,
+                              _place_escapes(packed, n_words, esc_pairs)])
 
     def pack_payload_batch(self, syms_flat, idx_flat):
         """pack_payload for B same-shape images in one pass: the escape
@@ -395,27 +400,29 @@ class FusedCodecBase:
         launch. syms_flat/idx_flat: (B, nsym) int32 tensors, one per latent
         block in decode order. Returns (B, P) payload rows, row b equal to
         pack_payload on image b's symbols alone."""
-        N, esc_cap = self.N, self.esc_cap
-        values = torch.cat(syms_flat, 1)                        # (B, total)
-        idx_all = torch.cat(idx_flat, 1)
-        B = values.shape[0]
-        inband, esc_mask = re_.prepare_inband(values, idx_all,
-                                              self.enc_offsets,
-                                              self.enc_lengths)
-        n_esc_true = esc_mask.sum(1)
-        esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values, esc_cap)
-        sym_cat, idx_cat, row_n, w_cap = self._row_layout(
-            inband, idx_all, [v.shape[1] for v in syms_flat])
-        packed, n_words, states = re_.rans_encode_all_multi(
-            sym_cat, idx_cat, row_n, self.enc_cdfs, num_lanes=N,
-            w_cap=w_cap)
-        head = torch.cat([
-            torch.stack([n_words, n_esc_true.to(torch.int32),
-                         torch.full_like(n_words, N)], 1),
-            states], 1)
-        esc_pairs = torch.stack([esc_pos, esc_val], dim=2).reshape(B, -1)
-        return torch.cat([head, _place_escapes(packed, n_words, esc_pairs)],
-                         1)
+        with trace.span('enc.pack'):
+            N, esc_cap = self.N, self.esc_cap
+            values = torch.cat(syms_flat, 1)                    # (B, total)
+            idx_all = torch.cat(idx_flat, 1)
+            B = values.shape[0]
+            inband, esc_mask = re_.prepare_inband(values, idx_all,
+                                                  self.enc_offsets,
+                                                  self.enc_lengths)
+            n_esc_true = esc_mask.sum(1)
+            esc_pos, esc_val = _extract_escapes_scatter(esc_mask, values,
+                                                        esc_cap)
+            sym_cat, idx_cat, row_n, w_cap = self._row_layout(
+                inband, idx_all, [v.shape[1] for v in syms_flat])
+            packed, n_words, states = re_.rans_encode_all_multi(
+                sym_cat, idx_cat, row_n, self.enc_cdfs, num_lanes=N,
+                w_cap=w_cap)
+            head = torch.cat([
+                torch.stack([n_words, n_esc_true.to(torch.int32),
+                             torch.full_like(n_words, N)], 1),
+                states], 1)
+            esc_pairs = torch.stack([esc_pos, esc_val], dim=2).reshape(B, -1)
+            return torch.cat(
+                [head, _place_escapes(packed, n_words, esc_pairs)], 1)
 
     def _row_layout(self, inband, idx_all, sizes):
         """(B, total) in-band symbols and indexes of latent blocks of
@@ -537,7 +544,8 @@ class FusedCodecBase:
         bodies = []
         for host, done in handle:
             if done is not None:
-                done.synchronize()
+                with trace.span('enc.pull_wait'):
+                    done.synchronize()
             bodies.extend(self._assemble_body(row)[0]
                           for row in host.numpy())
         return bodies
@@ -589,8 +597,9 @@ class FusedCodecBase:
         device as ONE int32 blob: -> (states (B, N), streams (B, W), esc_pos
         (B, E), esc_val (B, E)), streams zero-padded and escapes padded
         with (-1, 0) to the longest body's."""
-        return self._push_parsed([self.parse_payload(body)
-                                  for body in bodies])
+        with trace.span('dec.push'):
+            return self._push_parsed([self.parse_payload(body)
+                                      for body in bodies])
 
     def _push_parsed(self, parsed):
         """_push of streams already parsed into (states (1, N), words,

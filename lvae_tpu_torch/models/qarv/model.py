@@ -23,7 +23,7 @@ from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
                                          host_stats)
 from lvae_tpu_torch.models.qarv import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
-from lvae_tpu_torch.utils import coding
+from lvae_tpu_torch.utils import coding, trace
 
 MAX_LMB = 8192.0
 log2_e = math.log2(math.e)
@@ -574,22 +574,24 @@ class QarvModel(VAEModelBase):
         synchronising the host; compress_batch_finish gives the streams.
         lmb: a scalar or one lambda per image."""
         self._require_fused('compress_batch')
-        ims = self._to_input(ims, batch=True)
-        B = ims.shape[0]
-        if lmb is None:
-            lmb = self.default_lmb
-        lmbs = [self._round_lmb(v)
-                for v in (lmb if np.ndim(lmb) else [lmb] * B)]
-        if len(lmbs) != B:
-            raise ValueError(f'{len(lmbs)} lambdas for {B} images')
-        # one lane count for the batch: with 'auto', the largest any image
-        # would choose alone, which keeps the high-rate images' latency
-        fused = self._get_fused(max(self._auto_lanes(v) for v in lmbs)
-                                if self.num_lanes == 'auto'
-                                else self.num_lanes)
-        self._fused = fused
-        handle = fused.encode_batch_async(ims, self._lmb_tensor(lmbs))
-        return fused, handle, lmbs, self._grid(ims)
+        with trace.span('enc.request'):
+            ims = self._to_input(ims, batch=True)
+            B = ims.shape[0]
+            if lmb is None:
+                lmb = self.default_lmb
+            lmbs = [self._round_lmb(v)
+                    for v in (lmb if np.ndim(lmb) else [lmb] * B)]
+            if len(lmbs) != B:
+                raise ValueError(f'{len(lmbs)} lambdas for {B} images')
+            # one lane count for the batch: with 'auto', the largest any
+            # image would choose alone, which keeps the high-rate images'
+            # latency
+            fused = self._get_fused(max(self._auto_lanes(v) for v in lmbs)
+                                    if self.num_lanes == 'auto'
+                                    else self.num_lanes)
+            self._fused = fused
+            handle = fused.encode_batch_async(ims, self._lmb_tensor(lmbs))
+            return fused, handle, lmbs, self._grid(ims)
 
     def compress_batch_finish(self, handle):
         """Wait for a compress_batch_async dispatch and return its B
@@ -597,30 +599,33 @@ class QarvModel(VAEModelBase):
         k, hiding the payload copy and stream assembly behind device
         compute."""
         fused, fhandle, lmbs, (nH, nW) = handle
-        bodies = fused.encode_batch_finish(fhandle)
-        # standard single-image streams: [f lmb][3H 1 nH nW][body]
-        return [self._header(v, nH, nW) + b for v, b in zip(lmbs, bodies)]
+        with trace.span('enc.finish'):
+            bodies = fused.encode_batch_finish(fhandle)
+            # standard single-image streams: [f lmb][3H 1 nH nW][body]
+            return [self._header(v, nH, nW) + b
+                    for v, b in zip(lmbs, bodies)]
 
     def decompress_batch_to_device(self, strings):
         """Decode B same-shape streams -> (B, H, W, 3) float16 images on the
         device (asynchronous). Routed by the streams' lane field, which all
         of them must share."""
         self._require_fused('decompress_batch')
-        lmbs, bodies, shapes = [], [], set()
-        for s in strings:
-            lmb_v, = struct.unpack('f', s[:4])
-            nB, nH, nW = struct.unpack('3H', s[4:10])
-            if nB != 1:
-                raise ValueError(f'stream holds {nB} images; expected 1')
-            shapes.add((nH, nW))
-            lmbs.append(lmb_v)
-            bodies.append(s[10:])
-        if len(shapes) != 1:
-            raise ValueError(f'batch streams must share one image shape, '
-                             f'got latent grids {sorted(shapes)}')
-        (nH, nW), = shapes
-        return self._stream_codec(bodies).decode_batch_to_device(
-            bodies, nH, nW, self._lmb_tensor(lmbs))
+        with trace.span('dec.request'):
+            lmbs, bodies, shapes = [], [], set()
+            for s in strings:
+                lmb_v, = struct.unpack('f', s[:4])
+                nB, nH, nW = struct.unpack('3H', s[4:10])
+                if nB != 1:
+                    raise ValueError(f'stream holds {nB} images; expected 1')
+                shapes.add((nH, nW))
+                lmbs.append(lmb_v)
+                bodies.append(s[10:])
+            if len(shapes) != 1:
+                raise ValueError(f'batch streams must share one image shape, '
+                                 f'got latent grids {sorted(shapes)}')
+            (nH, nW), = shapes
+            return self._stream_codec(bodies).decode_batch_to_device(
+                bodies, nH, nW, self._lmb_tensor(lmbs))
 
     # ---- decode ---------------------------------------------------------
 

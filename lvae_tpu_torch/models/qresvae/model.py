@@ -29,7 +29,7 @@ from lvae_tpu_torch.models.base import (VAEModelBase, exact_f32, host_image,
                                          host_stats)
 from lvae_tpu_torch.models.qresvae import fused
 from lvae_tpu_torch.ops import cdf as cdf_ops
-from lvae_tpu_torch.utils import coding
+from lvae_tpu_torch.utils import coding, trace
 
 log2_e = math.log2(math.e)
 
@@ -600,30 +600,34 @@ class QresModel(VAEModelBase):
         same-shape images and returns a handle without synchronising the
         host."""
         self._require_fused('compress_batch')
-        ims = self._to_input(ims, batch=True)
-        codec = self._get_fused(self.num_lanes)
-        return codec, codec.encode_batch_async(ims), self._shape(ims)
+        with trace.span('enc.request'):
+            ims = self._to_input(ims, batch=True)
+            codec = self._get_fused(self.num_lanes)
+            return codec, codec.encode_batch_async(ims), self._shape(ims)
 
     def compress_batch_finish(self, handle):
         """Wait for a compress_batch_async dispatch -> its B objects. A
         serving loop dispatches batch k+1 before finishing batch k."""
         codec, fhandle, shape = handle
-        return [[body, shape] for body in codec.encode_batch_finish(fhandle)]
+        with trace.span('enc.finish'):
+            return [[body, shape]
+                    for body in codec.encode_batch_finish(fhandle)]
 
     def decompress_batch_to_device(self, objs):
         """Decode B same-shape objects -> (B, H, W, 3) images on the device
         (asynchronous; float16, or uint8 for a lossless model)."""
         self._require_fused('decompress_batch')
-        shapes = {tuple(o[-1]) for o in objs}
-        if len(shapes) != 1:
-            raise ValueError(f'batch streams must share one image shape, '
-                             f'got {sorted(shapes)}')
-        nB, fH, fW, _ = shapes.pop()
-        if nB != 1:
-            raise ValueError(f'stream holds {nB} images; expected 1')
-        bodies = [o[0] for o in objs]
-        return self._stream_codec(bodies).decode_batch_to_device(bodies, fH,
-                                                                 fW)
+        with trace.span('dec.request'):
+            shapes = {tuple(o[-1]) for o in objs}
+            if len(shapes) != 1:
+                raise ValueError(f'batch streams must share one image shape, '
+                                 f'got {sorted(shapes)}')
+            nB, fH, fW, _ = shapes.pop()
+            if nB != 1:
+                raise ValueError(f'stream holds {nB} images; expected 1')
+            bodies = [o[0] for o in objs]
+            return self._stream_codec(bodies).decode_batch_to_device(
+                bodies, fH, fW)
 
     # ---- files ----------------------------------------------------------
 

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from lvae_tpu_torch.parallel.spatial import sharded
+from lvae_tpu_torch.utils import trace
 
 __all__ = ['TrainState', 'make_train_step', 'param_group_label']
 
@@ -197,31 +198,38 @@ def make_train_step(loss_fn, state, accum_num=1, grad_clip=2.0, wdecay=0.0,
         return gnorm
 
     def train_step(batch, generator, lr, grad_median, ema_decay):
-        if mesh is None:
-            loss, stats = loss_fn(batch, generator)
-        else:
-            with sharded(mesh, generator) as rows:
-                loss, stats = loss_fn(batch, rows)
-        grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                    materialize_grads=True)
-        with torch.no_grad():
-            g = torch.cat([x.reshape(-1) for x in grads])
+        with trace.span('train.step'):
+            with trace.span('train.forward'):
+                if mesh is None:
+                    loss, stats = loss_fn(batch, generator)
+                else:
+                    with sharded(mesh, generator) as rows:
+                        loss, stats = loss_fn(batch, rows)
+            with trace.span('train.backward'):
+                grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                            materialize_grads=True)
+                with torch.no_grad():
+                    g = torch.cat([x.reshape(-1) for x in grads])
+                    if mesh is not None:
+                        mesh.mean(g)
+                    state.grad_accum.add_(g if accum_num == 1
+                                          else g / accum_num)
+            state.accum_count += 1
+            state.step += 1
+            if state.accum_count >= accum_num:
+                with trace.span('train.update'):
+                    gnorm = apply_update(lr, grad_median, ema_decay)
+                state.accum_count = 0
+            else:
+                gnorm = (torch.linalg.vector_norm(state.grad_accum)
+                         * accum_num)
+            metrics = {k: v.detach() for k, v in stats.items()}
             if mesh is not None:
-                mesh.mean(g)
-            state.grad_accum.add_(g if accum_num == 1 else g / accum_num)
-        state.accum_count += 1
-        state.step += 1
-        if state.accum_count >= accum_num:
-            gnorm = apply_update(lr, grad_median, ema_decay)
-            state.accum_count = 0
-        else:
-            gnorm = torch.linalg.vector_norm(state.grad_accum) * accum_num
-        metrics = {k: v.detach() for k, v in stats.items()}
-        if mesh is not None:
-            keys = list(metrics)
-            vals = mesh.mean(torch.stack([metrics[k].float() for k in keys]))
-            metrics = dict(zip(keys, vals))
-        metrics['grad_norm'] = gnorm
-        return metrics
+                keys = list(metrics)
+                vals = mesh.mean(torch.stack([metrics[k].float()
+                                              for k in keys]))
+                metrics = dict(zip(keys, vals))
+            metrics['grad_norm'] = gnorm
+            return metrics
 
     return train_step

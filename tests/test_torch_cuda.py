@@ -300,6 +300,36 @@ def test_portable_qarv_tiny_batch_roundtrip_on_card(card):
         assert np.array_equal(model.decompress(body)[0], dec[b])
 
 
+def test_batch_spans_and_counters_on_card(card):
+    """With the recorder on, the encode's finish waits for each chunk's
+    payload copy inside enc.pull_wait, and the launch counters grow by
+    the wrappers' launches: one multi-image rANS launch a latent block on
+    decode."""
+    from lvae_tpu_torch.utils import trace
+    torch.manual_seed(0)
+    model = lvae_tpu_torch.get_model('qarv_tiny')
+    model.compress_mode(num_lanes='auto', portable=True, max_program_batch=2)
+    ims = torch.rand(3, 128, 192, 3, device=card)
+    lmbs = [64.0, 512.0, 2048.0]
+    model.decompress_batch(model.compress_batch(ims, lmb=lmbs))     # warm
+    trace.start()
+    try:
+        bodies = model.compress_batch_finish(
+            model.compress_batch_async(ims, lmb=lmbs))
+        before = trace.counters()
+        model.decompress_batch_to_device(bodies)
+        after = trace.counters()
+    finally:
+        spans = trace.stop()
+    fin, = [i for i, s in enumerate(spans) if s[0] == 'enc.finish']
+    assert [s[0] for s in spans if s[3] == fin] == ['enc.pull_wait'] * 2
+    delta = {k: after[k] - before[k] for k in after}
+    rans = sum(1 for s in spans if s[0] == 'dec.rans')
+    assert rans == 4 and delta['rans_decode_block_multi'] == rans
+    assert delta['rans_encode_all_multi'] == 0
+    assert sum(delta.values()) > rans
+
+
 # ---- the QRes-VAE trunk kernels ---------------------------------------------
 
 def _qres_cases(rng, card):
